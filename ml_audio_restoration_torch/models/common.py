@@ -1,0 +1,88 @@
+"""Shared building blocks of the port's models.
+
+Counterpart of ml_audio_restoration_tpu/models/common.py. The models are
+`nn.Module`s whose submodule names are the upstream state-dict keys, so an
+upstream `.pth` loads through `load_state_dict(strict=True)`. Their forwards
+are the eval forwards: batch norm is folded into the preceding conv.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..ops import conv1d, leaky_relu
+
+LRELU_SLOPE = 0.2
+
+
+def fold_conv_bn(conv: nn.Conv1d, bn: nn.BatchNorm1d):
+    """Fold eval batch norm into the conv: conv(x, w, b) then BN ==
+    conv(x, w*g, (b-mean)*g + beta) with g = scale*rsqrt(var+eps).
+    Computed in f32, cast to the conv weight's dtype."""
+    w_dtype = conv.weight.dtype
+    f32 = torch.float32
+    g = bn.weight.to(f32) * torch.rsqrt(bn.running_var.to(f32) + bn.eps)
+    w = (conv.weight.to(f32) * g[:, None, None]).to(w_dtype)
+    b = ((conv.bias.to(f32) - bn.running_mean.to(f32)) * g
+         + bn.bias.to(f32)).to(w_dtype)
+    return w, b
+
+
+def conv_bn(conv: nn.Conv1d, bn: nn.BatchNorm1d, x, *, lrelu: bool = True):
+    """Eval conv -> BN (folded) -> optional LeakyReLU(0.2)."""
+    w, b = fold_conv_bn(conv, bn)
+    y = conv1d(x, w, b, padding=conv.padding[0], dilation=conv.dilation[0])
+    return leaky_relu(y) if lrelu else y
+
+
+def conv_bn_lrelu_layers(in_ch: int, out_ch: int, k: int, *, padding: int,
+                         dilation: int = 1):
+    """The layers of Sequential(conv, BN, LeakyReLU), so the conv and BN
+    land at the upstream keys `.0` and `.1`."""
+    return [nn.Conv1d(in_ch, out_ch, k, padding=padding, dilation=dilation),
+            nn.BatchNorm1d(out_ch), nn.LeakyReLU(LRELU_SLOPE)]
+
+
+def double_conv_block(in_ch: int, out_ch: int) -> nn.Sequential:
+    """The U-Net block (conv3-BN-LeakyReLU) x2: keys .0/.1 and .3/.4."""
+    return nn.Sequential(
+        *conv_bn_lrelu_layers(in_ch, out_ch, 3, padding=1),
+        *conv_bn_lrelu_layers(out_ch, out_ch, 3, padding=1))
+
+
+def double_conv_block_apply(block: nn.Sequential, x):
+    x = conv_bn(block[0], block[1], x)
+    return conv_bn(block[3], block[4], x)
+
+
+def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every weight from `generator` with torch's default
+    distributions: conv and transpose-conv weights and biases
+    U(+-1/sqrt(fan_in)) (fan_in from weight dim 1 times k, as torch
+    computes it), LSTM weights U(+-1/sqrt(H)). BN keeps scale 1, shift 0,
+    mean 0, var 1."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
+                bound = 1.0 / math.sqrt(m.weight.shape[1] * m.weight.shape[2])
+                for p in (m.weight, m.bias):
+                    _uniform(p, bound, generator)
+            elif isinstance(m, nn.BatchNorm1d):
+                m.reset_parameters()
+            elif hasattr(m, "hidden_size"):
+                bound = 1.0 / math.sqrt(m.hidden_size)
+                for p in m.parameters(recurse=False):
+                    _uniform(p, bound, generator)
+    return model
+
+
+def _uniform(p, bound: float, generator: torch.Generator):
+    u = torch.rand(p.shape, generator=generator, dtype=torch.float32,
+                   device=generator.device)
+    p.copy_((u * 2.0 - 1.0) * bound)
+
+
+def count_params(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

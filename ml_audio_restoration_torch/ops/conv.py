@@ -1,0 +1,47 @@
+"""1-D convolution primitives, eval parts, in torch's NCW layout.
+
+Counterpart of ml_audio_restoration_tpu/ops/conv.py, which works in NWC with
+[k, in, out] kernels. Here tensors are [batch, channels, time] and weights
+keep torch's layouts: Conv1d [out, in, k], ConvTranspose1d [in, out, k] in
+torch's kernel order (torch flips nothing; the JAX side flips the kernel
+itself, so the port must not). These calls go to ATen and cuDNN.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def conv1d(x, w, b=None, *, stride: int = 1, padding: int = 0,
+           dilation: int = 1, groups: int = 1):
+    """x [B, Cin, T], w [Cout, Cin // groups, K] -> [B, Cout, T_out]."""
+    return F.conv1d(x, w, b, stride=stride, padding=padding,
+                    dilation=dilation, groups=groups)
+
+
+def conv_transpose1d(x, w, b=None, *, stride: int = 2, padding: int = 0):
+    """x [B, Cin, T], w [Cin, Cout, K] -> [B, Cout, (T-1)*stride - 2p + K]."""
+    return F.conv_transpose1d(x, w, b, stride=stride, padding=padding)
+
+
+def max_pool1d(x, *, window: int = 2, stride: int = 2):
+    """Floor-mode max pool: [B, C, T] -> [B, C, T // stride]."""
+    return F.max_pool1d(x, window, stride, ceil_mode=False)
+
+
+def moving_average(x, kernel_size: int):
+    """Box filter with zero 'same' padding on [B, 1, T]."""
+    w = torch.ones((1, 1, kernel_size), dtype=x.dtype,
+                   device=x.device) / kernel_size
+    return F.conv1d(x, w, padding=kernel_size // 2)
+
+
+def leaky_relu(x, negative_slope: float = 0.2):
+    return F.leaky_relu(x, negative_slope)
+
+
+def batch_norm(x, scale, bias, mean, var, *, eps: float = 1e-5):
+    """Inference-mode batch norm over the channel axis of [B, C, T]."""
+    inv = torch.rsqrt(var + eps)
+    return ((x - mean[:, None]) * inv[:, None] * scale[:, None]
+            + bias[:, None])
