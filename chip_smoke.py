@@ -5,21 +5,34 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. device  - the card's name and power limit (nvidia-smi);
-  2. build   - nvcc builds every CUDA kernel of the main path from csrc/;
-  3. kernels - each kernel against its plain PyTorch version on the card,
-               with stated tolerances, then timed at the main-path shape
-               beside its bound, the plain version and a library yardstick;
+  2. build   - nvcc builds every CUDA source of the package, one nvcc per
+               source, all started together;
+  3. kernels - each kernel (K1 inference recurrence, K2 train forward, K3
+               train backward) against its plain PyTorch version on the
+               card, with stated tolerances, then timed at its main-path
+               shape beside its bound, the plain version and a library
+               yardstick;
   4. main    - the offline restore chain at full published widths with
                seeded random weights: kernel vs plain recurrence on a 4 s
                clip, card vs CPU on the same clip, a 120 s clip (64 bucketed
-               chunks) with xRT, per-stage ms and kernel launch counts, and
-               a WAV file round trip.
+               chunks) with xRT, per-stage ms and K1 launch counts, and a
+               WAV file round trip;
+  5. grad    - gradients through the eval stereo forward on the card are
+               non-zero and match the plain recurrence's;
+  6. train   - stereo-separator training at full width: one optimizer step
+               (kernel vs plain on the card, card vs CPU), 10-step loss
+               trajectories (kernel vs plain; two kernel runs held equal),
+               then train_from_config over seeded stereo WAVs
+               (2 s chunks, batch 16) with K2/K3 launch counts, 10 timed
+               steps (audio-s/s, the step split, peak memory) and a
+               checkpoint resumed in a fresh trainer.
 Then one line {"kernels": [...]} and, last, the device line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -37,6 +50,12 @@ BF16_TOL = 1e-2     # a summation-order change can flip one bf16 rounding of
 #                     h, and the recurrence carries that change forward
 PIPE_TOL = 1e-4     # whole chain, kernel vs plain recurrence on the card
 CPU_TOL = 1e-3      # whole chain, card vs CPU: the chain's parity bar
+K2_TOL = 1e-5       # train forward: f32 throughout, another summation order
+K3_TOL = 2e-5       # dgx, dh0, dc0: the bar JAX holds its Pallas backward to
+DW_TOL = 1e-4       # dW_hh, relative to its largest entry: a sum over T*B
+#                     outer products, taken per row and then across rows
+STEP_TOL = 1e-4     # one train step, kernel vs plain: loss (relative),
+#                     smooth-term gradients (of the largest entry), BN stats
 
 
 def emit(obj):
@@ -57,14 +76,23 @@ def phase_device(torch):
     return line
 
 
+KERNEL_SOURCES = ("lstm_recurrence", "lstm_train")
+
+
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from ml_audio_restoration_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.load("lstm_recurrence")
-    emit({"phase": "build", "kernel": "lstm_recurrence",
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(_build.build, KERNEL_SOURCES))
+    for name in KERNEL_SOURCES:
+        _build.load(name)
+    emit({"phase": "build", "sources": list(KERNEL_SOURCES),
           "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": _build.build_seconds.get("lstm_recurrence")})
+          "nvcc_seconds": {k: _build.build_seconds.get(k)
+                           for k in KERNEL_SOURCES}})
 
 
 def _cuda_ms(torch, fn, reps: int) -> float:
@@ -164,15 +192,13 @@ def phase_kernels(torch):
     del out_lib, ref
     n_bytes = 4 * (t * b * 5 * h + h * 4 * h + 4 * b * h)
     flops = 2.0 * t * b * h * 4 * h  # the h @ W_hh products
-    bound_bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
-    bound_ops_ms = flops / H100_F32_FLOPS * 1e3
+    bound_ms, bound_by = _bound(n_bytes, flops)
     timing = {"phase": "kernel_time", "kernel": "lstm_recurrence",
               "shape": [t, b, h], "dtype": "float32", "ms": ms,
               "plain_ms": plain_ms, "library_ms": library_ms,
               "library_segment_steps": seg,
               "library_vs_kernel_max_abs": lib_dev,
-              "bytes": n_bytes, "flops": flops,
-              "bound_bytes_ms": bound_bytes_ms, "bound_ops_ms": bound_ops_ms,
+              "bytes": n_bytes, "flops": flops, "bound_ms": bound_ms,
               "ns_per_step": ms * 1e6 / t}
     emit(timing)
     del gates, out_k
@@ -181,10 +207,165 @@ def phase_kernels(torch):
             "source": "ml_audio_restoration_torch/csrc/lstm_recurrence.cu",
             "replaces": "ml_audio_restoration_tpu/ops/pallas/lstm.py:59",
             "max_abs_err": f32_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-            "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
-                         else "operations"),
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def _bound(n_bytes: float, flops: float):
+    """(bound ms, what bounds it) on the card's data-sheet peaks."""
+    by_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    by_ops = flops / H100_F32_FLOPS * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def phase_train_kernels(torch):
+    """K2 and K3 against their plain versions, then timed at the stereo
+    training shape (2 s chunks at 22.05 kHz, batch 16)."""
+    from ml_audio_restoration_torch.ops import lstm as L
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def train_inputs(t, b, h):
+        return (randn(t, b, 4 * h, scale=0.5), randn(h, 4 * h, scale=0.15),
+                randn(b, h, scale=0.3), randn(b, h, scale=0.3))
+
+    t, b, h = 1001, 13, 64
+    gates, w_hh, h0, c0 = train_inputs(t, b, h)
+    dout, dhf, dcf = (randn(t, b, h, scale=0.1), randn(b, h, scale=0.1),
+                      randn(b, h, scale=0.1))
+    k = L._lstm_train_fwd_cuda(gates, w_hh, h0, c0)
+    p = L.lstm_recurrence_train_plain(gates, w_hh, h0, c0)
+    f32_err = max(_max_dev(x, y) for x, y in zip(k, p))
+    # bf16 gates: upcast on load, h not rounded, every output f32
+    gb = gates.bfloat16()
+    kb = L._lstm_train_fwd_cuda(gb, w_hh, h0, c0)
+    pb = L.lstm_recurrence_train_plain(gb, w_hh, h0, c0)
+    bf16_err = max(_max_dev(x, y) for x, y in zip(kb, pb))
+    # two halves with the carry threaded through == one run
+    a = L._lstm_train_fwd_cuda(gates[:500], w_hh, h0, c0)
+    z = L._lstm_train_fwd_cuda(gates[500:], w_hh, a[1], a[2])
+    halves_err = max(
+        max(_max_dev(torch.cat([a[i], z[i]]), k[i]) for i in (0, 3, 4)),
+        _max_dev(z[1], k[1]), _max_dev(z[2], k[2]))
+    kg = L._lstm_train_bwd_cuda(p[3], p[4], p[0], h0, c0, w_hh, dout, dhf,
+                                dcf)
+    pg = L.lstm_recurrence_bwd_plain(p[3], p[4], p[0], h0, c0, w_hh, dout,
+                                     dhf, dcf)
+    torch.cuda.synchronize()
+    bwd_err = max(_max_dev(kg[i], pg[i]) for i in (0, 2, 3))
+    dw_rel = _max_dev(kg[1], pg[1]) / float(pg[1].abs().max())
+    check = {"phase": "kernel_check", "kernel": "lstm_train_fwd+bwd",
+             "shape": [t, b, h], "fwd_f32_max_abs_err": f32_err,
+             "fwd_bf16_max_abs_err": bf16_err,
+             "fwd_bf16_out_dtype": str(kb[0].dtype),
+             "fwd_halves_max_abs_err": halves_err, "fwd_tol": K2_TOL,
+             "bwd_max_abs_err": bwd_err, "bwd_tol": K3_TOL,
+             "dw_rel_err": dw_rel, "dw_tol": DW_TOL}
+    emit(check)
+    if not (f32_err <= K2_TOL and bf16_err <= K2_TOL
+            and halves_err <= K2_TOL and kb[0].dtype == torch.float32
+            and bwd_err <= K3_TOL and dw_rel <= DW_TOL):
+        raise AssertionError(f"lstm_train disagrees with plain: {check}")
+    del k, p, kb, pb, a, z, kg, pg
+
+    # the training shape: 2 s chunks at 22.05 kHz, batch 16
+    t, b, h = 44100, 16, 64
+    gates, w_hh, h0, c0 = train_inputs(t, b, h)
+    dout, dhf, dcf = (randn(t, b, h, scale=0.1), randn(b, h, scale=0.1),
+                      randn(b, h, scale=0.1))
+    fwd = lambda: L._lstm_train_fwd_cuda(gates, w_hh, h0, c0)  # noqa: E731
+    res = fwd()
+    fwd_ms = _cuda_ms(torch, fwd, 3)
+    fwd_plain_ms = _cuda_ms(
+        torch, lambda: L.lstm_recurrence_train_plain(gates, w_hh, h0, c0), 1)
+    out, _, _, acts, cseq = res
+    bwd = lambda: L._lstm_train_bwd_cuda(  # noqa: E731
+        acts, cseq, out, h0, c0, w_hh, dout, dhf, dcf)
+    grads = bwd()
+    bwd_ms = _cuda_ms(torch, bwd, 3)
+    bwd_plain_ms = _cuda_ms(torch, lambda: L.lstm_recurrence_bwd_plain(
+        acts, cseq, out, h0, c0, w_hh, dout, dhf, dcf), 1)
+
+    # yardstick only, never called by the port: cuDNN's LSTM in train mode
+    # with an identity input projection, forward for K2 and forward +
+    # backward minus forward for K3
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = torch.nn.LSTM(4 * h, h).to(dev).train()
+    with torch.no_grad():
+        ref.weight_ih_l0.copy_(torch.eye(4 * h, device=dev))
+        ref.weight_hh_l0.copy_(w_hh.T)
+        ref.bias_ih_l0.zero_()
+        ref.bias_hh_l0.zero_()
+    x = gates.clone().requires_grad_()
+    hc = (h0[None].clone().requires_grad_(), c0[None].clone().requires_grad_())
+
+    def lib_fwd():
+        return ref(x, hc)
+
+    def lib_fwd_bwd():
+        y, (hn, cn) = ref(x, hc)
+        return torch.autograd.grad(
+            (y, hn, cn), (x, ref.weight_hh_l0, hc[0], hc[1]),
+            (dout, dhf[None], dcf[None]))
+
+    try:  # the yardstick only: cuDNN may refuse a sequence this long
+        lib_grads = lib_fwd_bwd()
+    except RuntimeError as e:
+        lib_fwd_ms = lib_bwd_ms = None
+        lib_dev = {"refused": str(e)[:200]}
+    else:
+        lib_fwd_ms = _cuda_ms(torch, lib_fwd, 3)
+        lib_bwd_ms = _cuda_ms(torch, lib_fwd_bwd, 3) - lib_fwd_ms
+        lib_dev = {"out": _max_dev(lib_fwd()[0], out),
+                   "dgx": _max_dev(lib_grads[0], grads[0]),
+                   "dw_hh": _max_dev(lib_grads[1].T, grads[1]),
+                   "dw_hh_max": float(grads[1].abs().max()),
+                   "dh0": _max_dev(lib_grads[2][0], grads[2]),
+                   "dc0": _max_dev(lib_grads[3][0], grads[3])}
+        del lib_grads
+    del ref, x, hc
+
+    g4 = 4 * h
+    fwd_bytes = 4 * (t * b * g4 + h * g4 + 2 * b * h       # gates, W, h0/c0
+                     + t * b * (h + g4 + h) + 2 * b * h)   # out, acts, cseq
+    fwd_flops = 2.0 * t * b * h * g4                       # h @ W_hh
+    bwd_bytes = 4 * (t * b * (g4 + 3 * h) + h * g4 + 4 * b * h  # residuals
+                     + t * b * g4 + h * g4 + 2 * b * h)    # dgx, dW, dh0/dc0
+    bwd_flops = 4.0 * t * b * h * g4   # d_lin @ W_hh^T and the dW products
+    fwd_bound, fwd_by = _bound(fwd_bytes, fwd_flops)
+    bwd_bound, bwd_by = _bound(bwd_bytes, bwd_flops)
+    timing = {"phase": "kernel_time", "kernel": "lstm_train_fwd+bwd",
+              "shape": [t, b, h], "dtype": "float32",
+              "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms,
+              "fwd_library_ms": lib_fwd_ms, "fwd_bytes": fwd_bytes,
+              "fwd_flops": fwd_flops, "fwd_bound_ms": fwd_bound,
+              "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
+              "bwd_library_ms": lib_bwd_ms, "bwd_bytes": bwd_bytes,
+              "bwd_flops": bwd_flops, "bwd_bound_ms": bwd_bound,
+              "library_vs_kernel_max_abs": lib_dev,
+              "fwd_ns_per_step": fwd_ms * 1e6 / t,
+              "bwd_ns_per_step": bwd_ms * 1e6 / t}
+    emit(timing)
+    del gates, res, out, acts, cseq, grads, dout
+    torch.cuda.empty_cache()
+    src = "ml_audio_restoration_torch/csrc/lstm_train.cu"
+    return [
+        {"name": "lstm_train_fwd", "route": "cuda", "source": src,
+         "replaces": "ml_audio_restoration_tpu/ops/pallas/lstm.py:223",
+         "max_abs_err": max(f32_err, bf16_err, halves_err), "ms": fwd_ms,
+         "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound,
+         "bound_by": fwd_by, "library_ms": lib_fwd_ms},
+        {"name": "lstm_train_bwd", "route": "cuda", "source": src,
+         "replaces": "ml_audio_restoration_tpu/ops/pallas/lstm.py:260",
+         "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+         "bound_ms": bwd_bound, "bound_by": bwd_by,
+         "library_ms": lib_bwd_ms}]
 
 
 def _models(torch, dev):
@@ -321,6 +502,434 @@ def phase_main(torch, kernel_row):
         raise AssertionError(f"restore_file round trip failed: {io_row}")
 
 
+def _grad_devs(a, b):
+    """max |a - b| over a list of gradients, relative to b's largest."""
+    return (max(_max_dev(x, y) for x, y in zip(a, b))
+            / max(float(y.abs().max()) for y in b))
+
+
+def phase_grad(torch):
+    """Gradients through the eval stereo forward on the card: the LSTM
+    under grad takes K2/K3, reaches the encoder and W_ih/W_hh, and agrees
+    with the plain recurrence's gradients."""
+    from ml_audio_restoration_torch.ops import lstm as L
+
+    dev = torch.device("cuda")
+    st = _models(torch, dev)[2]
+    x = torch.from_numpy(_clip(0.25, 22050, seed=5)[None]).to(dev)
+    params = [p for _, p in st.named_parameters()]
+
+    def grads():
+        return torch.autograd.grad(st(x).square().mean(), params)
+
+    L.reset_launch_count()
+    g_k = grads()
+    launches = (L.train_fwd_launch_count, L.train_bwd_launch_count)
+    with L.plain_recurrence():
+        g_p = grads()
+    torch.cuda.synchronize()
+    names = [n for n, _ in st.named_parameters()]
+    reach = {n: float(g.abs().max()) for n, g in zip(names, g_k)
+             if n.startswith(("encoder.0.0", "lstm."))}
+    row = {"phase": "grad_eval_forward", "train_launches": list(launches),
+           "grad_max_abs": reach,
+           "kernel_vs_plain_rel": _grad_devs(g_k, g_p),
+           "tol": STEP_TOL}
+    emit(row)
+    if not (launches == (1, 1) and all(v > 0 for v in reach.values())
+            and row["kernel_vs_plain_rel"] <= STEP_TOL):
+        raise AssertionError(f"gradient through the eval forward: {row}")
+
+
+def _stereo_batch(batch: int, frames: int, seed: int) -> dict:
+    """A broadband stereo batch [B, 2, T]: tones under noise, L and R
+    correlated, RMS ~0.1."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(frames) / 22050
+    out = np.empty((batch, 2, frames), np.float32)
+    for i in range(batch):
+        tone = 0.1 * np.sin(2 * np.pi * rng.uniform(100, 2000) * t)
+        left = tone + 0.05 * rng.standard_normal(frames)
+        right = 0.6 * tone + 0.05 * rng.standard_normal(frames)
+        out[i] = np.stack([left, right])
+    return {"stereo": out}
+
+
+def _train_trainer(torch, model, device, **cfg):
+    from ml_audio_restoration_torch.config import TrainConfig
+    from ml_audio_restoration_torch.train.trainer import Trainer
+
+    config = TrainConfig(model="stereo_separator", **cfg)
+    return Trainer("stereo_separator", model, [], pairing="mono_target_stereo",
+                   config=config, device=device)
+
+
+# The reference loss's log-magnitude spectral and clustering terms weigh
+# each STFT bin by 1/(|S| + 1e-5), so their gradient moves with the f32
+# rounding of the smallest bins of the model's output: a 1e-7 change of the
+# LSTM output (K2 against its plain version) moves it by ~1e-2 of its
+# largest entry. Its smooth terms (time MSE and temporal consistency) are
+# well-conditioned. So the step's gradients are held entry by entry on the
+# smooth terms and as a relative L2 norm on the reference loss.
+SMOOTH_TERMS = {"spectral_weight": 0.0, "clustering_weight": 0.0}
+
+# Bars of the train step, each set from the readings of a run on the card
+# (PERF.md) with room for run-to-run spread. An update is new weights
+# minus old over every parameter but the BN-fed conv biases; Adam moves each
+# weight by about lr * sign(g), so a gradient entry whose sign the rounding
+# flips moves the update by 2 lr, and these are relative L2 norms.
+# Readings: reference gradient 1.2e-2 kernel vs plain, 7.1e-2 card vs CPU
+# (the plain version vs the CPU: 6.9e-2); updates 4.9e-5 / 2.7e-2 on the
+# smooth terms, 0.11 / 0.29 on the reference loss; 1.9e-3 after the 10
+# smooth steps. A gradient of the wrong sign in any term, or one lost,
+# moves these by O(1).
+REF_GRAD_L2 = {"kernel_vs_plain": 5e-2, "card_vs_cpu": 2e-1}
+UPDATE_L2 = {("smooth", "kernel_vs_plain"): 1e-3,
+             ("smooth", "card_vs_cpu"): 1e-1,
+             ("reference", "kernel_vs_plain"): 3e-1,
+             ("reference", "card_vs_cpu"): 6e-1}
+TRAJ_UPDATE_L2 = 1e-2  # smooth terms, 10 steps at lr 1e-3, kernel vs plain
+
+
+def _bn_fed_biases(model):
+    """Conv biases that feed a train-mode BN: the batch mean cancels them,
+    so their true gradient is zero and Adam turns the rounding noise both
+    sides hand it into a step of up to lr."""
+    from torch import nn
+
+    mods = dict(model.named_modules())
+    out = set()
+    for name, mod in mods.items():
+        if isinstance(mod, nn.Sequential):
+            kids = list(mod.children())
+            for i, kid in enumerate(kids[:-1]):
+                if (isinstance(kid, nn.Conv1d)
+                        and isinstance(kids[i + 1], nn.BatchNorm1d)):
+                    out.add(f"{name}.{i}.bias")
+    return out
+
+
+def _rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| over two lists of tensors, in f64 on the CPU."""
+    num = sum(float((x.cpu().double() - y.cpu().double()).square().sum())
+              for x, y in zip(a, b))
+    return (num / sum(float(y.cpu().double().square().sum())
+                      for y in b)) ** 0.5
+
+
+@contextlib.contextmanager
+def _all_deterministic(torch):
+    """torch.use_deterministic_algorithms, warning for each op that has no
+    deterministic implementation; yields the list of those ops' names."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    names: list = []
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield names
+        names += sorted({str(w.message).split(" does not have")[0]
+                         for w in caught
+                         if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def phase_train_small(torch):
+    """One full optimizer step at full width on a 0.25 s chunk, batch 4,
+    TrainConfig defaults with clipping and EMA: kernel vs plain on the
+    card, card vs CPU, and the card against itself (the reference loss and
+    its smooth terms); then 10 steps at lr 1e-3 on one fixed batch, kernel
+    vs plain and kernel vs kernel, the latter also with cuDNN's
+    nondeterministic algorithms (the trainer turns them off) and with
+    every op's deterministic one."""
+    import copy
+
+    from ml_audio_restoration_torch.models import StereoSeparator, init_params
+    from ml_audio_restoration_torch.ops import lstm as L
+
+    base = init_params(StereoSeparator(), torch.Generator().manual_seed(0))
+    w0 = {n: p.detach().clone() for n, p in base.named_parameters()}
+    batch = _stereo_batch(4, 5512, seed=6)
+    cfg = {"max_grad_norm": 1.0, "ema_decay": 0.999}
+    lr = 1e-4  # TrainConfig's default
+    loose = _bn_fed_biases(base)
+    moved = [n for n in w0 if n not in loose]
+
+    def run(device, plain=False, steps=1, cudnn_deterministic=True, **kw):
+        tr = _train_trainer(torch, copy.deepcopy(base), device,
+                            **{**cfg, **kw})
+        torch.backends.cudnn.deterministic = cudnn_deterministic
+        try:
+            with (L.plain_recurrence() if plain
+                  else contextlib.nullcontext()):
+                losses = [float(tr._train_step(batch)["loss"])
+                          for _ in range(steps)]
+        finally:
+            torch.backends.cudnn.deterministic = True  # the trainer's
+        grads = {n: p.grad.detach() for n, p in tr.model.named_parameters()}
+        state = {n: v.detach().float()
+                 for n, v in tr.model.state_dict().items()}
+        state.update({f"ema.{n}": v for n, v in tr.ema_params.items()})
+        return losses, grads, state
+
+    def update(state, prefix=""):
+        return [state[prefix + n].cpu() - w0[n] for n in moved]
+
+    def compare(a, b):
+        (la, ga, sa), (lb, gb, sb) = a, b
+        stats = [n for n in sa if n.endswith(("running_mean",
+                                              "running_var"))]
+        return {"loss_rel": abs(la[0] - lb[0]) / abs(lb[0]),
+                "grad_rel": _grad_devs(
+                    [ga[n] for n in ga],
+                    [gb[n].to(ga[n].device) for n in ga]),
+                "grad_rel_l2": _rel_l2(list(ga.values()),
+                                       [gb[n] for n in ga]),
+                "update_rel_l2": _rel_l2(update(sa), update(sb)),
+                "ema_update_rel_l2": _rel_l2(update(sa, "ema."),
+                                             update(sb, "ema.")),
+                "bn_stats_max_abs": max(
+                    _max_dev(sa[n], sb[n].to(sa[n].device)) for n in stats),
+                "bn_fed_biases_max_abs": max(
+                    _max_dev(sa[n], sb[n].to(sa[n].device)) for n in loose)}
+
+    row = {"phase": "train_small", "batch": 4, "frames": 5512, "lr": lr,
+           "tol": {"kernel_vs_plain": STEP_TOL, "card_vs_cpu": CPU_TOL,
+                   "reference_grad_rel_l2": REF_GRAD_L2,
+                   "update_rel_l2": {"/".join(k): v
+                                     for k, v in UPDATE_L2.items()},
+                   "trajectory": CPU_TOL,
+                   "trajectory_update_rel_l2": TRAJ_UPDATE_L2}}
+    ok = True
+    for name, kw in (("reference", {}), ("smooth", SMOOTH_TERMS)):
+        L.reset_launch_count()
+        k = run("cuda", **kw)
+        launches = [L.train_fwd_launch_count, L.train_bwd_launch_count]
+        k2, p, c = run("cuda", **kw), run("cuda", True, **kw), run("cpu",
+                                                                   **kw)
+        torch.cuda.synchronize()
+        r = {"loss": k[0][0], "launches": launches,
+             "kernel_vs_kernel": compare(k, k2),
+             "kernel_vs_plain": compare(k, p), "card_vs_cpu": compare(k, c),
+             "plain_vs_cpu": compare(p, c)}
+        row[name] = r
+        kp, kc = r["kernel_vs_plain"], r["card_vs_cpu"]
+        ok &= (launches == [1, 1] and kp["loss_rel"] <= STEP_TOL
+               and kc["loss_rel"] <= CPU_TOL
+               and kp["bn_stats_max_abs"] <= STEP_TOL
+               and kc["bn_stats_max_abs"] <= CPU_TOL)
+        for side, dev in (("kernel_vs_plain", kp), ("card_vs_cpu", kc)):
+            ok &= max(dev["update_rel_l2"],
+                      dev["ema_update_rel_l2"]) <= UPDATE_L2[(name, side)]
+        if name == "smooth":
+            ok &= kp["grad_rel"] <= STEP_TOL and kc["grad_rel"] <= CPU_TOL
+        else:
+            ok &= (kp["grad_rel_l2"] <= REF_GRAD_L2["kernel_vs_plain"]
+                   and kc["grad_rel_l2"] <= REF_GRAD_L2["card_vs_cpu"])
+
+    # 10 steps at lr 1e-3 on the fixed batch: kernel vs plain held on the
+    # smooth terms (loss and the 10-step update), reported on the reference
+    # loss; kernel vs kernel on the reference loss held equal, and read
+    # with cuDNN's nondeterministic algorithms and with every op's
+    # deterministic one
+    runs = {}
+    for name, kw in (("smooth", SMOOTH_TERMS), ("reference", {})):
+        for label, plain in (("kernel", False), ("plain", True)):
+            runs[f"{name}_{label}"] = run("cuda", plain, 10,
+                                          learning_rate=1e-3, **kw)
+    runs["reference_kernel_again"] = run("cuda", False, 10,
+                                         learning_rate=1e-3)
+    for label in ("", "_again"):
+        runs[f"reference_kernel_cudnn_nondeterministic{label}"] = run(
+            "cuda", False, 10, cudnn_deterministic=False, learning_rate=1e-3)
+    with _all_deterministic(torch) as ops:
+        runs["reference_kernel_all_deterministic"] = run(
+            "cuda", False, 10, learning_rate=1e-3)
+    curves = {key: r[0] for key, r in runs.items()}
+
+    def gap(a, b):
+        return max(abs(x - y) for x, y in zip(curves[a], curves[b]))
+
+    row["losses"] = curves
+    row["trajectory_gap"] = {
+        "smooth_kernel_vs_plain": gap("smooth_kernel", "smooth_plain"),
+        "reference_kernel_vs_plain": gap("reference_kernel",
+                                         "reference_plain"),
+        "reference_kernel_vs_kernel": gap("reference_kernel",
+                                          "reference_kernel_again"),
+        "reference_kernel_vs_kernel_cudnn_nondeterministic": gap(
+            "reference_kernel_cudnn_nondeterministic",
+            "reference_kernel_cudnn_nondeterministic_again"),
+        "reference_kernel_vs_all_deterministic": gap(
+            "reference_kernel", "reference_kernel_all_deterministic")}
+    row["ops_without_deterministic_version"] = ops
+    row["trajectory_update_rel_l2"] = {
+        "smooth_kernel_vs_plain": _rel_l2(update(runs["smooth_kernel"][2]),
+                                          update(runs["smooth_plain"][2])),
+        "reference_kernel_vs_kernel": _rel_l2(
+            update(runs["reference_kernel"][2]),
+            update(runs["reference_kernel_again"][2]))}
+    emit(row)
+    ok &= (row["trajectory_gap"]["smooth_kernel_vs_plain"] <= CPU_TOL
+           and row["trajectory_update_rel_l2"]["smooth_kernel_vs_plain"]
+           <= TRAJ_UPDATE_L2
+           and row["trajectory_gap"]["reference_kernel_vs_kernel"] == 0.0
+           and row["trajectory_update_rel_l2"]["reference_kernel_vs_kernel"]
+           == 0.0)
+    for key in curves:
+        ok &= bool(np.isfinite(curves[key]).all()
+                   and curves[key][-1] < curves[key][0])
+    if not ok:
+        raise AssertionError(f"train step check failed: {row}")
+
+
+def _write_corpus(root, files: int, seconds: float, rate: int = 22050):
+    from ml_audio_restoration_torch.audio import save_audio
+
+    os.makedirs(root, exist_ok=True)
+    frames = int(seconds * rate)
+    for i in range(files):
+        save_audio(os.path.join(root, f"take_{i:03d}.wav"),
+                   _stereo_batch(1, frames, seed=1000 + i)["stereo"][0], rate)
+
+
+def phase_train_full(torch, rows):
+    """The training path at full width through train_from_config: seeded
+    stereo WAVs, 2 s chunks at 22.05 kHz, batch 16, f32, Adam at 1e-4."""
+    from ml_audio_restoration_torch.config import Config
+    from ml_audio_restoration_torch.models import count_params
+    from ml_audio_restoration_torch.ops import lstm as L
+    from ml_audio_restoration_torch.train.trainer import (
+        build_trainer, train_from_config)
+
+    steps, batch, seconds = 12, 16, 2.0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _write_corpus(os.path.join(tmp, "wavs"), files=224, seconds=2.5)
+        corpus_s = time.perf_counter() - t0
+
+        def config(ckpt_dir):
+            cfg = Config()
+            cfg.train.model = "stereo_separator"
+            cfg.train.batch_size = batch
+            cfg.train.learning_rate = 1e-4
+            cfg.train.num_epochs = 1
+            cfg.train.save_every = 1
+            cfg.train.checkpoint_dir = os.path.join(tmp, ckpt_dir)
+            cfg.train.log_dir = os.path.join(tmp, "runs")
+            cfg.data.data_dir = os.path.join(tmp, "wavs")
+            cfg.data.chunk_duration = seconds
+            return cfg
+
+        # the main path: one epoch of 12 steps plus validation, counted
+        torch.cuda.synchronize()
+        L.reset_launch_count()
+        t0 = time.perf_counter()
+        history = train_from_config(config("ck"), steps_per_epoch=steps)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        counts = {"lstm_train_fwd": L.train_fwd_launch_count,
+                  "lstm_train_bwd": L.train_bwd_launch_count,
+                  "lstm_recurrence_validation": L.launch_count}
+        written = sorted(os.listdir(os.path.join(tmp, "ck",
+                                                 "stereo_separator")))
+
+        # 2 warm-up and 10 timed steps from the same loader
+        tr = build_trainer(config("ck_timed"), steps_per_epoch=steps)
+        it = iter(tr.train_loader)
+        for _ in range(2):
+            tr._train_step(next(it))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        L.reset_launch_count()
+        t0 = time.perf_counter()
+        timed = 0
+        for b in it:
+            tr._train_step(b)
+            timed += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        per_step = {"lstm_train_fwd": L.train_fwd_launch_count / timed,
+                    "lstm_train_bwd": L.train_bwd_launch_count / timed}
+
+        # the step split by CUDA events on one batch
+        b = next(iter(tr.train_loader))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        split = {"forward": 0.0, "loss": 0.0, "backward": 0.0,
+                 "optimizer": 0.0}
+        reps = 3
+        for _ in range(reps):
+            inputs, targets = tr._derive(b)
+            tr.model.train()
+            tr.optimizer.zero_grad(set_to_none=True)
+            ev[0].record()
+            out = tr._forward(inputs)
+            ev[1].record()
+            loss, _ = tr._criterion(out, targets)
+            ev[2].record()
+            loss.backward()
+            ev[3].record()
+            tr._update()
+            ev[4].record()
+            torch.cuda.synchronize()
+            for i, key in enumerate(split):
+                split[key] += ev[i].elapsed_time(ev[i + 1]) / reps
+        del out, loss
+
+        # what cuDNN's deterministic algorithms cost a step: the same
+        # batch, with and without them, interleaved
+        same_batch = {False: [], True: []}
+        was = torch.backends.cudnn.deterministic
+        for det in (False, True, False, True):
+            torch.backends.cudnn.deterministic = det
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                tr._train_step(b)
+            torch.cuda.synchronize()
+            same_batch[det].append((time.perf_counter() - t0) * 1e3 / 3)
+        torch.backends.cudnn.deterministic = was
+
+        # checkpoint, then resume in a fresh trainer
+        tr.epoch = 1
+        tr.save_checkpoint("checkpoint_epoch_1.pth")
+        fresh = build_trainer(config("ck_timed"), steps_per_epoch=steps)
+        resumed = (fresh.epoch == tr.epoch
+                   and fresh.global_step == tr.global_step
+                   and fresh.lr == tr.lr
+                   and all(torch.equal(a, b) for a, b in zip(
+                       tr.model.state_dict().values(),
+                       fresh.model.state_dict().values())))
+
+    row = {"phase": "train_full", "params": count_params(tr.model),
+           "batch": batch, "chunk_seconds": seconds, "dtype": "float32",
+           "corpus_write_s": corpus_s, "epoch_s": epoch_s,
+           "history": history, "checkpoints": written,
+           "main_path_launches": counts, "timed_steps": timed,
+           "timed_wall_s": wall, "step_ms": wall * 1e3 / timed,
+           "audio_s_per_s": timed * batch * seconds / wall,
+           "split_ms": split, "split_sum_ms": sum(split.values()),
+           "same_batch_step_ms": {
+               "cudnn_nondeterministic": same_batch[False],
+               "cudnn_deterministic": same_batch[True]},
+           "kernel_ms_alone": {r["name"]: r["ms"] for r in rows[1:]},
+           "launches_per_step": per_step, "peak_mem_bytes": peak,
+           "resumed_exactly": resumed}
+    emit(row)
+    finite = all(np.isfinite(history["train_loss"] + history["val_loss"]))
+    if not (finite and counts["lstm_train_fwd"] == steps
+            and counts["lstm_train_bwd"] == steps
+            and counts["lstm_recurrence_validation"] >= 1
+            and per_step == {"lstm_train_fwd": 1.0, "lstm_train_bwd": 1.0}
+            and "best_model.pth" in written and timed == 10 and resumed):
+        raise AssertionError(f"training run failed: {row}")
+    rows[1]["launches"] = counts["lstm_train_fwd"]
+    rows[2]["launches"] = counts["lstm_train_bwd"]
+
+
 def main() -> int:
     import torch
 
@@ -331,11 +940,15 @@ def main() -> int:
 
     phase_device(torch)
     phase_build()
-    row = phase_kernels(torch)
-    phase_main(torch, row)
+    rows = [phase_kernels(torch)] + phase_train_kernels(torch)
+    phase_main(torch, rows[0])
+    phase_grad(torch)
+    phase_train_small(torch)
+    phase_train_full(torch, rows)
     emit({"kernels": [{key: row[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}]})
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for row in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,9 @@
 """WAV I/O for the port (numpy only)."""
-from .io import load_audio, normalize_audio, resample, save_audio
+from .io import (
+    AUDIO_EXTENSIONS, find_audio_files, load_audio, load_audio_chunk,
+    normalize_audio, resample, save_audio)
 from .wav import read_wav, wav_info, write_wav
 
-__all__ = ["load_audio", "normalize_audio", "read_wav", "resample",
+__all__ = ["AUDIO_EXTENSIONS", "find_audio_files", "load_audio",
+           "load_audio_chunk", "normalize_audio", "read_wav", "resample",
            "save_audio", "wav_info", "write_wav"]

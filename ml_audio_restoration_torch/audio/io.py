@@ -5,20 +5,32 @@ ml_audio_restoration_tpu/audio/io.py.
   (mean over channels), polyphase resample to the target rate.
 - save_audio: [channels, samples] -> WAV (PCM_16 by default).
 - normalize_audio: RMS-normalize to a target dB with a peak-clip guard.
+- load_audio_chunk: seek-read one random training chunk.
+- find_audio_files: the sorted audio files under a directory.
 
-WAV only; FLAC, mp3/ogg and the native codec are not ported yet.
+WAV only; FLAC, mp3/ogg and the native codec are not ported yet (ROADMAP
+item 7).
 """
 from __future__ import annotations
 
 import math
+import warnings
+from pathlib import Path
 
 import numpy as np
 
-from .wav import read_wav, write_wav
+from .wav import read_wav, wav_info, write_wav
+
+AUDIO_EXTENSIONS = (".wav", ".mp3", ".flac", ".ogg")
 
 
 def _check_wav(path):
-    if not str(path).lower().endswith(".wav"):
+    low = str(path).lower()
+    if low.endswith((".flac", ".mp3", ".ogg")):
+        raise NotImplementedError(
+            f"{path!r}: FLAC and mp3/ogg are not ported yet (ROADMAP item "
+            f"7); the port reads and writes WAV only")
+    if not low.endswith(".wav"):
         raise ValueError(f"{path!r}: the port reads and writes WAV only")
 
 
@@ -63,3 +75,52 @@ def normalize_audio(audio: np.ndarray, target_db: float = -20.0):
     normalized = audio * gain
     peak = np.max(np.abs(normalized))
     return np.where(peak > 1.0, normalized / peak, normalized)
+
+
+def load_audio_chunk(path, chunk_size: int, rng: np.random.Generator,
+                     sample_rate: int = 22050, mono: bool = True,
+                     resample_chunks: bool = False):
+    """Seek-read one random chunk -> float32 [channels, samples].
+
+    A file longer than the window is read only from a random start drawn
+    from `rng`; a shorter one is loaded and resampled whole. Upstream
+    quirk, kept for parity: the seek path returns the chunk at the FILE's
+    native rate, with a warning when that differs from `sample_rate`;
+    `resample_chunks=True` reads a rate-scaled window and resamples it to
+    `chunk_size` frames at `sample_rate`."""
+    _check_wav(path)
+    p = str(path)
+    info = wav_info(p)
+    file_sr = info.sample_rate
+    read_frames = (chunk_size if file_sr == sample_rate or not resample_chunks
+                   else -(-chunk_size * file_sr // sample_rate))
+    if info.frames > read_frames:
+        if file_sr != sample_rate and not resample_chunks:
+            warnings.warn(
+                f"{p}: file rate {file_sr} != requested {sample_rate}; "
+                f"seek-read chunk keeps the native rate (reference-parity "
+                f"behavior - pass resample_chunks=True to resample)",
+                stacklevel=2)
+        start = int(rng.integers(0, info.frames - read_frames + 1))
+        data, _ = read_wav(p, start=start, frames=read_frames)
+        audio = data.T.astype(np.float32)
+        if mono and audio.shape[0] > 1:
+            audio = audio.mean(axis=0, keepdims=True)
+        if file_sr != sample_rate and resample_chunks:
+            audio = resample(audio, file_sr, sample_rate)[:, :chunk_size]
+        return audio
+    audio, _ = load_audio(p, sample_rate, mono=mono)
+    if audio.shape[-1] > chunk_size:
+        start = int(rng.integers(0, audio.shape[-1] - chunk_size + 1))
+        audio = audio[:, start:start + chunk_size]
+    return audio
+
+
+def find_audio_files(directory, extensions=AUDIO_EXTENSIONS,
+                     recursive: bool = True):
+    """Sorted audio files under `directory` with one of `extensions`."""
+    directory = Path(directory)
+    pattern = "**/*" if recursive else "*"
+    return sorted(
+        p for p in directory.glob(pattern)
+        if p.suffix.lower() in extensions and p.is_file())

@@ -98,13 +98,17 @@ def _decode(raw: bytes, info: WavInfo) -> np.ndarray:
     return x.reshape(-1, ch)
 
 
-def read_wav(path):
-    """Read a whole WAV file -> (float32 [T, C], sample_rate)."""
+def read_wav(path, start: int = 0, frames: int = -1):
+    """Read a WAV file, or `frames` frames of it from `start` (a seek, no
+    decode of the rest) -> (float32 [T, C], sample_rate)."""
     with open(path, "rb") as f:
         info = _parse_header(f)
         bpf = info.channels * info.bits // 8
-        f.seek(info.data_offset)
-        raw = f.read(info.frames * bpf)
+        start = max(0, min(start, info.frames))
+        n = info.frames - start if frames < 0 else min(frames,
+                                                       info.frames - start)
+        f.seek(info.data_offset + start * bpf)
+        raw = f.read(n * bpf)
     # a truncated data chunk leaves a partial last frame: decode whole frames
     raw = raw[:len(raw) // bpf * bpf]
     return _decode(raw, info), info.sample_rate

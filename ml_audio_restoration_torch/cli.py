@@ -3,7 +3,11 @@
     python -m ml_audio_restoration_torch restore in.wav out.wav \
         --denoiser d.pth --super-res sr.pth --stereo st.pth [--device cuda]
 
-Restores one WAV file through the chain. Runs on the card unless
+    python -m ml_audio_restoration_torch train stereo_separator \
+        --data-dir wavs/ [--steps-per-epoch N] [--device cuda]
+
+`restore` restores one WAV file through the chain; `train` trains the
+stereo separator on a directory of stereo WAVs. Both run on the card unless
 `--device cpu` is given.
 """
 from __future__ import annotations
@@ -58,10 +62,53 @@ def _cmd_restore(args):
     return 0
 
 
+def _add_train(sub):
+    p = sub.add_parser("train", help="train a model (stereo_separator so "
+                                     "far)")
+    p.add_argument("model", choices=["denoiser", "super_resolution",
+                                     "stereo_separator"])
+    p.add_argument("--config", default=None, help="YAML config overlay")
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--num-epochs", type=int, default=None)
+    p.add_argument("--learning-rate", type=float, default=None)
+    p.add_argument("--chunk-duration", type=float, default=None)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--test-audio-dir", default=None)
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="size of the data-parallel axis (1 only so far)")
+    p.add_argument("--steps-per-epoch", type=int, default=None)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain "
+                        "PyTorch path)")
+    return p
+
+
+def _cmd_train(args):
+    from .config import load_config
+    from .train.trainer import train_from_config
+
+    overrides = {"train": {"model": args.model}, "data": {}}
+    for field, section in [
+        ("batch_size", "train"), ("num_epochs", "train"),
+        ("learning_rate", "train"), ("checkpoint_dir", "train"),
+        ("test_audio_dir", "train"), ("data_parallel", "train"),
+        ("data_dir", "data"), ("chunk_duration", "data"),
+    ]:
+        v = getattr(args, field)
+        if v is not None:
+            overrides[section][field] = v
+    cfg = load_config(args.config, overrides)
+    train_from_config(cfg, steps_per_epoch=args.steps_per_epoch,
+                      device=args.device)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="ml_audio_restoration_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_restore(sub).set_defaults(func=_cmd_restore)
+    _add_train(sub).set_defaults(func=_cmd_train)
     args = parser.parse_args(argv)
     return args.func(args)
 

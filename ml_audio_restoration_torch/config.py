@@ -1,15 +1,17 @@
-"""Configuration dataclasses of the port.
+"""Configuration dataclasses of the port, and their YAML overlay.
 
-The port's own copy of the model and pipeline configs of
-ml_audio_restoration_tpu/config.py, with the same fields and defaults, so a
-config written for one package reads the same in the other. Fields that
-only select TPU layouts or kernels (`packed_convs`, `quantize_int8`,
-`int8_scope`, `lstm_impl`) are accepted and ignored: the port computes the
-plain path, which the packed TPU path equals up to float reassociation.
+The port's own copy of ml_audio_restoration_tpu/config.py, with the same
+fields and defaults, so a config written for one package reads the same in
+the other. Fields that only select TPU layouts or kernels (`packed_convs`,
+`quantize_int8`, `int8_scope`, `lstm_impl`) are accepted and ignored: the
+port computes the plain path, which the packed TPU path equals up to float
+reassociation, and routes the LSTM by device and grad mode.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Optional, Tuple
 
 
@@ -36,6 +38,76 @@ class StereoSeparatorConfig:
 
 
 @dataclass
+class ArtifactConfig:
+    """Knobs of the 78rpm artifact simulator (not ported yet; the stereo
+    family's training does not use it)."""
+    impulse_rate: float = 10.0
+    impulse_amplitude: Tuple[float, float] = (0.1, 0.5)
+    surface_noise_level: Tuple[float, float] = (0.015, 0.03)
+    crackle_level: Tuple[float, float] = (0.01, 0.02)
+    add_rumble: bool = True
+    add_rolloff: bool = True
+    rumble_level: Tuple[float, float] = (0.005, 0.015)
+    rolloff_freq: Tuple[float, float] = (6000.0, 8000.0)
+
+
+@dataclass
+class DataConfig:
+    data_dir: str = "data/raw"
+    degraded_dir: Optional[str] = None
+    sample_rate: int = 22050
+    chunk_duration: float = 2.0
+    val_split: float = 0.1
+    synthetic_ratio: float = 0.7
+    # False keeps the upstream quirk: a long file whose native rate differs
+    # from sample_rate yields native-rate chunks (with a warning); True
+    # reads a rate-scaled window and resamples it
+    resample_chunks: bool = False
+    artifacts: ArtifactConfig = field(default_factory=ArtifactConfig)
+
+
+@dataclass
+class TrainConfig:
+    model: str = "denoiser"  # denoiser | super_resolution | stereo_separator
+    batch_size: int = 4
+    num_epochs: int = 100
+    learning_rate: float = 1e-4
+    save_every: int = 10
+    seed: int = 0
+    checkpoint_dir: str = "models/checkpoints"
+    log_dir: str = "runs"
+    test_audio_dir: Optional[str] = None
+    test_output_dir: Optional[str] = None
+    # plateau scheduler: patience 5, factor 0.5
+    plateau_patience: int = 5
+    plateau_factor: float = 0.5
+    # loss weights; the optional terms are off at 0.0
+    time_weight: float = 1.0
+    spectral_weight: float = 0.5
+    impulse_weight: float = 0.3
+    clustering_weight: float = 0.1
+    consistency_weight: float = 0.05
+    balance_weight: float = 0.0
+    decorrelation_weight: float = 0.0
+    lf_centering_weight: float = 0.0
+    stats_match_weight: float = 0.0
+    si_sdr_weight: float = 0.0
+    contrastive_weight: float = 0.0
+    # global-norm gradient clipping before Adam (0 = off)
+    max_grad_norm: float = 0.0
+    # exponential moving average of the weights, used for validation and
+    # rendering (0 = off)
+    ema_decay: float = 0.0
+    compute_dtype: str = "float32"
+    # TPU-only switches, accepted and ignored
+    lstm_impl: Optional[str] = None
+    packed_convs: Optional[bool] = None
+    # data-parallel mesh axis size (1 = one device)
+    data_parallel: int = 1
+    sync_batchnorm: bool = False
+
+
+@dataclass
 class PipelineConfig:
     sample_rate: int = 22050
     chunk_seconds: float = 2.0
@@ -54,3 +126,52 @@ class PipelineConfig:
     quantize_int8: bool = False
     int8_scope: str = "packed"
     lstm_impl: Optional[str] = None
+
+
+@dataclass
+class Config:
+    denoiser: DenoiserConfig = field(default_factory=DenoiserConfig)
+    super_resolution: SuperResolutionConfig = field(
+        default_factory=SuperResolutionConfig)
+    stereo_separator: StereoSeparatorConfig = field(
+        default_factory=StereoSeparatorConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    pipeline: PipelineConfig = field(default_factory=PipelineConfig)
+
+
+def _overlay(obj, updates: dict):
+    for key, value in updates.items():
+        if not hasattr(obj, key):
+            raise KeyError(
+                f"unknown config field {key!r} for {type(obj).__name__}")
+        current = getattr(obj, key)
+        if dataclasses.is_dataclass(current) and isinstance(value, dict):
+            _overlay(current, value)
+        else:
+            if isinstance(current, tuple) and isinstance(value, list):
+                value = tuple(value)
+            setattr(obj, key, value)
+    return obj
+
+
+def load_config(path=None, overrides: dict | None = None) -> Config:
+    """Defaults <- YAML file (optional) <- overrides dict (optional)."""
+    cfg = Config()
+    if path is not None:
+        import yaml
+
+        with open(path) as f:
+            data = yaml.safe_load(f) or {}
+        _overlay(cfg, data)
+    if overrides:
+        _overlay(cfg, overrides)
+    return cfg
+
+
+def save_config(cfg: Config, path):
+    import yaml
+
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(dataclasses.asdict(cfg), f, sort_keys=False)

@@ -2,8 +2,9 @@
 
 Counterpart of ml_audio_restoration_tpu/models/common.py. The models are
 `nn.Module`s whose submodule names are the upstream state-dict keys, so an
-upstream `.pth` loads through `load_state_dict(strict=True)`. Their forwards
-are the eval forwards: batch norm is folded into the preceding conv.
+upstream `.pth` loads through `load_state_dict(strict=True)`. In eval mode batch norm
+is folded into the preceding conv; the stereo separator also has a train
+forward, where batch norm normalizes by the batch statistics.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import math
 import torch
 from torch import nn
 
-from ..ops import conv1d, leaky_relu
+from ..ops import batch_norm_train, conv1d, leaky_relu
 
 LRELU_SLOPE = 0.2
 
@@ -30,10 +31,28 @@ def fold_conv_bn(conv: nn.Conv1d, bn: nn.BatchNorm1d):
     return w, b
 
 
-def conv_bn(conv: nn.Conv1d, bn: nn.BatchNorm1d, x, *, lrelu: bool = True):
-    """Eval conv -> BN (folded) -> optional LeakyReLU(0.2)."""
-    w, b = fold_conv_bn(conv, bn)
-    y = conv1d(x, w, b, padding=conv.padding[0], dilation=conv.dilation[0])
+def conv_bn(conv: nn.Conv1d, bn: nn.BatchNorm1d, x, *, lrelu: bool = True,
+            train: bool = False):
+    """conv -> BN -> optional LeakyReLU(0.2).
+
+    Eval (train=False): BN folded into the conv. Train: BN by the batch
+    statistics (ops.batch_norm_train), and `bn`'s running buffers are
+    updated IN PLACE (num_batches_tracked too, as nn.BatchNorm1d does),
+    where the JAX package returns them as a new state."""
+    if not train:
+        w, b = fold_conv_bn(conv, bn)
+        y = conv1d(x, w, b, padding=conv.padding[0],
+                   dilation=conv.dilation[0])
+        return leaky_relu(y) if lrelu else y
+    y = conv1d(x, conv.weight, conv.bias, padding=conv.padding[0],
+               dilation=conv.dilation[0])
+    y, mean, var = batch_norm_train(y, bn.weight, bn.bias, bn.running_mean,
+                                    bn.running_var, eps=bn.eps,
+                                    momentum=bn.momentum)
+    with torch.no_grad():
+        bn.running_mean.copy_(mean)
+        bn.running_var.copy_(var)
+        bn.num_batches_tracked += 1
     return leaky_relu(y) if lrelu else y
 
 

@@ -1,11 +1,17 @@
 """StereoSeparator: mono -> stereo upmix (dilated convs + LSTM + two decoders).
 
-Counterpart of ml_audio_restoration_tpu/models/stereo_separator.py (eval
-`apply`): a conv-k7 stem, 4 dilated blocks (k3 at dilations 1/2/4/8 then a
+Counterpart of ml_audio_restoration_tpu/models/stereo_separator.py (`apply`
+in eval and train mode, `encode`): a conv-k7 stem, 4 dilated blocks (k3 at dilations 1/2/4/8 then a
 pointwise k1, each conv-BN-LeakyReLU), a unidirectional LSTM (hidden 64)
-whose recurrence is the CUDA kernel on the card, and two 4-conv k7 decoders
+whose recurrence is a CUDA kernel on the card, and two 4-conv k7 decoders
 for L and R. Output channel order is (L, R). The default configuration has
 494,786 parameters.
+
+`model.eval()` gives the eval forward (BN folded); `model.train()` the
+train forward (BN by batch statistics, running buffers updated in place).
+Only the plain path is ported: the JAX package's `apply_train_packed` is
+TPU layout work that equals it up to float reassociation. Under grad the
+LSTM runs the training recurrence (K2 forward, K3 backward), in either mode.
 """
 from __future__ import annotations
 
@@ -61,9 +67,9 @@ def _decoder(hidden: int, c: int) -> nn.Sequential:
         nn.Conv1d(c, 1, 7, padding=3))
 
 
-def _decoder_apply(dec: nn.Sequential, h):
+def _decoder_apply(dec: nn.Sequential, h, train: bool):
     for i in (0, 3, 6):
-        h = conv_bn(dec[i], dec[i + 1], h)
+        h = conv_bn(dec[i], dec[i + 1], h, train=train)
     return conv1d(h, dec[9].weight, dec[9].bias, padding=3)
 
 
@@ -83,15 +89,21 @@ class StereoSeparator(nn.Module):
         self.left_decoder = _decoder(lstm_hidden, c)
         self.right_decoder = _decoder(lstm_hidden, c)
 
-    def forward(self, x):
-        """Eval forward: x [B, 1, T] -> [B, 2, T], channels (L, R)."""
-        if self.training:
-            raise NotImplementedError("only the eval forward is ported")
+    def encode(self, x):
+        """Stem + dilated blocks: x [B, 1, T] -> [B, 4C, T]. In train mode
+        BN uses the batch statistics and updates its running buffers."""
+        train = self.training
         stem = self.encoder[0]
-        h = conv_bn(stem[0], stem[1], x)
+        h = conv_bn(stem[0], stem[1], x, train=train)
         for block in self.encoder[1:]:
-            h = conv_bn(block[0], block[1], h)
-            h = conv_bn(block[3], block[4], h)
+            h = conv_bn(block[0], block[1], h, train=train)
+            h = conv_bn(block[3], block[4], h, train=train)
+        return h
+
+    def forward(self, x):
+        """x [B, 1, T] -> [B, 2, T], channels (L, R)."""
+        train = self.training
+        h = self.encode(x)
         h = self.lstm(h.transpose(1, 2)).transpose(1, 2)  # [B, H, T]
-        return torch.cat([_decoder_apply(self.left_decoder, h),
-                          _decoder_apply(self.right_decoder, h)], dim=1)
+        return torch.cat([_decoder_apply(self.left_decoder, h, train),
+                          _decoder_apply(self.right_decoder, h, train)], dim=1)

@@ -1,4 +1,4 @@
-"""1-D convolution primitives, eval parts, in torch's NCW layout.
+"""1-D convolution primitives and batch norm, in torch's NCW layout.
 
 Counterpart of ml_audio_restoration_tpu/ops/conv.py, which works in NWC with
 [k, in, out] kernels. Here tensors are [batch, channels, time] and weights
@@ -45,3 +45,31 @@ def batch_norm(x, scale, bias, mean, var, *, eps: float = 1e-5):
     inv = torch.rsqrt(var + eps)
     return ((x - mean[:, None]) * inv[:, None] * scale[:, None]
             + bias[:, None])
+
+
+def batch_norm_train(x, scale, bias, running_mean, running_var, *,
+                     eps: float = 1e-5, momentum: float = 0.1):
+    """Training-mode batch norm over the channel axis of [B, C, T].
+
+    Normalizes by the batch statistics and returns (y, new_mean, new_var)
+    with torch's momentum convention, running <- (1-m)*running + m*batch,
+    the running variance unbiased with n = B*T. As in the JAX package, the
+    statistics are computed in f32 whatever x's dtype, as E[x^2] - E[x]^2
+    clamped at 0 (in bf16 that difference can go negative and turn the
+    forward NaN), and y comes back in x's dtype. The new running
+    statistics carry no gradient."""
+    xf = x.float()
+    n = x.shape[0] * x.shape[2]
+    m = xf.mean(dim=(0, 2))
+    sq = xf.square().mean(dim=(0, 2))
+    v = torch.clamp(sq - m.square(), min=0.0)
+    k = torch.rsqrt(v + eps) * scale.float()
+    y = torch.addcmul(bias.float()[:, None], xf - m[:, None],
+                      k[:, None]).to(x.dtype)
+    with torch.no_grad():
+        unbiased = v * (n / max(n - 1, 1))
+        new_mean = ((1 - momentum) * running_mean
+                    + momentum * m.to(running_mean.dtype))
+        new_var = ((1 - momentum) * running_var
+                   + momentum * unbiased.to(running_var.dtype))
+    return y, new_mean, new_var

@@ -2,9 +2,17 @@
 
 Counterpart of ml_audio_restoration_tpu/ops/lstm.py. The input projection
 `x @ W_ih + b_ih + b_hh` runs as one matrix product that emits time-major
-gates [T, B, 4H]; the recurrence over those gates is the hand-written CUDA
-kernel csrc/lstm_recurrence.cu on a CUDA tensor, and the plain loop
-`lstm_recurrence_plain` on a CPU tensor. Gate order is torch's (i, f, g, o).
+gates [T, B, 4H]; the recurrence over those gates is a hand-written CUDA
+kernel on a CUDA tensor and a plain PyTorch loop on a CPU tensor. Gate
+order is torch's (i, f, g, o).
+
+Two routes, as in the JAX package:
+- inference (no gradient wanted): K1, csrc/lstm_recurrence.cu, beside
+  `lstm_recurrence_plain`;
+- training (grad enabled and an input requires grad): the autograd
+  Function `LSTMRecurrenceTrain`, whose forward is K2 and whose backward
+  is K3 (csrc/lstm_train.cu), beside `lstm_recurrence_train_plain` and
+  `lstm_recurrence_bwd_plain`. It runs in f32 whatever the gates' dtype.
 
 Parameter dicts use the JAX package's layout: w_ih [C, 4H], w_hh [H, 4H],
 b_ih and b_hh [4H].
@@ -18,22 +26,26 @@ import torch
 
 from . import _build
 
-# Launches of the CUDA recurrence kernel since the last reset; the launch
-# site adds one, and nothing else touches it but reset_launch_count.
+# Launches since the last reset, one count per kernel: K1 (launch_count),
+# K2 (train_fwd_launch_count) and K3 (train_bwd_launch_count). Each launch
+# site adds one, and nothing else touches them but reset_launch_count.
 launch_count = 0
+train_fwd_launch_count = 0
+train_bwd_launch_count = 0
 _force_plain = False
 
 
 def reset_launch_count() -> None:
-    global launch_count
-    launch_count = 0
+    global launch_count, train_fwd_launch_count, train_bwd_launch_count
+    launch_count = train_fwd_launch_count = train_bwd_launch_count = 0
 
 
 @contextlib.contextmanager
 def plain_recurrence():
-    """Test hook: inside this block `lstm_recurrence` runs the plain loop
-    even on a CUDA tensor, so a check can hold the whole pipeline's kernel
-    run against a plain run on the same card."""
+    """Test hook: inside this block the recurrence runs its plain versions
+    even on a CUDA tensor (K1's, and K2's and K3's for a training forward
+    started inside the block), so a check can hold a kernel run against a
+    plain run on the same card."""
     global _force_plain
     prev, _force_plain = _force_plain, True
     try:
@@ -73,16 +85,16 @@ _KERNEL_HIDDEN = (16, 32, 64)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _lstm_recurrence_cuda(gates_tm, w_hh, h0, c0):
-    global launch_count
+def _check_kernel_args(kernel: str, gates_tm, w_hh, h0, c0):
+    """Raise on what the recurrence kernels do not take."""
     t_len, b, g4 = gates_tm.shape
     hid = g4 // 4
     if gates_tm.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"CUDA recurrence takes f32 or bf16 gates, got "
+        raise TypeError(f"{kernel} takes f32 or bf16 gates, got "
                         f"{gates_tm.dtype}")
     if hid not in _KERNEL_HIDDEN or g4 != 4 * hid:
-        raise ValueError(f"CUDA recurrence supports H in {_KERNEL_HIDDEN}, "
-                         f"got gates width {g4}")
+        raise ValueError(f"{kernel} supports H in {_KERNEL_HIDDEN}, got "
+                         f"gates width {g4}")
     if tuple(w_hh.shape) != (hid, g4):
         raise ValueError(f"w_hh must be [{hid}, {g4}], got {tuple(w_hh.shape)}")
     for name, s in (("h0", h0), ("c0", c0)):
@@ -93,6 +105,28 @@ def _lstm_recurrence_cuda(gates_tm, w_hh, h0, c0):
     for name, x in (("w_hh", w_hh), ("h0", h0), ("c0", c0)):
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, gates on {dev}")
+
+
+def _launch(kernel: str, fn, n_ptrs: int, n_ints: int, args, dev) -> None:
+    """Call a C entry point of csrc/ on the current stream of `dev`: n_ptrs
+    pointers, then n_ints ints, then the stream. Raises on a non-zero
+    cudaError_t."""
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+
+
+def _lstm_recurrence_cuda(gates_tm, w_hh, h0, c0):
+    global launch_count
+    _check_kernel_args("CUDA recurrence", gates_tm, w_hh, h0, c0)
+    t_len, b, g4 = gates_tm.shape
+    hid = g4 // 4
+    dev = gates_tm.device
     gx = gates_tm.contiguous()
     w = w_hh.to(gx.dtype).contiguous()
     h0 = h0.float().contiguous()
@@ -100,31 +134,212 @@ def _lstm_recurrence_cuda(gates_tm, w_hh, h0, c0):
     out = torch.empty((b, t_len, hid), dtype=gx.dtype, device=dev)
     hf = torch.empty((b, hid), dtype=torch.float32, device=dev)
     cf = torch.empty((b, hid), dtype=torch.float32, device=dev)
-    fn = _build.load("lstm_recurrence").lstm_recurrence
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(gx.data_ptr(), w.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-                 out.data_ptr(), hf.data_ptr(), cf.data_ptr(), t_len, b, hid,
-                 _KERNEL_DTYPES[gx.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"lstm_recurrence kernel launch failed: CUDA "
-                           f"error {err}")
+    _launch("lstm_recurrence", _build.load("lstm_recurrence").lstm_recurrence,
+            7, 4, [gx.data_ptr(), w.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+                   out.data_ptr(), hf.data_ptr(), cf.data_ptr(), t_len, b,
+                   hid, _KERNEL_DTYPES[gx.dtype]], dev)
     launch_count += 1
     return out, hf, cf
 
 
 def lstm_recurrence(gates_tm, w_hh, h0, c0):
-    """The recurrence over time-major gates: the CUDA kernel for a CUDA
-    tensor, the plain loop for a CPU tensor. No fallback: a CUDA tensor the
-    kernel cannot take raises. Shapes as `lstm_recurrence_plain`."""
-    if gates_tm.device.type == "cpu" or _force_plain:
+    """The recurrence over time-major gates [T, B, 4H] -> (out [B, T, H],
+    hf, cf).
+
+    When grad is enabled and an input requires grad, it runs through
+    `LSTMRecurrenceTrain` (K2 forward, K3 backward; out in f32). Otherwise
+    it is K1 for a CUDA tensor and the plain loop for a CPU tensor, with out
+    in the gates' dtype. No fallback: a CUDA tensor the kernels cannot take
+    raises."""
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (gates_tm, w_hh, h0, c0)):
+        out_tm, hf, cf = LSTMRecurrenceTrain.apply(gates_tm, w_hh, h0, c0)
+        return out_tm.transpose(0, 1), hf, cf
+    if _use_plain(gates_tm):
         return lstm_recurrence_plain(gates_tm, w_hh, h0, c0)
-    if gates_tm.device.type != "cuda":
-        raise ValueError(f"no recurrence for device {gates_tm.device}")
     return _lstm_recurrence_cuda(gates_tm, w_hh, h0, c0)
+
+
+def _use_plain(x) -> bool:
+    """Plain version for a CPU tensor or inside plain_recurrence(); the
+    kernel for a CUDA tensor; anything else raises."""
+    if x.device.type == "cpu" or _force_plain:
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"no recurrence for device {x.device}")
+    return False
+
+
+# ------------------------------------------------------------- training
+def _train_dtype(dtype):
+    """The training recurrence runs in f32 (f64 only for a float64
+    gradient check of the plain versions)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def lstm_recurrence_train_plain(gates_tm, w_hh, h0, c0):
+    """K2's plain version: the recurrence that also returns the backward's
+    residuals.
+
+    gates_tm [T, B, 4H] (f32 or bf16), w_hh [H, 4H], h0/c0 [B, H] ->
+    (out [T, B, H], hf [B, H], cf [B, H], acts [T, B, 4H] (post-activation
+    i, f, g, o), cseq [T, B, H]), all f32. W_hh and h stay f32: unlike the
+    inference recurrence, h is not rounded to the gates' dtype."""
+    t_len, b, g4 = gates_tm.shape
+    hid = g4 // 4
+    dt = _train_dtype(gates_tm.dtype)
+    w = w_hh.to(dt)
+    h = h0.to(dt).clone()
+    c = c0.to(dt).clone()
+    out = torch.empty((t_len, b, hid), dtype=dt, device=gates_tm.device)
+    cseq = torch.empty_like(out)
+    acts = torch.empty((t_len, b, g4), dtype=dt, device=gates_tm.device)
+    for t in range(t_len):
+        a = gates_tm[t].to(dt) + h @ w
+        i = torch.sigmoid(a[:, :hid])
+        f = torch.sigmoid(a[:, hid:2 * hid])
+        g = torch.tanh(a[:, 2 * hid:3 * hid])
+        o = torch.sigmoid(a[:, 3 * hid:])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        acts[t] = torch.cat([i, f, g, o], dim=-1)
+        cseq[t] = c
+        out[t] = h
+    return out, h, c, acts, cseq
+
+
+def lstm_recurrence_bwd_plain(acts, cseq, out, h0, c0, w_hh, dout, dhf, dcf):
+    """K3's plain version: the reverse-time backward of the recurrence.
+
+    Residuals from K2 (acts [T, B, 4H], cseq and out [T, B, H]) and its
+    inputs (h0, c0 [B, H], w_hh [H, 4H]); cotangents dout [T, B, H] and
+    (dhf, dcf) [B, H] of the final carry, which enter at step T-1 ->
+    (dgx [T, B, 4H], dW_hh [H, 4H], dh0 [B, H], dc0 [B, H]), all in acts'
+    dtype. h_{t-1} is out[t-1] (h0 at t=0), c_{t-1} is cseq[t-1] (c0)."""
+    t_len, b, g4 = acts.shape
+    hid = g4 // 4
+    dt = acts.dtype
+    w = w_hh.to(dt)
+    dgx = torch.empty_like(acts)
+    dw = torch.zeros((hid, g4), dtype=dt, device=acts.device)
+    dh = dhf.to(dt)
+    dc = dcf.to(dt)
+    for t in range(t_len - 1, -1, -1):
+        i, f, g, o = acts[t].split(hid, dim=-1)
+        tc = torch.tanh(cseq[t])
+        c_prev = cseq[t - 1] if t > 0 else c0.to(dt)
+        h_prev = out[t - 1] if t > 0 else h0.to(dt)
+        dh_tot = dout[t].to(dt) + dh
+        d_o = dh_tot * tc
+        dct = dh_tot * o * (1.0 - tc * tc) + dc
+        d_lin = torch.cat([dct * g * i * (1.0 - i),
+                           dct * c_prev * f * (1.0 - f),
+                           dct * i * (1.0 - g * g),
+                           d_o * o * (1.0 - o)], dim=-1)
+        dgx[t] = d_lin
+        dh = d_lin @ w.T
+        dc = dct * f
+        dw += h_prev.T @ d_lin
+    return dgx, dw, dh, dc
+
+
+def _lstm_train_fwd_cuda(gates_tm, w_hh, h0, c0):
+    """K2 on the card; same contract as `lstm_recurrence_train_plain`."""
+    global train_fwd_launch_count
+    _check_kernel_args("CUDA train forward", gates_tm, w_hh, h0, c0)
+    t_len, b, g4 = gates_tm.shape
+    hid = g4 // 4
+    dev = gates_tm.device
+    gx = gates_tm.contiguous()
+    w = w_hh.float().contiguous()
+    h0 = h0.float().contiguous()
+    c0 = c0.float().contiguous()
+    f32 = {"dtype": torch.float32, "device": dev}
+    out = torch.empty((t_len, b, hid), **f32)
+    cseq = torch.empty((t_len, b, hid), **f32)
+    acts = torch.empty((t_len, b, g4), **f32)
+    hf = torch.empty((b, hid), **f32)
+    cf = torch.empty((b, hid), **f32)
+    _launch("lstm_train_fwd", _build.load("lstm_train").lstm_train_fwd, 9, 4,
+            [gx.data_ptr(), w.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+             out.data_ptr(), hf.data_ptr(), cf.data_ptr(), acts.data_ptr(),
+             cseq.data_ptr(), t_len, b, hid, _KERNEL_DTYPES[gx.dtype]], dev)
+    train_fwd_launch_count += 1
+    return out, hf, cf, acts, cseq
+
+
+def _lstm_train_bwd_cuda(acts, cseq, out, h0, c0, w_hh, dout, dhf, dcf):
+    """K3 on the card (with its fixed-order dW_hh row sum); same contract
+    as `lstm_recurrence_bwd_plain`, f32 only."""
+    global train_bwd_launch_count
+    t_len, b, g4 = acts.shape
+    hid = g4 // 4
+    if hid not in _KERNEL_HIDDEN or g4 != 4 * hid:
+        raise ValueError(f"CUDA train backward supports H in "
+                         f"{_KERNEL_HIDDEN}, got gates width {g4}")
+    dev = acts.device
+    want = {"acts": (t_len, b, g4), "cseq": (t_len, b, hid),
+            "out": (t_len, b, hid), "dout": (t_len, b, hid),
+            "w_hh": (hid, g4), "h0": (b, hid), "c0": (b, hid),
+            "dhf": (b, hid), "dcf": (b, hid)}
+    given = {"acts": acts, "cseq": cseq, "out": out, "dout": dout,
+             "w_hh": w_hh, "h0": h0, "c0": c0, "dhf": dhf, "dcf": dcf}
+    args = {}
+    for name, x in given.items():
+        if tuple(x.shape) != want[name]:
+            raise ValueError(f"{name} must be {list(want[name])}, got "
+                             f"{list(x.shape)}")
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, acts on {dev}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"CUDA train backward takes f32, {name} is "
+                            f"{x.dtype}")
+        args[name] = x.contiguous()
+    f32 = {"dtype": torch.float32, "device": dev}
+    dgx = torch.empty((t_len, b, g4), **f32)
+    dw = torch.empty((hid, g4), **f32)
+    dh0 = torch.empty((b, hid), **f32)
+    dc0 = torch.empty((b, hid), **f32)
+    part = torch.empty((b, hid, g4), **f32)  # per-row dW_hh partials
+    _launch("lstm_train_bwd", _build.load("lstm_train").lstm_train_bwd, 14,
+            3, [args[n].data_ptr() for n in ("acts", "cseq", "out", "dout",
+                                             "w_hh", "h0", "c0", "dhf",
+                                             "dcf")]
+            + [dgx.data_ptr(), dw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+               part.data_ptr(), t_len, b, hid], dev)
+    train_bwd_launch_count += 1
+    return dgx, dw, dh0, dc0
+
+
+class LSTMRecurrenceTrain(torch.autograd.Function):
+    """Training recurrence: K2 forward, K3 backward.
+
+    Twin of ml_audio_restoration_tpu/ops/lstm.py::lstm_recurrence_train.
+    Takes time-major gates [T, B, 4H], w_hh [H, 4H], h0/c0 [B, H]; returns
+    (out [T, B, H], hf, cf), all f32. The backward returns dgx time-major.
+    It computes dgx in f32 even for bf16 gates, as the JAX VJP does, but
+    torch's engine casts a gradient to its input's dtype, so bf16 gates get
+    a bf16 dgx. On a CPU tensor, or inside plain_recurrence(), both halves
+    run their plain versions."""
+
+    @staticmethod
+    def forward(ctx, gates_tm, w_hh, h0, c0):
+        ctx.plain = _use_plain(gates_tm)
+        fwd = (lstm_recurrence_train_plain if ctx.plain
+               else _lstm_train_fwd_cuda)
+        out, hf, cf, acts, cseq = fwd(gates_tm, w_hh, h0, c0)
+        ctx.save_for_backward(acts, cseq, out, h0, c0, w_hh)
+        return out, hf, cf
+
+    @staticmethod
+    def backward(ctx, dout, dhf, dcf):
+        acts, cseq, out, h0, c0, w_hh = ctx.saved_tensors
+        bwd = lstm_recurrence_bwd_plain if ctx.plain else _lstm_train_bwd_cuda
+        dt = acts.dtype
+        dgx, dw, dh0, dc0 = bwd(acts, cseq, out, h0.to(dt), c0.to(dt),
+                                w_hh.to(dt), dout.to(dt), dhf.to(dt),
+                                dcf.to(dt))
+        return dgx, dw.to(w_hh.dtype), dh0, dc0
 
 
 def lstm(x, params, *, carry=None, return_carry: bool = False):

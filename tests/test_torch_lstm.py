@@ -6,7 +6,7 @@ in f32: the same per-step arithmetic, summed in another order. bf16 gates
 compare at 1e-2: both sides round h to bf16 before the product, but a
 different f32 summation order can flip one bf16 rounding, and the
 recurrence carries it forward. The CUDA kernel itself runs only on a card
-(`pytest -m cuda tests/test_torch_lstm.py` there).
+(tests/test_torch_cuda.py there, and chip_smoke.py).
 """
 import numpy as np
 import pytest
@@ -167,22 +167,3 @@ def test_plain_recurrence_hook_restores_state():
         assert L._force_plain
     assert not L._force_plain
 
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 1e-2)])
-def test_cuda_kernel_matches_plain(rng, dtype, tol):
-    """The CUDA kernel against the plain loop on the card: odd T, B not a
-    multiple of 8, a random carry in."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    gates, w_hh, h0, c0 = _inputs(rng, 301, 5, 64)
-    args = [torch.from_numpy(a).cuda() for a in (gates, w_hh, h0, c0)]
-    args[0], args[1] = args[0].to(dtype), args[1].to(dtype)
-    before = L.launch_count
-    got = L.lstm_recurrence(*args)
-    assert L.launch_count == before + 1
-    want = L.lstm_recurrence_plain(*args)
-    assert got[0].dtype == dtype
-    for g, w in zip(got, want):
-        assert float((g.float() - w.float()).abs().max()) <= tol
