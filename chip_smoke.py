@@ -8,10 +8,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
   2. build   - nvcc builds every CUDA source of the package, one nvcc per
                source, all started together;
   3. kernels - each kernel (K1 inference recurrence, K2 train forward, K3
-               train backward) against its plain PyTorch version on the
-               card, with stated tolerances, then timed at its main-path
-               shape beside its bound, the plain version and a library
-               yardstick;
+               train backward: its walk and its dW_hh pass) against its
+               plain PyTorch version on the card, with stated tolerances
+               (K1 and K3 at every H they take, 16, 32 and 64: one step of
+               one row, an odd T with a random carry in, and gates of
+               magnitude ~60 that saturate every activation), then timed
+               at its main-path shape beside its bound, the plain version
+               and a library yardstick (the dW_hh pass also alone);
   4. main    - the offline restore chain at full published widths with
                seeded random weights: kernel vs plain recurrence on a 4 s
                clip, card vs CPU on the same clip, a 120 s clip (64 bucketed
@@ -35,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -53,7 +57,9 @@ CPU_TOL = 1e-3      # whole chain, card vs CPU: the chain's parity bar
 K2_TOL = 1e-5       # train forward: f32 throughout, another summation order
 K3_TOL = 2e-5       # dgx, dh0, dc0: the bar JAX holds its Pallas backward to
 DW_TOL = 1e-4       # dW_hh, relative to its largest entry: a sum over T*B
-#                     outer products, taken per row and then across rows
+#                     outer products, in split-K partials added in order
+SATURATED = 60.0    # gate scale of the saturation cases: exp(-2x) overflows
+HIDDEN = (16, 32, 64)  # every H the recurrence kernels take
 STEP_TOL = 1e-4     # one train step, kernel vs plain: loss (relative),
 #                     smooth-term gradients (of the largest entry), BN stats
 
@@ -96,14 +102,17 @@ def phase_build():
 
 
 def _cuda_ms(torch, fn, reps: int) -> float:
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    """The median device time of one call of fn over `reps` calls, each
+    between its own pair of CUDA events: a host stall or a clock still
+    ramping up spoils one call, not the reading."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    events[0].record()
+    for event in events[1:]:
         fn()
-    end.record()
+        event.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return statistics.median(a.elapsed_time(b)
+                             for a, b in zip(events, events[1:]))
 
 
 def _max_dev(a, b) -> float:
@@ -120,6 +129,32 @@ def _lstm_segments(torch, ref, gates, seg: int):
     return torch.cat(outs) if len(outs) > 1 else outs[0]
 
 
+def _k1_cases(torch, L, randn):
+    """K1 against its plain version at every H it takes: one step of one
+    row and an odd T with a random carry in, f32 and bf16 gates; then gates
+    of magnitude ~SATURATED in f32, whose outputs must be finite. Returns
+    the largest deviation of each kind and whether all were finite."""
+    worst = {"f32": 0.0, "bf16": 0.0, "saturated": 0.0}
+    finite = True
+    for h in HIDDEN:
+        for t, b, scale, kinds in ((1, 1, 0.5, ("f32", "bf16")),
+                                   (301, 5, 0.5, ("f32", "bf16")),
+                                   (301, 5, SATURATED, ("saturated",))):
+            gates, w_hh = randn(t, b, 4 * h, scale=scale), randn(
+                h, 4 * h, scale=0.15)
+            h0, c0 = randn(b, h, scale=0.3), randn(b, h, scale=0.3)
+            for kind in kinds:
+                dt = torch.bfloat16 if kind == "bf16" else torch.float32
+                args = (gates.to(dt), w_hh.to(dt), h0, c0)
+                k = L._lstm_recurrence_cuda(*args)
+                p = L.lstm_recurrence_plain(*args)
+                finite &= all(bool(torch.isfinite(x.float()).all())
+                              for x in k)
+                worst[kind] = max(worst[kind],
+                                  max(_max_dev(x, y) for x, y in zip(k, p)))
+    return worst, finite
+
+
 def phase_kernels(torch):
     from ml_audio_restoration_torch.ops import lstm as L
 
@@ -128,6 +163,19 @@ def phase_kernels(torch):
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
+
+    cases, finite = _k1_cases(torch, L, randn)
+    check = {"phase": "kernel_check", "kernel": "lstm_recurrence",
+             "hidden": list(HIDDEN), "shapes": [[1, 1], [301, 5]],
+             "f32_max_abs_err": cases["f32"], "f32_tol": F32_TOL,
+             "bf16_max_abs_err": cases["bf16"], "bf16_tol": BF16_TOL,
+             "saturated_gate_scale": SATURATED,
+             "saturated_max_abs_err": cases["saturated"],
+             "saturated_finite": finite}
+    emit(check)
+    if not (cases["f32"] <= F32_TOL and cases["bf16"] <= BF16_TOL
+            and cases["saturated"] <= F32_TOL and finite):
+        raise AssertionError(f"lstm_recurrence disagrees with plain: {check}")
 
     # f32 with a random carry in
     t, b, h = 1001, 13, 64
@@ -167,7 +215,7 @@ def phase_kernels(torch):
     c0 = torch.zeros(b, h, device=dev)
     run_k = lambda: L._lstm_recurrence_cuda(gates, w_hh, h0, c0)  # noqa: E731
     out_k = run_k()
-    ms = _cuda_ms(torch, run_k, 3)
+    ms = _cuda_ms(torch, run_k, 5)
     plain_ms = _cuda_ms(
         torch, lambda: L.lstm_recurrence_plain(gates, w_hh, h0, c0), 1)
     # yardstick only, never called by the port: cuDNN's LSTM with an
@@ -206,9 +254,9 @@ def phase_kernels(torch):
     return {"name": "lstm_recurrence", "route": "cuda",
             "source": "ml_audio_restoration_torch/csrc/lstm_recurrence.cu",
             "replaces": "ml_audio_restoration_tpu/ops/pallas/lstm.py:59",
-            "max_abs_err": f32_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "max_abs_err": max(f32_err, cases["f32"], cases["saturated"]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def _bound(n_bytes: float, flops: float):
@@ -217,6 +265,34 @@ def _bound(n_bytes: float, flops: float):
     by_ops = flops / H100_F32_FLOPS * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
+
+
+def _k3_cases(torch, L, randn):
+    """K3 (walk and dW_hh pass) against its plain version at every H it
+    takes, on residuals from K2's plain version: one step of one row and
+    an odd T with a random carry in and random cotangents, gates of
+    magnitude 0.5 and ~SATURATED. Returns the largest deviation on dgx,
+    dh0 and dc0, the largest on dW_hh relative to its largest entry, and
+    whether all were finite."""
+    bwd_err = dw_rel = 0.0
+    finite = True
+    for h in HIDDEN:
+        for t, b, scale in ((1, 1, 0.5), (301, 5, 0.5), (301, 5, SATURATED)):
+            gates, w_hh = randn(t, b, 4 * h, scale=scale), randn(
+                h, 4 * h, scale=0.15)
+            h0, c0 = randn(b, h, scale=0.3), randn(b, h, scale=0.3)
+            dout, dhf, dcf = (randn(t, b, h, scale=0.1),
+                              randn(b, h, scale=0.1), randn(b, h, scale=0.1))
+            out, _, _, acts, cseq = L.lstm_recurrence_train_plain(
+                gates, w_hh, h0, c0)
+            args = (acts, cseq, out, h0, c0, w_hh, dout, dhf, dcf)
+            k = L._lstm_train_bwd_cuda(*args)
+            p = L.lstm_recurrence_bwd_plain(*args)
+            finite &= all(bool(torch.isfinite(x).all()) for x in k)
+            bwd_err = max(bwd_err, max(_max_dev(k[i], p[i]) for i in (0, 2, 3)))
+            dw_rel = max(dw_rel, _max_dev(k[1], p[1])
+                         / max(float(p[1].abs().max()), 1e-30))
+    return bwd_err, dw_rel, finite
 
 
 def phase_train_kernels(torch):
@@ -272,6 +348,16 @@ def phase_train_kernels(torch):
             and bwd_err <= K3_TOL and dw_rel <= DW_TOL):
         raise AssertionError(f"lstm_train disagrees with plain: {check}")
     del k, p, kb, pb, a, z, kg, pg
+    case_err, case_dw, finite = _k3_cases(torch, L, randn)
+    check = {"phase": "kernel_check", "kernel": "lstm_train_bwd",
+             "hidden": list(HIDDEN), "shapes": [[1, 1], [301, 5]],
+             "saturated_gate_scale": SATURATED,
+             "bwd_max_abs_err": case_err, "bwd_tol": K3_TOL,
+             "dw_rel_err": case_dw, "dw_tol": DW_TOL, "finite": finite}
+    emit(check)
+    if not (case_err <= K3_TOL and case_dw <= DW_TOL and finite):
+        raise AssertionError(f"lstm_train_bwd disagrees with plain: {check}")
+    bwd_err = max(bwd_err, case_err)
 
     # the training shape: 2 s chunks at 22.05 kHz, batch 16
     t, b, h = 44100, 16, 64
@@ -280,14 +366,23 @@ def phase_train_kernels(torch):
                       randn(b, h, scale=0.1))
     fwd = lambda: L._lstm_train_fwd_cuda(gates, w_hh, h0, c0)  # noqa: E731
     res = fwd()
-    fwd_ms = _cuda_ms(torch, fwd, 3)
+    fwd_ms = _cuda_ms(torch, fwd, 5)
     fwd_plain_ms = _cuda_ms(
         torch, lambda: L.lstm_recurrence_train_plain(gates, w_hh, h0, c0), 1)
     out, _, _, acts, cseq = res
     bwd = lambda: L._lstm_train_bwd_cuda(  # noqa: E731
         acts, cseq, out, h0, c0, w_hh, dout, dhf, dcf)
     grads = bwd()
-    bwd_ms = _cuda_ms(torch, bwd, 3)
+    bwd_ms = _cuda_ms(torch, bwd, 5)  # both launches: the walk, the dW pass
+    # the dW_hh pass alone, on the walk's dgx (not counted: a timing launch)
+    dw_ms = _cuda_ms(torch, lambda: L._dw_pass(out, h0, grads[0]), 5)
+    dw_bytes = 4 * (t * b * (h + 4 * h) + h * 4 * h)  # out, dgx in; dW out
+    dw_flops = 2.0 * t * b * h * 4 * h
+    dw_bound, dw_by = _bound(dw_bytes, dw_flops)
+    emit({"phase": "kernel_time", "kernel": "lstm_train_bwd dW_hh pass",
+          "shape": [t, b, h], "ms": dw_ms, "splits": L._dw_splits(t * b),
+          "bytes": dw_bytes, "flops": dw_flops, "bound_ms": dw_bound,
+          "bound_by": dw_by, "walk_ms": bwd_ms - dw_ms})
     bwd_plain_ms = _cuda_ms(torch, lambda: L.lstm_recurrence_bwd_plain(
         acts, cseq, out, h0, c0, w_hh, dout, dhf, dcf), 1)
 
@@ -345,7 +440,8 @@ def phase_train_kernels(torch):
               "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms,
               "fwd_library_ms": lib_fwd_ms, "fwd_bytes": fwd_bytes,
               "fwd_flops": fwd_flops, "fwd_bound_ms": fwd_bound,
-              "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
+              "bwd_ms": bwd_ms, "bwd_dw_pass_ms": dw_ms,
+              "bwd_plain_ms": bwd_plain_ms,
               "bwd_library_ms": lib_bwd_ms, "bwd_bytes": bwd_bytes,
               "bwd_flops": bwd_flops, "bwd_bound_ms": bwd_bound,
               "library_vs_kernel_max_abs": lib_dev,

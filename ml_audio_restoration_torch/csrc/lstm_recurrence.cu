@@ -16,38 +16,34 @@
 // B=64, H=64, f32) 5.78 GB + 1.45 GB, about 2.2 ms at 3.35 TB/s. The h @ W_hh
 // products are 2*H*4H flops a row and step, 1.85e11 in all, about 2.8 ms at
 // the 67 TFLOP/s f32 rate outside the tensor cores. The real floor is the
-// chain of T dependent steps: each step needs the h of the step before.
+// chain of T dependent steps: each step needs the h of the step before, so
+// the design shortens the step's critical path.
 //
 // Design. Batch rows are independent, so each row gets one CTA and the time
-// loop runs inside it (nothing carries between CTAs on this card). The CTA has
-// 4H threads; thread j owns gate column j: it keeps W_hh[:, j] in registers,
-// so a step's matrix-vector product is H register FMAs a thread against h
-// broadcast from shared memory. Two __syncthreads a step: one after the
-// gates are activated, one after the first H threads updated (c, h). Each
-// thread prefetches its gate value PREFETCH steps ahead, so the step chain
-// does not wait on device memory. No batch or time padding: the grid is B
-// CTAs and the loop runs exactly T steps.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// loop runs inside it (nothing carries between CTAs on this card). Hidden
+// unit u belongs to a group of LANES adjacent lanes of one warp: lane r keeps
+// the unit's four gate columns of W_hh, restricted to its share of the rows,
+// in registers, and sums those partial pre-activations against h from shared
+// memory. Shuffles inside the group reduce the partials (each total summed in
+// one lane, in a fixed order); each lane activates 4 / LANES gates, the group
+// gathers i, f, g, o by shuffles and every lane of it updates (c, h). So the
+// gate math never leaves the unit's own lanes, and h_s, double-buffered
+// (step t reads buffer t & 1 and writes the other), needs one __syncthreads a
+// step. Activations use the special-function unit (lstm_common.cuh). The
+// gate rows come through shared memory, BLOCK steps at a time, copied by
+// cp.async while the block before runs: a prefetch into registers would
+// make each step's barrier wait for the load (PERF.md), and one copy and
+// one wait a block of steps, not a step, keep the copy's own latency off
+// most steps. No batch or time padding: the grid is B CTAs and the loop
+// runs exactly T steps.
 #include <stdint.h>
+
+#include "lstm_common.cuh"
 
 namespace {
 
-constexpr int PREFETCH = 4;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int BLOCK = 8;  // steps a gate copy covers (even)
+constexpr int LANES = 2;  // lanes per hidden unit
 
 // h as the product sees it: rounded to the gates' type, as the TPU kernel
 // casts h to W_hh's dtype before the dot.
@@ -56,83 +52,141 @@ __device__ __forceinline__ float as_operand(float x) {
   return to_f32(from_f32<T>(x));
 }
 
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
+// Sums each of the four gates' partials over the L lanes of a group and
+// leaves gate (4 / L) * r + q's total in a[q]. Each round halves the gates a
+// lane keeps: it sends its partner the half the partner keeps and adds what
+// it receives, so every total is summed in one lane, in a fixed order.
+template <int L>
+__device__ __forceinline__ void reduce_gates(float (&v)[4], int r,
+                                             float (&a)[4 / L]) {
+  int n = 4;
+#pragma unroll
+  for (int s = L / 2; s >= 1; s /= 2) {
+    n /= 2;
+    const bool up = r & s;
+#pragma unroll
+    for (int q = 0; q < n; ++q) {
+      const float keep = up ? v[n + q] : v[q];
+      const float send = up ? v[q] : v[n + q];
+      v[q] = keep + __shfl_xor_sync(FULL_MASK, send, s);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 4 / L; ++q) a[q] = v[q];
 }
 
 template <typename T, int H>
-__global__ void __launch_bounds__(4 * H, 1)
+__global__ void __launch_bounds__(H * LANES, 1)
 lstm_recurrence_kernel(const T* __restrict__ gx, const T* __restrict__ whh,
                        const float* __restrict__ h0,
                        const float* __restrict__ c0, T* __restrict__ out,
                        float* __restrict__ hf, float* __restrict__ cf,
                        int steps, int batch) {
   constexpr int G = 4 * H;
+  constexpr int ROWS = H / LANES;  // rows of W_hh a lane multiplies
+  constexpr int NG = 4 / LANES;    // gates a lane activates
+  constexpr int THREADS = H * LANES;
+  constexpr int CHUNKS = G * sizeof(T) / 16;  // 16-byte pieces of a gate row
+  static_assert(ROWS % 4 == 0, "a lane reads its share of h as float4s");
   const int b = blockIdx.x;
-  const int j = threadIdx.x;
+  const int u = threadIdx.x / LANES;  // hidden unit
+  const int r = threadIdx.x % LANES;  // lane in the unit's group
 
-  __shared__ __align__(16) float h_s[H];
-  __shared__ float act_s[G];
+  __shared__ __align__(16) float h_s[2][H];
+  __shared__ __align__(16) T gx_s[2][BLOCK][G];
 
-  float w[H];
+  // lane r multiplies rows 4 * (LANES * m + r) + e: its float4s of h
+  // interleave with the other lanes', so a warp's loads hit distinct banks
+  float w[4][ROWS];
 #pragma unroll
-  for (int k = 0; k < H; ++k) w[k] = to_f32(whh[k * G + j]);
-
-  float h = 0.0f, c = 0.0f;
-  if (j < H) {
-    h = h0[b * H + j];
-    c = c0[b * H + j];
-    h_s[j] = as_operand<T>(h);
-  }
-  const bool is_tanh = (j >= 2 * H) && (j < 3 * H);
-  const size_t t_stride = static_cast<size_t>(batch) * G;
-  const T* g_ptr = gx + static_cast<size_t>(b) * G + j;
-  T* o_ptr = out + static_cast<size_t>(b) * steps * H + j;
-
-  float ring[PREFETCH];
+  for (int m = 0; m < ROWS / 4; ++m)
 #pragma unroll
-  for (int u = 0; u < PREFETCH; ++u)
-    ring[u] = u < steps ? to_f32(g_ptr[u * t_stride]) : 0.0f;
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        w[g][4 * m + e] =
+            to_f32(whh[(4 * (LANES * m + r) + e) * G + g * H + u]);
+
+  float h = h0[b * H + u], c = c0[b * H + u];
+  if (r == 0) h_s[0][u] = as_operand<T>(h);
+
+  // the gate rows of steps [t0, t0 + BLOCK) sit in gx_s[(t0 / BLOCK) & 1];
+  // each block of rows is copied by all threads while the block before it
+  // runs, one commit group a block
+  const char* g_row =
+      reinterpret_cast<const char*>(gx + static_cast<size_t>(b) * G);
+  const size_t t_bytes = static_cast<size_t>(batch) * G * sizeof(T);
+  auto fetch = [&](int t0) {
+    char* dst = reinterpret_cast<char*>(gx_s[(t0 / BLOCK) & 1]);
+    for (int i = threadIdx.x; i < BLOCK * CHUNKS; i += THREADS) {
+      const int t = t0 + i / CHUNKS;
+      if (t < steps)
+        cp_async16(dst + 16 * i, g_row + t * t_bytes + 16 * (i % CHUNKS));
+    }
+    cp_async_commit();
+  };
+  fetch(0);
+  cp_async_wait<0>();
   __syncthreads();
 
-  for (int t0 = 0; t0 < steps; t0 += PREFETCH) {
+  T* o_ptr = out + static_cast<size_t>(b) * steps * H + u;
+  // unrolled by the block, so step t = t0 + p finds its gate row (p) and
+  // its h_s buffer (p & 1) at offsets known to the compiler
+  for (int t0 = 0; t0 < steps; t0 += BLOCK) {
+    const T(*g_blk)[G] = gx_s[(t0 / BLOCK) & 1];
 #pragma unroll
-    for (int u = 0; u < PREFETCH; ++u) {
-      const int t = t0 + u;
+    for (int p = 0; p < BLOCK; ++p) {
+      const int t = t0 + p;
       if (t >= steps) break;
-      const float g_in = ring[u];
-      if (t + PREFETCH < steps)
-        ring[u] = to_f32(g_ptr[(t + PREFETCH) * t_stride]);
+      if (p == 0) fetch(t0 + BLOCK);  // into the half the last block read
 
-      // four independent accumulators shorten the FMA dependency chain
-      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-      const float4* h4 = reinterpret_cast<const float4*>(h_s);
+      // this lane's partial pre-activations of the unit's four gates, two
+      // accumulators a gate to halve the FMA dependency chain
+      const float4* h4 = reinterpret_cast<const float4*>(h_s[p & 1]);
+      float acc[4][2] = {};
 #pragma unroll
-      for (int k = 0; k < H / 4; ++k) {
-        const float4 hv = h4[k];
-        a0 = fmaf(hv.x, w[4 * k + 0], a0);
-        a1 = fmaf(hv.y, w[4 * k + 1], a1);
-        a2 = fmaf(hv.z, w[4 * k + 2], a2);
-        a3 = fmaf(hv.w, w[4 * k + 3], a3);
+      for (int m = 0; m < ROWS / 4; ++m) {
+        const float4 hv = h4[LANES * m + r];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          acc[g][0] = fmaf(hv.x, w[g][4 * m + 0], acc[g][0]);
+          acc[g][1] = fmaf(hv.y, w[g][4 * m + 1], acc[g][1]);
+          acc[g][0] = fmaf(hv.z, w[g][4 * m + 2], acc[g][0]);
+          acc[g][1] = fmaf(hv.w, w[g][4 * m + 3], acc[g][1]);
+        }
       }
-      const float a = ((a0 + a1) + (a2 + a3)) + g_in;
-      act_s[j] = is_tanh ? tanhf(a) : sigmoid(a);
-      __syncthreads();
+      float part[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) part[g] = acc[g][0] + acc[g][1];
+      float a[NG];
+      reduce_gates<LANES>(part, r, a);
 
-      if (j < H) {
-        const float ig = act_s[j], fg = act_s[H + j];
-        const float gg = act_s[2 * H + j], og = act_s[3 * H + j];
-        c = fg * c + ig * gg;
-        h = og * tanhf(c);
-        h_s[j] = as_operand<T>(h);
+      // activate this lane's gates NG * r .. NG * r + NG - 1 (gate 2 is
+      // the tanh one), then gather i, f, g, o from the group; every lane of
+      // it updates (c, h)
+      const T* g_in = g_blk[p] + NG * r * H + u;
+      float act[NG];
+#pragma unroll
+      for (int q = 0; q < NG; ++q)
+        act[q] = gate_act(a[q] + to_f32(g_in[q * H]),
+                          NG * r + q == 2 ? 2.0f : 1.0f);
+      float ga[4];
+#pragma unroll
+      for (int gi = 0; gi < 4; ++gi)
+        ga[gi] = __shfl_sync(FULL_MASK, act[gi % NG], gi / NG, LANES);
+      c = fmaf(ga[1], c, ga[0] * ga[2]);
+      h = ga[3] * fast_tanh(c);
+      if (r == 0) {
+        h_s[(p + 1) & 1][u] = as_operand<T>(h);
         o_ptr[static_cast<size_t>(t) * H] = from_f32<T>(h);
       }
+      if (p == BLOCK - 1) cp_async_wait<0>();  // the next block landed
       __syncthreads();
     }
   }
-  if (j < H) {
-    hf[b * H + j] = h;
-    cf[b * H + j] = c;
+  if (r == 0) {
+    hf[b * H + u] = h;
+    cf[b * H + u] = c;
   }
 }
 
@@ -145,15 +199,15 @@ int launch(const void* gx, const void* whh, const float* h0, const float* c0,
   T* o = static_cast<T*>(out);
   switch (hidden) {
     case 16:
-      lstm_recurrence_kernel<T, 16><<<batch, 64, 0, stream>>>(
+      lstm_recurrence_kernel<T, 16><<<batch, 16 * LANES, 0, stream>>>(
           g, w, h0, c0, o, hf, cf, steps, batch);
       break;
     case 32:
-      lstm_recurrence_kernel<T, 32><<<batch, 128, 0, stream>>>(
+      lstm_recurrence_kernel<T, 32><<<batch, 32 * LANES, 0, stream>>>(
           g, w, h0, c0, o, hf, cf, steps, batch);
       break;
     case 64:
-      lstm_recurrence_kernel<T, 64><<<batch, 256, 0, stream>>>(
+      lstm_recurrence_kernel<T, 64><<<batch, 64 * LANES, 0, stream>>>(
           g, w, h0, c0, o, hf, cf, steps, batch);
       break;
     default:

@@ -268,9 +268,44 @@ def _lstm_train_fwd_cuda(gates_tm, w_hh, h0, c0):
     return out, hf, cf, acts, cseq
 
 
+# The dW_hh pass's split-K plan: splits of a multiple of its 16-row stage
+# (DW_KC in csrc/lstm_train.cu), at most 256 of them, about 1024 rows each
+# for short sequences.
+_DW_STAGE_ROWS = 16
+_DW_MAX_SPLITS = 256
+
+
+def _dw_splits(rows: int) -> tuple[int, int]:
+    """(splits, rows per split) of the dW_hh pass over `rows` = T*B rows.
+    Every split but the last is full and none is empty (one split of no
+    rows when rows is 0). It depends on the shape alone, so the partials
+    are added in the same order on every run."""
+    want = max(1, min(_DW_MAX_SPLITS, -(-rows // 1024)))
+    per = _DW_STAGE_ROWS * max(1, -(-rows // (_DW_STAGE_ROWS * want)))
+    return max(1, -(-rows // per)), per
+
+
+def _dw_pass(out, h0, dgx):
+    """K3's second launch: dW_hh [H, 4H] = sum over (t, b) of
+    h_{t-1, b}^T dgx[t, b], with h_{t-1} = out[t-1] (h0 at t = 0), from
+    out [T, B, H], h0 [B, H] and dgx [T, B, 4H], all f32 and contiguous on
+    one card. Counted by its caller, `_lstm_train_bwd_cuda`."""
+    t_len, b, g4 = dgx.shape
+    hid = g4 // 4
+    splits, per = _dw_splits(t_len * b)
+    f32 = {"dtype": torch.float32, "device": dgx.device}
+    dw = torch.empty((hid, g4), **f32)
+    part = torch.empty((splits, hid, g4), **f32)  # per-split partials
+    _launch("lstm_train_dw", _build.load("lstm_train").lstm_train_dw, 5, 5,
+            [out.data_ptr(), h0.data_ptr(), dgx.data_ptr(), dw.data_ptr(),
+             part.data_ptr(), t_len, b, hid, splits, per], dgx.device)
+    return dw
+
+
 def _lstm_train_bwd_cuda(acts, cseq, out, h0, c0, w_hh, dout, dhf, dcf):
-    """K3 on the card (with its fixed-order dW_hh row sum); same contract
-    as `lstm_recurrence_bwd_plain`, f32 only."""
+    """K3 on the card: the reverse-time walk (dgx, dh0, dc0), then the
+    dW_hh pass over its dgx (`_dw_pass`); one count for the pair. Same
+    contract as `lstm_recurrence_bwd_plain`, f32 only."""
     global train_bwd_launch_count
     t_len, b, g4 = acts.shape
     hid = g4 // 4
@@ -297,16 +332,14 @@ def _lstm_train_bwd_cuda(acts, cseq, out, h0, c0, w_hh, dout, dhf, dcf):
         args[name] = x.contiguous()
     f32 = {"dtype": torch.float32, "device": dev}
     dgx = torch.empty((t_len, b, g4), **f32)
-    dw = torch.empty((hid, g4), **f32)
     dh0 = torch.empty((b, hid), **f32)
     dc0 = torch.empty((b, hid), **f32)
-    part = torch.empty((b, hid, g4), **f32)  # per-row dW_hh partials
-    _launch("lstm_train_bwd", _build.load("lstm_train").lstm_train_bwd, 14,
-            3, [args[n].data_ptr() for n in ("acts", "cseq", "out", "dout",
-                                             "w_hh", "h0", "c0", "dhf",
-                                             "dcf")]
-            + [dgx.data_ptr(), dw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-               part.data_ptr(), t_len, b, hid], dev)
+    _launch("lstm_train_bwd", _build.load("lstm_train").lstm_train_bwd, 10,
+            3, [args[n].data_ptr() for n in ("acts", "cseq", "dout", "w_hh",
+                                             "c0", "dhf", "dcf")]
+            + [dgx.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), t_len, b,
+               hid], dev)
+    dw = _dw_pass(args["out"], args["h0"], dgx)
     train_bwd_launch_count += 1
     return dgx, dw, dh0, dc0
 

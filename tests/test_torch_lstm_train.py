@@ -221,3 +221,103 @@ def test_reset_launch_count_clears_all(monkeypatch):
     assert (L.launch_count, L.train_fwd_launch_count,
             L.train_bwd_launch_count) == (0, 0, 0)
 
+
+# ------------------------------------------- K3's wrapper, without a card
+def _bwd_args(t=9, b=3, h=16):
+    rng = np.random.default_rng(5)
+    shapes = {"acts": (t, b, 4 * h), "cseq": (t, b, h), "out": (t, b, h),
+              "h0": (b, h), "c0": (b, h), "w_hh": (h, 4 * h),
+              "dout": (t, b, h), "dhf": (b, h), "dcf": (b, h)}
+    return {k: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            for k, s in shapes.items()}
+
+
+@pytest.fixture
+def fake_launch(monkeypatch):
+    """The kernel loader and the launcher replaced: no nvcc and no card.
+    Returns the list of (kernel, n_ptrs, n_ints, ints) launched."""
+    launched = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return name
+
+    monkeypatch.setattr(L._build, "load", lambda name: Lib())
+    monkeypatch.setattr(
+        L, "_launch", lambda kernel, fn, n_ptrs, n_ints, args, dev:
+        launched.append((kernel, fn, n_ptrs, n_ints, args[n_ptrs:])))
+    return launched
+
+
+def _call_bwd(a):
+    return L._lstm_train_bwd_cuda(a["acts"], a["cseq"], a["out"], a["h0"],
+                                  a["c0"], a["w_hh"], a["dout"], a["dhf"],
+                                  a["dcf"])
+
+
+@pytest.mark.parametrize("bad", [
+    ("acts", lambda x: x[:, :, :-4]), ("cseq", lambda x: x[:-1]),
+    ("out", lambda x: x[:, :2]), ("h0", lambda x: x[:, :-1]),
+    ("dout", lambda x: x[1:]), ("dcf", lambda x: x[:2]),
+    ("w_hh", lambda x: x.T.contiguous()),
+    ("dhf", lambda x: x.double()), ("out", lambda x: x.bfloat16()),
+    ("c0", lambda x: torch.empty(x.shape, device="meta")),
+    ("acts", lambda x: torch.zeros(x.shape[:2] + (32,)))])
+def test_train_bwd_wrapper_raises_before_launch(fake_launch, bad):
+    """Shape, dtype and device checks (and an unsupported H: gates width 32
+    is H = 8) raise before either of K3's launches, and the count stays."""
+    a = _bwd_args()
+    name, change = bad
+    a[name] = change(a[name])
+    before = L.train_bwd_launch_count
+    with pytest.raises((ValueError, TypeError)):
+        _call_bwd(a)
+    assert fake_launch == [] and L.train_bwd_launch_count == before
+
+
+@pytest.mark.parametrize("t,b,h", [(9, 3, 16), (1, 1, 64), (700, 5, 32)])
+def test_train_bwd_wrapper_launches_walk_then_dw_pass(fake_launch, t, b, h):
+    """One call: the walk, then the dW_hh pass over its dgx with the
+    split-K plan of T*B rows, and the count moves by one."""
+    before = L.train_bwd_launch_count
+    dgx, dw, dh0, dc0 = _call_bwd(_bwd_args(t, b, h))
+    assert L.train_bwd_launch_count == before + 1
+    splits, per = L._dw_splits(t * b)
+    assert fake_launch == [
+        ("lstm_train_bwd", "lstm_train_bwd", 10, 3, [t, b, h]),
+        ("lstm_train_dw", "lstm_train_dw", 5, 5, [t, b, h, splits, per])]
+    assert (dgx.shape, dw.shape, dh0.shape, dc0.shape) == (
+        (t, b, 4 * h), (h, 4 * h), (b, h), (b, h))
+    assert all(x.dtype == torch.float32 for x in (dgx, dw, dh0, dc0))
+
+
+@pytest.mark.parametrize("rows", [0, 1, 15, 16, 1024, 1025, 16 * 2768,
+                                  705600, 10 ** 7])
+def test_dw_splits_cover_the_rows(rows):
+    """Splits of a multiple of the 16-row stage, at most 256, none empty,
+    covering every row once."""
+    splits, per = L._dw_splits(rows)
+    assert per % 16 == 0 and 1 <= splits <= 256
+    assert splits * per >= rows
+    assert rows == 0 and splits == 1 or (splits - 1) * per < rows
+
+
+@pytest.mark.parametrize("t,b,h", [(150, 3, 8), (300, 7, 16)])
+def test_dw_pass_decomposition_matches_plain(rng, t, b, h):
+    """The dW_hh pass's arithmetic on the CPU: rows k = t*B + b pair
+    h0[b] (k < B) or out[k - B] with dgx[k]; each split sums its rows, and
+    the splits are added in split order. It equals the plain backward's
+    dW_hh within 1e-4 of its largest entry (the card's bar)."""
+    gates, w_hh, h0, c0 = _inputs(rng, t, b, h)
+    dout, dhf, dcf = _cotangents(rng, t, b, h)
+    out, _, _, acts, cseq = L.lstm_recurrence_train_plain(
+        *_t(gates, w_hh, h0, c0))
+    dgx, want, _, _ = L.lstm_recurrence_bwd_plain(
+        acts, cseq, out, *_t(h0, c0, w_hh, dout, dhf, dcf))
+    rows = torch.cat([torch.from_numpy(h0), out.reshape(-1, h)])[:t * b]
+    d = dgx.reshape(-1, 4 * h)
+    splits, per = L._dw_splits(t * b)
+    got = torch.zeros(h, 4 * h)
+    for s in range(splits):
+        got += rows[s * per:(s + 1) * per].T @ d[s * per:(s + 1) * per]
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
