@@ -6,15 +6,19 @@
 Phases, each printing one JSON line; any failure exits non-zero:
   1. device  - the card's name and power limit (nvidia-smi);
   2. build   - nvcc builds every CUDA source of the package, one nvcc per
-               source, all started together;
+               source, all started together (the kernels and the latency
+               probe of ops/_latency.py);
   3. kernels - each kernel (K1 inference recurrence, K2 train forward, K3
                train backward: its walk and its dW_hh pass) against its
                plain PyTorch version on the card, with stated tolerances
-               (K1 and K3 at every H they take, 16, 32 and 64: one step of
-               one row, an odd T with a random carry in, and gates of
-               magnitude ~60 that saturate every activation), then timed
-               at its main-path shape beside its bound, the plain version
-               and a library yardstick (the dW_hh pass also alone);
+               (each at every H it takes, 16, 32 and 64: one step of one
+               row, an odd T with a random carry in, and gates of
+               magnitude ~60 that saturate every activation; K2 and K3 also
+               repeat bit for bit), then at its main-path shape held
+               against its plain version again and timed beside its bound,
+               the plain version and a library yardstick (the dW_hh pass
+               also alone; K2 beside its latency floor, counted from step
+               latencies the probe measures);
   4. main    - the offline restore chain at full published widths with
                seeded random weights: kernel vs plain recurrence on a 4 s
                clip, card vs CPU on the same clip, a 120 s clip (64 bucketed
@@ -82,23 +86,22 @@ def phase_device(torch):
     return line
 
 
-KERNEL_SOURCES = ("lstm_recurrence", "lstm_train")
-
-
 def phase_build():
+    """Builds every CUDA source of the package in parallel, one nvcc each:
+    the kernels and the latency probe."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from ml_audio_restoration_torch.ops import _build
+    from ml_audio_restoration_torch.ops import _build, _latency
 
+    sources = ("lstm_recurrence", "lstm_train", _latency.PROBE)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        list(pool.map(_build.build, KERNEL_SOURCES))
-    for name in KERNEL_SOURCES:
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.build, sources))
+    for name in sources:
         _build.load(name)
-    emit({"phase": "build", "sources": list(KERNEL_SOURCES),
+    emit({"phase": "build", "sources": list(sources),
           "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": {k: _build.build_seconds.get(k)
-                           for k in KERNEL_SOURCES}})
+          "nvcc_seconds": {k: _build.build_seconds.get(k) for k in sources}})
 
 
 def _cuda_ms(torch, fn, reps: int) -> float:
@@ -117,6 +120,18 @@ def _cuda_ms(torch, fn, reps: int) -> float:
 
 def _max_dev(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def _timed_once(torch, fn):
+    """(device ms, result) of one call of fn, between a pair of CUDA
+    events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
 
 
 def _lstm_segments(torch, ref, gates, seg: int):
@@ -216,8 +231,17 @@ def phase_kernels(torch):
     run_k = lambda: L._lstm_recurrence_cuda(gates, w_hh, h0, c0)  # noqa: E731
     out_k = run_k()
     ms = _cuda_ms(torch, run_k, 5)
-    plain_ms = _cuda_ms(
-        torch, lambda: L.lstm_recurrence_plain(gates, w_hh, h0, c0), 1)
+    plain_ms, out_p = _timed_once(
+        torch, lambda: L.lstm_recurrence_plain(gates, w_hh, h0, c0))
+    main_err = max(_max_dev(x, y) for x, y in zip(out_k, out_p))
+    check = {"phase": "kernel_check", "kernel": "lstm_recurrence",
+             "shape": [t, b, h], "f32_max_abs_err": main_err,
+             "f32_tol": F32_TOL}
+    emit(check)
+    if not main_err <= F32_TOL:
+        raise AssertionError(f"lstm_recurrence disagrees with plain at the "
+                             f"main-path shape: {check}")
+    del out_p
     # yardstick only, never called by the port: cuDNN's LSTM with an
     # identity input projection computes the same recurrence on the gates
     torch.backends.cudnn.allow_tf32 = False
@@ -254,7 +278,8 @@ def phase_kernels(torch):
     return {"name": "lstm_recurrence", "route": "cuda",
             "source": "ml_audio_restoration_torch/csrc/lstm_recurrence.cu",
             "replaces": "ml_audio_restoration_tpu/ops/pallas/lstm.py:59",
-            "max_abs_err": max(f32_err, cases["f32"], cases["saturated"]),
+            "max_abs_err": max(f32_err, cases["f32"], cases["saturated"],
+                               main_err),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
 
@@ -265,6 +290,28 @@ def _bound(n_bytes: float, flops: float):
     by_ops = flops / H100_F32_FLOPS * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
+
+
+def _k2_cases(torch, L, randn):
+    """K2 against its plain version at every H it takes: one step of one
+    row and an odd T with a random carry in, gates of magnitude 0.5 and
+    ~SATURATED, f32. Returns the largest deviation of each kind over all
+    five outputs and whether all were finite."""
+    worst = {"f32": 0.0, "saturated": 0.0}
+    finite = True
+    for h in HIDDEN:
+        for t, b, kind in ((1, 1, "f32"), (301, 5, "f32"),
+                           (301, 5, "saturated")):
+            scale = SATURATED if kind == "saturated" else 0.5
+            args = (randn(t, b, 4 * h, scale=scale),
+                    randn(h, 4 * h, scale=0.15), randn(b, h, scale=0.3),
+                    randn(b, h, scale=0.3))
+            k = L._lstm_train_fwd_cuda(*args)
+            p = L.lstm_recurrence_train_plain(*args)
+            finite &= all(bool(torch.isfinite(x).all()) for x in k)
+            worst[kind] = max(worst[kind],
+                              max(_max_dev(x, y) for x, y in zip(k, p)))
+    return worst, finite
 
 
 def _k3_cases(torch, L, randn):
@@ -296,8 +343,11 @@ def _k3_cases(torch, L, randn):
 
 
 def phase_train_kernels(torch):
-    """K2 and K3 against their plain versions, then timed at the stereo
-    training shape (2 s chunks at 22.05 kHz, batch 16)."""
+    """K2 and K3 against their plain versions, then at the stereo training
+    shape (2 s chunks at 22.05 kHz, batch 16) held against them again and
+    timed; K2 beside its latency floor, counted from the step latencies the
+    probe of ops/_latency.py measures."""
+    from ml_audio_restoration_torch.ops import _latency
     from ml_audio_restoration_torch.ops import lstm as L
 
     dev = torch.device("cuda")
@@ -310,6 +360,18 @@ def phase_train_kernels(torch):
         return (randn(t, b, 4 * h, scale=0.5), randn(h, 4 * h, scale=0.15),
                 randn(b, h, scale=0.3), randn(b, h, scale=0.3))
 
+    cases, finite = _k2_cases(torch, L, randn)
+    check = {"phase": "kernel_check", "kernel": "lstm_train_fwd",
+             "hidden": list(HIDDEN), "shapes": [[1, 1], [301, 5]],
+             "f32_max_abs_err": cases["f32"], "tol": K2_TOL,
+             "saturated_gate_scale": SATURATED,
+             "saturated_max_abs_err": cases["saturated"],
+             "saturated_finite": finite}
+    emit(check)
+    if not (cases["f32"] <= K2_TOL and cases["saturated"] <= K2_TOL
+            and finite):
+        raise AssertionError(f"lstm_train_fwd disagrees with plain: {check}")
+
     t, b, h = 1001, 13, 64
     gates, w_hh, h0, c0 = train_inputs(t, b, h)
     dout, dhf, dcf = (randn(t, b, h, scale=0.1), randn(b, h, scale=0.1),
@@ -317,6 +379,9 @@ def phase_train_kernels(torch):
     k = L._lstm_train_fwd_cuda(gates, w_hh, h0, c0)
     p = L.lstm_recurrence_train_plain(gates, w_hh, h0, c0)
     f32_err = max(_max_dev(x, y) for x, y in zip(k, p))
+    # a fixed summation order: a second run is equal bit for bit
+    fwd_repeats = all(torch.equal(x, y) for x, y in zip(
+        k, L._lstm_train_fwd_cuda(gates, w_hh, h0, c0)))
     # bf16 gates: upcast on load, h not rounded, every output f32
     gb = gates.bfloat16()
     kb = L._lstm_train_fwd_cuda(gb, w_hh, h0, c0)
@@ -340,12 +405,13 @@ def phase_train_kernels(torch):
              "fwd_bf16_max_abs_err": bf16_err,
              "fwd_bf16_out_dtype": str(kb[0].dtype),
              "fwd_halves_max_abs_err": halves_err, "fwd_tol": K2_TOL,
+             "fwd_repeats_bit_for_bit": fwd_repeats,
              "bwd_max_abs_err": bwd_err, "bwd_tol": K3_TOL,
              "dw_rel_err": dw_rel, "dw_tol": DW_TOL}
     emit(check)
     if not (f32_err <= K2_TOL and bf16_err <= K2_TOL
             and halves_err <= K2_TOL and kb[0].dtype == torch.float32
-            and bwd_err <= K3_TOL and dw_rel <= DW_TOL):
+            and fwd_repeats and bwd_err <= K3_TOL and dw_rel <= DW_TOL):
         raise AssertionError(f"lstm_train disagrees with plain: {check}")
     del k, p, kb, pb, a, z, kg, pg
     case_err, case_dw, finite = _k3_cases(torch, L, randn)
@@ -367,8 +433,16 @@ def phase_train_kernels(torch):
     fwd = lambda: L._lstm_train_fwd_cuda(gates, w_hh, h0, c0)  # noqa: E731
     res = fwd()
     fwd_ms = _cuda_ms(torch, fwd, 5)
-    fwd_plain_ms = _cuda_ms(
-        torch, lambda: L.lstm_recurrence_train_plain(gates, w_hh, h0, c0), 1)
+    # K2's latency floor: its counted step chain at the step latencies the
+    # probe measures now, at the SM clock nvidia-smi reads right after
+    # (each kernel's floor at its main-path T: K1's is the restore's)
+    floor = _latency.step_floor(h, {"k1": 88200, "k2": t, "k3": t}, dev)
+    emit({"phase": "latency_probe", **floor})
+    fwd_floor = floor["floor"]["k2"]
+    fwd_plain_ms, res_p = _timed_once(
+        torch, lambda: L.lstm_recurrence_train_plain(gates, w_hh, h0, c0))
+    main_fwd_err = max(_max_dev(x, y) for x, y in zip(res, res_p))
+    del res_p
     out, _, _, acts, cseq = res
     bwd = lambda: L._lstm_train_bwd_cuda(  # noqa: E731
         acts, cseq, out, h0, c0, w_hh, dout, dhf, dcf)
@@ -383,8 +457,22 @@ def phase_train_kernels(torch):
           "shape": [t, b, h], "ms": dw_ms, "splits": L._dw_splits(t * b),
           "bytes": dw_bytes, "flops": dw_flops, "bound_ms": dw_bound,
           "bound_by": dw_by, "walk_ms": bwd_ms - dw_ms})
-    bwd_plain_ms = _cuda_ms(torch, lambda: L.lstm_recurrence_bwd_plain(
-        acts, cseq, out, h0, c0, w_hh, dout, dhf, dcf), 1)
+    bwd_plain_ms, grads_p = _timed_once(
+        torch, lambda: L.lstm_recurrence_bwd_plain(
+            acts, cseq, out, h0, c0, w_hh, dout, dhf, dcf))
+    main_bwd_err = max(_max_dev(grads[i], grads_p[i]) for i in (0, 2, 3))
+    main_dw_rel = (_max_dev(grads[1], grads_p[1])
+                   / float(grads_p[1].abs().max()))
+    del grads_p
+    check = {"phase": "kernel_check", "kernel": "lstm_train_fwd+bwd",
+             "shape": [t, b, h], "fwd_f32_max_abs_err": main_fwd_err,
+             "fwd_tol": K2_TOL, "bwd_max_abs_err": main_bwd_err,
+             "bwd_tol": K3_TOL, "dw_rel_err": main_dw_rel, "dw_tol": DW_TOL}
+    emit(check)
+    if not (main_fwd_err <= K2_TOL and main_bwd_err <= K3_TOL
+            and main_dw_rel <= DW_TOL):
+        raise AssertionError(f"lstm_train disagrees with plain at the "
+                             f"main-path shape: {check}")
 
     # yardstick only, never called by the port: cuDNN's LSTM in train mode
     # with an identity input projection, forward for K2 and forward +
@@ -446,6 +534,9 @@ def phase_train_kernels(torch):
               "bwd_flops": bwd_flops, "bwd_bound_ms": bwd_bound,
               "library_vs_kernel_max_abs": lib_dev,
               "fwd_ns_per_step": fwd_ms * 1e6 / t,
+              "fwd_floor_ms": fwd_floor["ms"],
+              "fwd_floor_ns_per_step": fwd_floor["ns_per_step"],
+              "fwd_floor_cycles_per_step": fwd_floor["cycles_per_step"],
               "bwd_ns_per_step": bwd_ms * 1e6 / t}
     emit(timing)
     del gates, res, out, acts, cseq, grads, dout
@@ -454,12 +545,14 @@ def phase_train_kernels(torch):
     return [
         {"name": "lstm_train_fwd", "route": "cuda", "source": src,
          "replaces": "ml_audio_restoration_tpu/ops/pallas/lstm.py:223",
-         "max_abs_err": max(f32_err, bf16_err, halves_err), "ms": fwd_ms,
+         "max_abs_err": max(f32_err, bf16_err, halves_err, cases["f32"],
+                            cases["saturated"], main_fwd_err), "ms": fwd_ms,
          "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound,
          "bound_by": fwd_by, "library_ms": lib_fwd_ms},
         {"name": "lstm_train_bwd", "route": "cuda", "source": src,
          "replaces": "ml_audio_restoration_tpu/ops/pallas/lstm.py:260",
-         "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+         "max_abs_err": max(bwd_err, main_bwd_err), "ms": bwd_ms,
+         "plain_ms": bwd_plain_ms,
          "bound_ms": bwd_bound, "bound_by": bwd_by,
          "library_ms": lib_bwd_ms}]
 
@@ -891,9 +984,10 @@ def _write_corpus(root, files: int, seconds: float, rate: int = 22050):
                    _stereo_batch(1, frames, seed=1000 + i)["stereo"][0], rate)
 
 
-def phase_train_full(torch, rows):
+def phase_train_full(torch):
     """The training path at full width through train_from_config: seeded
-    stereo WAVs, 2 s chunks at 22.05 kHz, batch 16, f32, Adam at 1e-4."""
+    stereo WAVs, 2 s chunks at 22.05 kHz, batch 16, f32, Adam at 1e-4.
+    Returns the K2 and K3 launches of the 12-step run, by kernel name."""
     from ml_audio_restoration_torch.config import Config
     from ml_audio_restoration_torch.models import count_params
     from ml_audio_restoration_torch.ops import lstm as L
@@ -1011,7 +1105,6 @@ def phase_train_full(torch, rows):
            "same_batch_step_ms": {
                "cudnn_nondeterministic": same_batch[False],
                "cudnn_deterministic": same_batch[True]},
-           "kernel_ms_alone": {r["name"]: r["ms"] for r in rows[1:]},
            "launches_per_step": per_step, "peak_mem_bytes": peak,
            "resumed_exactly": resumed}
     emit(row)
@@ -1022,8 +1115,8 @@ def phase_train_full(torch, rows):
             and per_step == {"lstm_train_fwd": 1.0, "lstm_train_bwd": 1.0}
             and "best_model.pth" in written and timed == 10 and resumed):
         raise AssertionError(f"training run failed: {row}")
-    rows[1]["launches"] = counts["lstm_train_fwd"]
-    rows[2]["launches"] = counts["lstm_train_bwd"]
+    return {name: counts[name] for name in ("lstm_train_fwd",
+                                            "lstm_train_bwd")}
 
 
 def main() -> int:
@@ -1040,7 +1133,9 @@ def main() -> int:
     phase_main(torch, rows[0])
     phase_grad(torch)
     phase_train_small(torch)
-    phase_train_full(torch, rows)
+    launches = phase_train_full(torch)
+    for row in rows[1:]:
+        row["launches"] = launches[row["name"]]
     emit({"kernels": [{key: row[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

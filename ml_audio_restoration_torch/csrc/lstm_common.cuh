@@ -1,6 +1,7 @@
 // Device helpers shared by the LSTM recurrence kernels (lstm_recurrence.cu,
-// lstm_train.cu): type conversions, the gate activations and asynchronous
-// copies into shared memory.
+// lstm_train.cu): type conversions, the gate activations, the reduction of
+// a unit's gate partials across its lanes and asynchronous copies into
+// shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,6 +39,29 @@ __device__ __forceinline__ float gate_act(float x, float k) {
 
 __device__ __forceinline__ float fast_tanh(float x) {
   return gate_act(x, 2.0f);
+}
+
+// Sums each of the four gates' partials over the L lanes of a group and
+// leaves gate (4 / L) * r + q's total in a[q]. Each round halves the gates a
+// lane keeps: it sends its partner the half the partner keeps and adds what
+// it receives, so every total is summed in one lane, in a fixed order.
+template <int L>
+__device__ __forceinline__ void reduce_gates(float (&v)[4], int r,
+                                             float (&a)[4 / L]) {
+  int n = 4;
+#pragma unroll
+  for (int s = L / 2; s >= 1; s /= 2) {
+    n /= 2;
+    const bool up = r & s;
+#pragma unroll
+    for (int q = 0; q < n; ++q) {
+      const float keep = up ? v[n + q] : v[q];
+      const float send = up ? v[q] : v[n + q];
+      v[q] = keep + __shfl_xor_sync(FULL_MASK, send, s);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 4 / L; ++q) a[q] = v[q];
 }
 
 // 16 bytes global -> shared, asynchronous (cp.async); zero-filled when

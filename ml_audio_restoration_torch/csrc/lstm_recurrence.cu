@@ -52,29 +52,6 @@ __device__ __forceinline__ float as_operand(float x) {
   return to_f32(from_f32<T>(x));
 }
 
-// Sums each of the four gates' partials over the L lanes of a group and
-// leaves gate (4 / L) * r + q's total in a[q]. Each round halves the gates a
-// lane keeps: it sends its partner the half the partner keeps and adds what
-// it receives, so every total is summed in one lane, in a fixed order.
-template <int L>
-__device__ __forceinline__ void reduce_gates(float (&v)[4], int r,
-                                             float (&a)[4 / L]) {
-  int n = 4;
-#pragma unroll
-  for (int s = L / 2; s >= 1; s /= 2) {
-    n /= 2;
-    const bool up = r & s;
-#pragma unroll
-    for (int q = 0; q < n; ++q) {
-      const float keep = up ? v[n + q] : v[q];
-      const float send = up ? v[q] : v[n + q];
-      v[q] = keep + __shfl_xor_sync(FULL_MASK, send, s);
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < 4 / L; ++q) a[q] = v[q];
-}
-
 template <typename T, int H>
 __global__ void __launch_bounds__(H * LANES, 1)
 lstm_recurrence_kernel(const T* __restrict__ gx, const T* __restrict__ whh,

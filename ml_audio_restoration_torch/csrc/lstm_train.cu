@@ -35,12 +35,27 @@
 // of T dependent steps, as for the inference kernel.
 //
 // Design. Batch rows are independent, so each row gets one CTA with the
-// time loop inside (nothing carries between CTAs on this card). In K2
-// thread j keeps column j of W_hh in registers; two barriers a step. K3 is
-// two launches. The walk uses the inference kernel's layout: hidden unit k
-// belongs to a group of
-// BWD_LANES lanes of one warp, which hold row k of W_hh split between them
-// in registers. Each lane computes the unit's four d_lin from the step's
+// time loop inside (nothing carries between CTAs on this card). Both use
+// the inference kernel's layout (lstm_recurrence.cu). In K2 hidden unit u
+// belongs to FWD_LANES adjacent lanes of one warp; each lane keeps the
+// unit's four gate columns of W_hh, restricted to its half of the rows, in
+// registers in f32, sums its partials against h from shared memory, and
+// the pair reduces them by shuffles in a fixed order (reduce_gates). Each
+// lane activates its two gates on the special-function unit and stores
+// them to acts (coalesced across the warp's units); the pair gathers i, f,
+// g, o by shuffles, both lanes update (c, h), lane 0 stores out and lane 1
+// cseq (one store instruction a warp). h_s is double-buffered in f32, so a
+// step has one __syncthreads. The gate rows come through shared memory
+// FWD_BLOCK steps at a time, in the gates' own type, copied by cp.async
+// while the block before runs: a barrier waits for outstanding global
+// loads, so per-step loads into registers would put a memory latency on
+// every step (PERF.md). The stores stay plain st.global: they take no
+// register a later instruction waits for, and the barrier does not wait
+// for them.
+//
+// K3 is two launches. The walk uses the same layout: hidden unit k belongs
+// to a group of BWD_LANES lanes of one warp, which hold row k of W_hh split
+// between them in registers. Each lane computes the unit's four d_lin from the step's
 // residual row, stores its share of them to a double-buffered dlin_s and to
 // dgx, and after the step's one barrier sums its share of
 // dh[k] = sum_j d_lin[j] W_hh[k, j], which a shuffle butterfly completes
@@ -56,92 +71,131 @@
 
 namespace {
 
-constexpr int PREFETCH = 4;  // K2's residual prefetch depth
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
 // ------------------------------------------------------------------ K2
+constexpr int FWD_BLOCK = 8;  // steps a gate copy covers (even)
+constexpr int FWD_LANES = 2;  // lanes per hidden unit: lane 0 stores out,
+                              // lane 1 cseq
+
 template <typename T, int H>
-__global__ void __launch_bounds__(4 * H, 1)
+__global__ void __launch_bounds__(H * FWD_LANES, 1)
 lstm_train_fwd_kernel(const T* __restrict__ gx, const float* __restrict__ whh,
                       const float* __restrict__ h0,
                       const float* __restrict__ c0, float* __restrict__ out,
                       float* __restrict__ hf, float* __restrict__ cf,
                       float* __restrict__ acts, float* __restrict__ cseq,
                       int steps, int batch) {
+  constexpr int L = FWD_LANES;
   constexpr int G = 4 * H;
+  constexpr int ROWS = H / L;  // rows of W_hh a lane multiplies
+  constexpr int NG = 4 / L;    // gates a lane activates and stores
+  constexpr int THREADS = H * L;
+  constexpr int CHUNKS = G * sizeof(T) / 16;  // 16-byte pieces of a gate row
+  static_assert(L == 2, "the unit's two lanes store out and cseq");
+  static_assert(ROWS % 4 == 0, "a lane reads its share of h as float4s");
   const int b = blockIdx.x;
-  const int j = threadIdx.x;
+  const int u = threadIdx.x / L;  // hidden unit
+  const int r = threadIdx.x % L;  // lane in the unit's pair
 
-  __shared__ __align__(16) float h_s[H];
-  __shared__ float act_s[G];
+  __shared__ __align__(16) float h_s[2][H];
+  __shared__ __align__(16) T gates_s[2][FWD_BLOCK][G];
 
-  float w[H];
+  // lane r multiplies rows 4 * (L * m + r) + e: its float4s of h interleave
+  // with its partner's, so a warp's loads hit distinct banks
+  float w[4][ROWS];
 #pragma unroll
-  for (int k = 0; k < H; ++k) w[k] = whh[k * G + j];
-
-  float h = 0.0f, c = 0.0f;
-  if (j < H) {
-    h = h0[b * H + j];
-    c = c0[b * H + j];
-    h_s[j] = h;
-  }
-  const bool is_tanh = (j >= 2 * H) && (j < 3 * H);
-  const size_t g_stride = static_cast<size_t>(batch) * G;
-  const size_t h_stride = static_cast<size_t>(batch) * H;
-  const T* g_ptr = gx + static_cast<size_t>(b) * G + j;
-  float* a_ptr = acts + static_cast<size_t>(b) * G + j;
-  float* o_ptr = out + static_cast<size_t>(b) * H + j;
-  float* c_ptr = cseq + static_cast<size_t>(b) * H + j;
-
-  float ring[PREFETCH];
+  for (int m = 0; m < ROWS / 4; ++m)
 #pragma unroll
-  for (int u = 0; u < PREFETCH; ++u)
-    ring[u] = u < steps ? to_f32(g_ptr[u * g_stride]) : 0.0f;
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        w[g][4 * m + e] = whh[(4 * (L * m + r) + e) * G + g * H + u];
+
+  float h = h0[b * H + u], c = c0[b * H + u];
+  if (r == 0) h_s[0][u] = h;  // f32: training does not round h
+
+  // the gate rows of steps [t0, t0 + FWD_BLOCK) sit in
+  // gates_s[(t0 / FWD_BLOCK) & 1]; each block of rows is copied by all
+  // threads while the block before it runs, one commit group a block
+  const char* g_row =
+      reinterpret_cast<const char*>(gx + static_cast<size_t>(b) * G);
+  const size_t t_bytes = static_cast<size_t>(batch) * G * sizeof(T);
+  auto copy_gates = [&](int t0) {
+    char* dst = reinterpret_cast<char*>(gates_s[(t0 / FWD_BLOCK) & 1]);
+    for (int i = threadIdx.x; i < FWD_BLOCK * CHUNKS; i += THREADS) {
+      const int t = t0 + i / CHUNKS;
+      if (t < steps)
+        cp_async16(dst + 16 * i, g_row + t * t_bytes + 16 * (i % CHUNKS));
+    }
+    cp_async_commit();
+  };
+  copy_gates(0);
+  cp_async_wait<0>();
   __syncthreads();
 
-  for (int t0 = 0; t0 < steps; t0 += PREFETCH) {
+  // the residual rows: this lane's gates in acts, out (lane 0) or cseq
+  // (lane 1)
+  const size_t g_stride = static_cast<size_t>(batch) * G;
+  const size_t h_stride = static_cast<size_t>(batch) * H;
+  float* a_ptr = acts + static_cast<size_t>(b) * G + NG * r * H + u;
+  float* s_ptr = (r == 0 ? out : cseq) + static_cast<size_t>(b) * H + u;
+  // unrolled by the block, so step t = t0 + p finds its gate row (p) and
+  // its h_s buffer (p & 1) at offsets known to the compiler
+  for (int t0 = 0; t0 < steps; t0 += FWD_BLOCK) {
+    const T(*g_blk)[G] = gates_s[(t0 / FWD_BLOCK) & 1];
 #pragma unroll
-    for (int u = 0; u < PREFETCH; ++u) {
-      const int t = t0 + u;
+    for (int p = 0; p < FWD_BLOCK; ++p) {
+      const int t = t0 + p;
       if (t >= steps) break;
-      const float g_in = ring[u];
-      if (t + PREFETCH < steps)
-        ring[u] = to_f32(g_ptr[(t + PREFETCH) * g_stride]);
+      if (p == 0) copy_gates(t0 + FWD_BLOCK);  // into the half last read
 
-      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-      const float4* h4 = reinterpret_cast<const float4*>(h_s);
+      // this lane's partial pre-activations of the unit's four gates, two
+      // accumulators a gate to halve the FMA dependency chain
+      const float4* h4 = reinterpret_cast<const float4*>(h_s[p & 1]);
+      float acc[4][2] = {};
 #pragma unroll
-      for (int k = 0; k < H / 4; ++k) {
-        const float4 hv = h4[k];
-        a0 = fmaf(hv.x, w[4 * k + 0], a0);
-        a1 = fmaf(hv.y, w[4 * k + 1], a1);
-        a2 = fmaf(hv.z, w[4 * k + 2], a2);
-        a3 = fmaf(hv.w, w[4 * k + 3], a3);
+      for (int m = 0; m < ROWS / 4; ++m) {
+        const float4 hv = h4[L * m + r];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          acc[g][0] = fmaf(hv.x, w[g][4 * m + 0], acc[g][0]);
+          acc[g][1] = fmaf(hv.y, w[g][4 * m + 1], acc[g][1]);
+          acc[g][0] = fmaf(hv.z, w[g][4 * m + 2], acc[g][0]);
+          acc[g][1] = fmaf(hv.w, w[g][4 * m + 3], acc[g][1]);
+        }
       }
-      const float a = ((a0 + a1) + (a2 + a3)) + g_in;
-      const float act = is_tanh ? tanhf(a) : sigmoid(a);
-      act_s[j] = act;
-      a_ptr[t * g_stride] = act;
-      __syncthreads();
+      float part[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) part[g] = acc[g][0] + acc[g][1];
+      float a[NG];
+      reduce_gates<L>(part, r, a);
 
-      if (j < H) {
-        const float ig = act_s[j], fg = act_s[H + j];
-        const float gg = act_s[2 * H + j], og = act_s[3 * H + j];
-        c = fg * c + ig * gg;
-        h = og * tanhf(c);
-        h_s[j] = h;
-        o_ptr[t * h_stride] = h;
-        c_ptr[t * h_stride] = c;
-      }
+      // activate this lane's gates NG * r .. NG * r + NG - 1 (gate 2 is
+      // the tanh one), then gather i, f, g, o from the pair; both lanes
+      // update (c, h)
+      const T* g_in = g_blk[p] + NG * r * H + u;
+      float act[NG];
+#pragma unroll
+      for (int q = 0; q < NG; ++q)
+        act[q] = gate_act(a[q] + to_f32(g_in[q * H]),
+                          NG * r + q == 2 ? 2.0f : 1.0f);
+      float ga[4];
+#pragma unroll
+      for (int gi = 0; gi < 4; ++gi)
+        ga[gi] = __shfl_sync(FULL_MASK, act[gi % NG], gi / NG, L);
+      c = fmaf(ga[1], c, ga[0] * ga[2]);
+      h = ga[3] * fast_tanh(c);
+      if (r == 0) h_s[(p + 1) & 1][u] = h;
+      // the residuals, off the step chain
+#pragma unroll
+      for (int q = 0; q < NG; ++q) a_ptr[t * g_stride + q * H] = act[q];
+      s_ptr[t * h_stride] = r == 0 ? h : c;
+      if (p == FWD_BLOCK - 1) cp_async_wait<0>();  // the next block landed
       __syncthreads();
     }
   }
-  if (j < H) {
-    hf[b * H + j] = h;
-    cf[b * H + j] = c;
+  if (r == 0) {
+    hf[b * H + u] = h;
+    cf[b * H + u] = c;
   }
 }
 
@@ -406,15 +460,15 @@ int launch_fwd(const void* gx, const float* whh, const float* h0,
   const T* g = static_cast<const T*>(gx);
   switch (hidden) {
     case 16:
-      lstm_train_fwd_kernel<T, 16><<<batch, 64, 0, stream>>>(
+      lstm_train_fwd_kernel<T, 16><<<batch, 16 * FWD_LANES, 0, stream>>>(
           g, whh, h0, c0, out, hf, cf, acts, cseq, steps, batch);
       break;
     case 32:
-      lstm_train_fwd_kernel<T, 32><<<batch, 128, 0, stream>>>(
+      lstm_train_fwd_kernel<T, 32><<<batch, 32 * FWD_LANES, 0, stream>>>(
           g, whh, h0, c0, out, hf, cf, acts, cseq, steps, batch);
       break;
     case 64:
-      lstm_train_fwd_kernel<T, 64><<<batch, 256, 0, stream>>>(
+      lstm_train_fwd_kernel<T, 64><<<batch, 64 * FWD_LANES, 0, stream>>>(
           g, whh, h0, c0, out, hf, cf, acts, cseq, steps, batch);
       break;
     default:

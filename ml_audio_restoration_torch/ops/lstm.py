@@ -107,6 +107,14 @@ def _check_kernel_args(kernel: str, gates_tm, w_hh, h0, c0):
             raise ValueError(f"{name} is on {x.device}, gates on {dev}")
 
 
+def _contiguous16(x):
+    """x contiguous and starting on a 16-byte boundary: the kernels copy
+    their per-step rows into shared memory 16 bytes at a time (cp.async),
+    so a view that starts elsewhere is copied to a fresh tensor."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _launch(kernel: str, fn, n_ptrs: int, n_ints: int, args, dev) -> None:
     """Call a C entry point of csrc/ on the current stream of `dev`: n_ptrs
     pointers, then n_ints ints, then the stream. Raises on a non-zero
@@ -127,7 +135,7 @@ def _lstm_recurrence_cuda(gates_tm, w_hh, h0, c0):
     t_len, b, g4 = gates_tm.shape
     hid = g4 // 4
     dev = gates_tm.device
-    gx = gates_tm.contiguous()
+    gx = _contiguous16(gates_tm)
     w = w_hh.to(gx.dtype).contiguous()
     h0 = h0.float().contiguous()
     c0 = c0.float().contiguous()
@@ -250,7 +258,7 @@ def _lstm_train_fwd_cuda(gates_tm, w_hh, h0, c0):
     t_len, b, g4 = gates_tm.shape
     hid = g4 // 4
     dev = gates_tm.device
-    gx = gates_tm.contiguous()
+    gx = _contiguous16(gates_tm)
     w = w_hh.float().contiguous()
     h0 = h0.float().contiguous()
     c0 = c0.float().contiguous()
@@ -329,7 +337,7 @@ def _lstm_train_bwd_cuda(acts, cseq, out, h0, c0, w_hh, dout, dhf, dcf):
         if x.dtype != torch.float32:
             raise TypeError(f"CUDA train backward takes f32, {name} is "
                             f"{x.dtype}")
-        args[name] = x.contiguous()
+        args[name] = _contiguous16(x)
     f32 = {"dtype": torch.float32, "device": dev}
     dgx = torch.empty((t_len, b, g4), **f32)
     dh0 = torch.empty((b, hid), **f32)

@@ -97,8 +97,8 @@ def test_train_kernels_match_plain(card, t, b, h):
 @pytest.mark.parametrize("h", [16, 32, 64])
 def test_kernels_saturated_gates(card, h):
     """Gates of magnitude ~60 push every activation into saturation, where
-    the kernels' exp overflows: K1's outputs and K3's gradients are finite
-    and equal the plain versions'."""
+    the kernels' exp overflows: K1's and K2's outputs and K3's gradients
+    are finite and equal the plain versions'."""
     args, cots = _inputs(301, 5, h, seed=2, scale=60.0)
     gates, w_hh, h0, c0 = (a.to(card) for a in args)
     dout, dhf, dcf = (a.to(card) for a in cots)
@@ -107,8 +107,12 @@ def test_kernels_saturated_gates(card, h):
     for g, w in zip(got, want):
         assert bool(torch.isfinite(g).all())
         assert float((g - w).abs().max()) <= 1e-5
-    out, _, _, acts, cseq = L.lstm_recurrence_train_plain(gates, w_hh, h0,
-                                                          c0)
+    got = L._lstm_train_fwd_cuda(gates, w_hh, h0, c0)
+    want = L.lstm_recurrence_train_plain(gates, w_hh, h0, c0)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= 1e-5
+    out, _, _, acts, cseq = want
     res = (acts, cseq, out, h0, c0, w_hh, dout, dhf, dcf)
     kb = L._lstm_train_bwd_cuda(*res)
     pb = L.lstm_recurrence_bwd_plain(*res)
@@ -116,6 +120,16 @@ def test_kernels_saturated_gates(card, h):
         assert bool(torch.isfinite(x).all())
         tol = 1e-4 * float(y.abs().max()) if i == 1 else 2e-5
         assert float((x - y).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_train_forward_repeats_bit_for_bit(card):
+    """A fixed summation order: two K2 runs on the same inputs are equal."""
+    args, _ = _inputs(1001, 13, 64, seed=4)
+    args = [a.to(card) for a in args]
+    first, second = L._lstm_train_fwd_cuda(*args), L._lstm_train_fwd_cuda(
+        *args)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 @pytest.mark.cuda

@@ -1,4 +1,6 @@
-"""The port and chip_smoke.py import nothing of JAX or the JAX package."""
+"""The port, chip_smoke.py and the port's scripts on the card (the kernel
+ablation and the train-step A/B) import nothing of JAX or the JAX
+package."""
 import ast
 from pathlib import Path
 
@@ -7,7 +9,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "ml_audio_restoration_tpu")
 FILES = sorted((ROOT / "ml_audio_restoration_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_lstm_ablation.py",
+    ROOT / "scripts" / "torch_train_ab.py"]
 
 
 def _imports(tree):

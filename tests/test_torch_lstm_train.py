@@ -5,12 +5,16 @@ package's.
 kernel and `lstm_recurrence_bwd_plain` against the Pallas backward kernel,
 both run in interpret mode as tests/test_ops.py runs them, at T=150 with
 block_t=64 (T not a block multiple, so the Pallas side pads and must take
-the carry and seed the cotangents at the true last step). Bars: forward
+the carry and seed the cotangents at the true last step), at every H the
+CUDA kernels take, at one step of one row, and with gates of scale 60 that
+saturate every activation. Bars: forward
 1e-6 (same per-step f32 arithmetic, summed in another order); backward
 2e-5, the bar tests/test_ops.py holds the Pallas backward to against the
 scan VJP. The CUDA kernels themselves run only on a card
 (tests/test_torch_cuda.py there, and chip_smoke.py).
 """
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,8 +31,8 @@ FWD_BAR = 1e-6
 BWD_BAR = 2e-5
 
 
-def _inputs(rng, t, b, h):
-    gates = (rng.normal(size=(t, b, 4 * h)) * 0.5).astype(np.float32)
+def _inputs(rng, t, b, h, scale=0.5):
+    gates = (rng.normal(size=(t, b, 4 * h)) * scale).astype(np.float32)
     w_hh = (rng.normal(size=(h, 4 * h)) * 0.2).astype(np.float32)
     h0, c0 = ((rng.normal(size=(b, h)) * 0.3).astype(np.float32)
               for _ in range(2))
@@ -64,9 +68,14 @@ def _pallas(gates, w_hh, h0, c0, dout, dhf, dcf):
     return fwd, bwd
 
 
-@pytest.mark.parametrize("t,b,h", [(150, 3, 8), (64, 2, 16)])
-def test_train_plain_matches_pallas_interpret(rng, t, b, h):
-    gates, w_hh, h0, c0 = _inputs(rng, t, b, h)
+@pytest.mark.parametrize("t,b,h,scale", [
+    (150, 3, 8, 0.5), (64, 2, 16, 0.5), (20, 3, 32, 0.5), (20, 2, 64, 0.5),
+    (1, 1, 16, 0.5), (1, 1, 64, 0.5),
+    # gates of scale 60: every activation saturates, where the CUDA
+    # kernels' exp overflows; the plain versions must stay finite too
+    (40, 3, 16, 60.0)])
+def test_train_plain_matches_pallas_interpret(rng, t, b, h, scale):
+    gates, w_hh, h0, c0 = _inputs(rng, t, b, h, scale)
     dout, dhf, dcf = _cotangents(rng, t, b, h)
     want_f, want_b = _pallas(gates, w_hh, h0, c0, dout, dhf, dcf)
 
@@ -75,6 +84,7 @@ def test_train_plain_matches_pallas_interpret(rng, t, b, h):
     got_f = {"out": out, "hf": hf, "cf": cf, "acts": acts, "cseq": cseq}
     for k, v in got_f.items():
         assert v.dtype == torch.float32, k
+        assert bool(torch.isfinite(v).all()), k
         np.testing.assert_allclose(v.numpy(), want_f[k], atol=FWD_BAR,
                                    err_msg=k)
 
@@ -82,6 +92,7 @@ def test_train_plain_matches_pallas_interpret(rng, t, b, h):
         acts, cseq, out, *_t(h0, c0, w_hh, dout, dhf, dcf))
     got_b = {"dgx": dgx, "dw": dw, "dh0": dh0, "dc0": dc0}
     for k, v in got_b.items():
+        assert bool(torch.isfinite(v).all()), k
         np.testing.assert_allclose(v.numpy(), want_b[k], atol=BWD_BAR,
                                    err_msg=k)
 
@@ -222,7 +233,7 @@ def test_reset_launch_count_clears_all(monkeypatch):
             L.train_bwd_launch_count) == (0, 0, 0)
 
 
-# ------------------------------------------- K3's wrapper, without a card
+# ------------------------------------- K2's and K3's wrappers, without a card
 def _bwd_args(t=9, b=3, h=16):
     rng = np.random.default_rng(5)
     shapes = {"acts": (t, b, 4 * h), "cseq": (t, b, h), "out": (t, b, h),
@@ -321,3 +332,94 @@ def test_dw_pass_decomposition_matches_plain(rng, t, b, h):
     for s in range(splits):
         got += rows[s * per:(s + 1) * per].T @ d[s * per:(s + 1) * per]
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def _fwd_args(t=9, b=3, h=16):
+    gates, w_hh, h0, c0 = _inputs(np.random.default_rng(6), t, b, h)
+    return dict(zip(("gates", "w_hh", "h0", "c0"), _t(gates, w_hh, h0, c0)))
+
+
+def _call_fwd(a):
+    return L._lstm_train_fwd_cuda(a["gates"], a["w_hh"], a["h0"], a["c0"])
+
+
+@pytest.mark.parametrize("bad", [
+    ("gates", lambda x: x.double()), ("gates", lambda x: x.half()),
+    ("gates", lambda x: torch.zeros(x.shape[:2] + (32,))),
+    ("gates", lambda x: x[:, :, :-1]), ("w_hh", lambda x: x[:-1]),
+    ("w_hh", lambda x: x.T.contiguous()), ("h0", lambda x: x[:-1]),
+    ("c0", lambda x: x[:, :-2]),
+    ("w_hh", lambda x: torch.empty(x.shape, device="meta")),
+    ("h0", lambda x: torch.empty(x.shape, device="meta"))])
+def test_train_fwd_wrapper_raises_before_launch(fake_launch, bad):
+    """Dtype (f64, f16), H (gates width 32 is H = 8), shape and device
+    checks raise before K2's launch, and the count stays."""
+    a = _fwd_args()
+    name, change = bad
+    a[name] = change(a[name])
+    before = L.train_fwd_launch_count
+    with pytest.raises((ValueError, TypeError)):
+        _call_fwd(a)
+    assert fake_launch == [] and L.train_fwd_launch_count == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,b,h", [(9, 3, 16), (1, 1, 64), (700, 5, 32)])
+def test_train_fwd_wrapper_launches_once(fake_launch, t, b, h, dtype):
+    """One launch of lstm_train_fwd with [T, B, H, dtype code]; every
+    output f32 whatever the gates' dtype, in K2's layouts; the count moves
+    by one."""
+    a = _fwd_args(t, b, h)
+    a["gates"] = a["gates"].to(dtype)
+    before = L.train_fwd_launch_count
+    out, hf, cf, acts, cseq = _call_fwd(a)
+    assert L.train_fwd_launch_count == before + 1
+    code = 0 if dtype == torch.float32 else 1
+    assert fake_launch == [
+        ("lstm_train_fwd", "lstm_train_fwd", 9, 4, [t, b, h, code])]
+    assert (out.shape, hf.shape, cf.shape, acts.shape, cseq.shape) == (
+        (t, b, h), (b, h), (b, h), (t, b, 4 * h), (t, b, h))
+    assert all(x.dtype == torch.float32 for x in (out, hf, cf, acts, cseq))
+
+
+def _off16(x):
+    """x's values in a view that starts 4 bytes past a 16-byte boundary."""
+    flat = torch.zeros(x.numel() + 8, dtype=x.dtype)
+    start = next(i for i in range(1, 8)
+                 if (flat.data_ptr() + i * x.element_size()) % 16)
+    view = flat[start:start + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3"])
+def test_wrappers_hand_kernels_16_byte_aligned_rows(monkeypatch, kernel):
+    """The kernels copy rows 16 bytes at a time (cp.async): a view that
+    does not start on 16 bytes reaches them as an aligned copy of the same
+    values."""
+    a, b = _fwd_args(), _bwd_args()
+    given = _off16(b["acts"] if kernel == "k3" else a["gates"])
+    seen = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return name
+
+    def launch(name, fn, n_ptrs, n_ints, args, dev):
+        ptr = args[0]  # the gates (K1, K2) or acts (K3), read while live
+        seen.append((ptr, np.ctypeslib.as_array(
+            (ctypes.c_float * given.numel()).from_address(ptr)).copy()))
+
+    monkeypatch.setattr(L._build, "load", lambda name: Lib())
+    monkeypatch.setattr(L, "_launch", launch)
+    if kernel == "k3":
+        b["acts"] = given
+        _call_bwd(b)
+    else:
+        call = L._lstm_recurrence_cuda if kernel == "k1" else (
+            L._lstm_train_fwd_cuda)
+        call(given, a["w_hh"], a["h0"], a["c0"])
+    assert given.data_ptr() % 16
+    ptr, values = seen[0]
+    assert ptr % 16 == 0
+    np.testing.assert_array_equal(values, given.reshape(-1).numpy())

@@ -523,9 +523,11 @@ def test_retention_failure_warns_not_fails(tmp_path):
     def bad():
         raise OSError("disk gone")
 
-    ac.save(tmp_path / "c.pth", {"a": torch.zeros(2)}, on_done=bad)
+    # record from before the save: the worker may warn before wait() is
+    # reached
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
+        ac.save(tmp_path / "c.pth", {"a": torch.zeros(2)}, on_done=bad)
         ac.wait()
     assert any("retention failed" in str(x.message) for x in w)
     assert (tmp_path / "c.pth").exists()
