@@ -32,7 +32,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
                then train_from_config over seeded stereo WAVs
                (2 s chunks, batch 16) with K2/K3 launch counts, 10 timed
                steps (audio-s/s, the step split, peak memory) and a
-               checkpoint resumed in a fresh trainer.
+               checkpoint resumed in a fresh trainer;
+  7. k1_shapes - K1 at the serving paths' shapes (sub-chunked stereo
+               T=11,024 B=640 in bf16 and f32, source-rate T=44,100 B=64,
+               a streaming feed's committed T=22,048 and lookahead T=1,040
+               runs at B=16 with a carry in): against its plain version,
+               timed beside its bound, its latency floor (waves x steps),
+               its registers, CTAs an SM and waves, and cuDNN's nn.LSTM;
+  8. serve_fast - a 120 s clip through config/fast_serve.yaml (bf16, 0.25 s
+               stereo windows): kernel vs plain recurrence, bf16 vs f32,
+               xRT, the stage split, K1 launches, peak memory, and
+               `warmup`;
+  9. serve_options - the clip in f32 with 0.25 s stereo windows, mid-exact
+               (the mean of L and R is the SR output) and source-rate, each
+               against its plain-recurrence run, timed;
+ 10. serve_many - eight 10 s recordings and one of 150 s: restore_many vs
+               single restores, then restore_directory (coalesce 4) vs
+               restore_file over WAVs in profiles/;
+ 11. stream  - 16 lockstep streams of 30 s in 0.5 s blocks: each against
+               the single-shot whole_file restore, the batch against 16
+               single streams, one feed against the plain recurrence, bf16
+               against f32; per-feed ms, the slowest call (a feed or the
+               flush) with any window length warmup did not run (none
+               may), and K1 launches a feed.
 Then one line {"kernels": [...]} and, last, the device line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Imports nothing of JAX.
@@ -52,6 +74,7 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12     # bf16 operands, dense, on the tensor cores (same)
 
 F32_TOL = 1e-5      # same arithmetic, different f32 summation order
 BF16_TOL = 1e-2     # a summation-order change can flip one bf16 rounding of
@@ -66,6 +89,15 @@ SATURATED = 60.0    # gate scale of the saturation cases: exp(-2x) overflows
 HIDDEN = (16, 32, 64)  # every H the recurrence kernels take
 STEP_TOL = 1e-4     # one train step, kernel vs plain: loss (relative),
 #                     smooth-term gradients (of the largest entry), BN stats
+MANY_TOL = 1e-5     # restore_many vs restore: cuDNN may pick another
+#                     algorithm at another batch size
+MID_TOL = 1e-5      # mid-exact: mean of L and R vs the SR output
+STREAM_TOL = 1e-3   # a stream vs the whole-file restore over [8000:-1200]
+#                     (JAX tests/test_streaming.py): conv edges decay
+BF16_REL = 0.05     # bf16 vs f32, of the f32 output's peak (JAX
+#                     tests/test_streaming.py:380)
+BF16_CHAIN_TOL = 1e-2  # a bf16 chain, K1 vs plain: one flipped bf16
+#                     rounding of h, carried through bf16 decoders
 
 
 def emit(obj):
@@ -280,14 +312,16 @@ def phase_kernels(torch):
             "replaces": "ml_audio_restoration_tpu/ops/pallas/lstm.py:59",
             "max_abs_err": max(f32_err, cases["f32"], cases["saturated"],
                                main_err),
+            "max_abs_err_bf16": max(bf16_err, cases["bf16"]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
 
 
-def _bound(n_bytes: float, flops: float):
-    """(bound ms, what bounds it) on the card's data-sheet peaks."""
+def _bound(n_bytes: float, flops: float, peak_flops: float = H100_F32_FLOPS):
+    """(bound ms, what bounds it) on the card's data-sheet peaks; the
+    operations at the peak rate of their operands' type."""
     by_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    by_ops = flops / H100_F32_FLOPS * 1e3
+    by_ops = flops / peak_flops * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
@@ -1119,6 +1153,457 @@ def phase_train_full(torch):
                                             "lstm_train_bwd")}
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _k1_library(torch, gates, w_hh, h0, c0):
+    """cuDNN's nn.LSTM with an identity input projection over the same
+    gates and carry (a yardstick, never called by the port): (median ms of
+    3 calls, its output [T, B, H]) or (None, why cuDNN refused)."""
+    h = w_hh.shape[0]
+    dev = gates.device
+    ref = torch.nn.LSTM(4 * h, h).to(device=dev, dtype=gates.dtype).eval()
+    with torch.no_grad():
+        ref.weight_ih_l0.copy_(torch.eye(4 * h, device=dev))
+        ref.weight_hh_l0.copy_(w_hh.T)
+        ref.bias_ih_l0.zero_()
+        ref.bias_hh_l0.zero_()
+    state = (h0[None].to(gates.dtype).contiguous(),
+             c0[None].to(gates.dtype).contiguous())
+    run = lambda: ref(gates, state)[0]  # noqa: E731
+    try:
+        with torch.inference_mode():
+            out = run()
+            return _cuda_ms(torch, run, 3), out
+    except RuntimeError as e:  # the yardstick only: cuDNN may refuse
+        return None, str(e)[:200]
+
+
+def _k1_at(torch, L, path, t, b, dtype, carry, floor_ns, seed):
+    """K1 at one serving shape (H=64): against its plain version on the
+    same inputs, timed (median of 5 calls) beside its bound, its latency
+    floor over the waves the launch takes, the plain version and cuDNN."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    h = 64
+    gates = randn(t, b, 4 * h, scale=0.5).to(dtype)
+    w_hh = randn(h, 4 * h, scale=0.15).to(dtype)
+    if carry:
+        h0, c0 = randn(b, h, scale=0.3), randn(b, h, scale=0.3)
+    else:
+        h0 = c0 = torch.zeros(b, h, device=dev)
+    run = lambda: L._lstm_recurrence_cuda(gates, w_hh, h0, c0)  # noqa: E731
+    out_k = run()
+    ms = _cuda_ms(torch, run, 5)
+    plain_ms, out_p = _timed_once(
+        torch, lambda: L.lstm_recurrence_plain(gates, w_hh, h0, c0))
+    err = max(_max_dev(x, y) for x, y in zip(out_k, out_p))
+    del out_p
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    res = L.recurrence_resources(h, dtype)
+    waves = -(-b // (res["ctas_per_sm"] * res["sms"]))
+    item = gates.element_size()
+    n_bytes = (item * (t * b * 4 * h + h * 4 * h + t * b * h)
+               + 4 * 4 * b * h)  # gates, W_hh, out; h0, c0, hf, cf
+    flops = 2.0 * t * b * h * 4 * h  # the h @ W_hh products
+    # bf16 h and W_hh with an f32 sum are the tensor cores' bf16 rate
+    bound_ms, bound_by = _bound(n_bytes, flops, H100_BF16_FLOPS
+                                if dtype == torch.bfloat16 else H100_F32_FLOPS)
+    library_ms, lib = _k1_library(torch, gates, w_hh, h0, c0)
+    lib_dev = (_max_dev(lib.transpose(0, 1), out_k[0])
+               if library_ms is not None else lib)
+    row = {"path": path, "shape": [t, b, h], "dtype": str(dtype)[6:],
+           "carry_in": carry, "ms": ms, "plain_ms": plain_ms,
+           "max_abs_err": err, "tol": tol, "bytes": n_bytes,
+           "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by,
+           "floor_ms": waves * t * floor_ns * 1e-6,
+           "ns_per_step": ms * 1e6 / t,
+           "ns_per_step_per_wave": ms * 1e6 / (t * waves),
+           "waves": waves, **res, "library_ms": library_ms,
+           "library_vs_kernel_max_abs": lib_dev}
+    emit({"phase": "kernel_check", "kernel": "lstm_recurrence",
+          "path": path, "shape": [t, b, h], "dtype": row["dtype"],
+          "max_abs_err": err, "tol": tol})
+    emit({"phase": "kernel_time", "kernel": "lstm_recurrence", **row})
+    if not err <= tol:
+        raise AssertionError(f"lstm_recurrence disagrees with plain at "
+                             f"{path}'s shape: {row}")
+    del gates, out_k, lib
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_k1_shapes(torch):
+    """K1 at the shapes the serving paths give it: the 0.25 s stereo
+    windows of a 120 s restore (64 chunks x 10 windows of 11,024 steps)
+    in bf16 (fast_serve) and f32, source-rate stereo's 64 chunks of
+    44,100 steps, and a streaming feed of 16 streams in
+    0.5 s blocks (22,048 committed steps, then 1,040 lookahead steps, both
+    from a carry). Returns the rows by path."""
+    from ml_audio_restoration_torch.ops import _latency
+    from ml_audio_restoration_torch.ops import lstm as L
+
+    floor = _latency.step_floor(64, {"k1": 1, "k2": 1, "k3": 1},
+                                torch.device("cuda"))
+    floor_ns = floor["floor"]["k1"]["ns_per_step"]
+    emit({"phase": "latency_probe", "for": "k1_shapes", **floor})
+    rows = {}
+    for i, (path, t, b, dtype, carry) in enumerate((
+            ("serve_fast", 11024, 640, torch.bfloat16, False),
+            ("serve_sub_f32", 11024, 640, torch.float32, False),
+            ("serve_source_rate", 44100, 64, torch.float32, False),
+            ("stream_committed", 22048, 16, torch.float32, True),
+            ("stream_lookahead", 1040, 16, torch.float32, True))):
+        rows[path] = _k1_at(torch, L, path, t, b, dtype, carry, floor_ns,
+                            seed=10 + i)
+    return rows
+
+
+def _timed_restore(torch, L, pipe, clip, rate):
+    """(output, wall s, K1 launches, peak bytes) of one restore, the counts
+    set to 0 just before it and read just after."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    L.reset_launch_count()
+    t0 = time.perf_counter()
+    y, _ = pipe.restore(clip, rate)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return y, wall, L.launch_count, torch.cuda.max_memory_allocated()
+
+
+def _serve_stage_ms(torch, pipe, clip, rate):
+    """Device ms of each stage of one restore's chunk batch (sub-chunked
+    stereo included), median of 3 calls each."""
+    from ml_audio_restoration_torch.ops import (
+        frame_structured, num_chunks, overlap_add)
+    from ml_audio_restoration_torch.pipeline.restore import (
+        _bucket, apply_stereo, stereo_sub_cfg)
+
+    cfg = pipe.config
+    chunk, hop, overlap = pipe._framing(rate)
+    n_real = num_chunks(clip.shape[1], chunk, hop)
+    n = _bucket(n_real)
+    total = (n - 1) * hop + chunk
+    dn, sr, st = pipe._models()
+    sub = stereo_sub_cfg(cfg, chunk * 2, 2, sample_rate=rate)
+    audio = torch.nn.functional.pad(torch.from_numpy(clip).to(pipe.device),
+                                    (0, total - clip.shape[1]))
+    stage_ms = {}
+    with torch.inference_mode():
+        x = frame_structured(audio, n, chunk, hop).permute(0, 2, 1).to(
+            getattr(torch, cfg.compute_dtype))
+        for name, fn in (("denoiser", dn), ("super_resolution", sr),
+                         ("stereo", lambda v: apply_stereo(st, v, sub))):
+            x_in = x
+            stage_ms[name] = _cuda_ms(torch, lambda: fn(x_in), 3)
+            x = fn(x_in)
+        y = x.float()
+        stage_ms["overlap_add"] = _cuda_ms(
+            torch, lambda: overlap_add(y, hop * 2, total * 2,
+                                       overlap=overlap * 2, valid=n_real), 3)
+    return stage_ms
+
+
+def phase_serve_fast(torch, k1_rows):
+    """The repo's measured serving preset, config/fast_serve.yaml (bf16,
+    0.25 s stereo windows), over a 120 s clip: warmup, then one restore
+    counted and timed; the same through the plain recurrence and in f32."""
+    import dataclasses
+
+    from ml_audio_restoration_torch.config import load_config
+    from ml_audio_restoration_torch.ops import lstm as L
+    from ml_audio_restoration_torch.pipeline import RestorationPipeline
+
+    cfg = load_config(os.path.join(ROOT, "config", "fast_serve.yaml")).pipeline
+    dn, sr, st = _models(torch, torch.device("cuda"))
+    pipe = RestorationPipeline(dn, sr, st, config=cfg)
+    rate, seconds = cfg.sample_rate, 120.0
+    clip = _clip(seconds, rate, seed=3)
+    warm = pipe.warmup()
+    y, wall, launches, peak = _timed_restore(torch, L, pipe, clip, rate)
+    with L.plain_recurrence():
+        y_p, _ = pipe.restore(clip, rate)
+    f32 = RestorationPipeline(dn, sr, st, config=dataclasses.replace(
+        cfg, compute_dtype="float32"))
+    f32.restore(clip, rate)  # cuDNN picks its f32 algorithms
+    y32, wall32, launches32, peak32 = _timed_restore(torch, L, f32, clip,
+                                                     rate)
+    # what the 0.25 s windows buy in bf16: the same clip on full windows
+    full = RestorationPipeline(dn, sr, st, config=dataclasses.replace(
+        cfg, stereo_chunk_seconds=None))
+    full.restore(clip, rate)
+    _, wall_full, _, _ = _timed_restore(torch, L, full, clip, rate)
+    ref_peak = float(y32.abs().max())
+    row = {"phase": "serve_fast", "config": "config/fast_serve.yaml",
+           "compute_dtype": cfg.compute_dtype,
+           "stereo_chunk_seconds": cfg.stereo_chunk_seconds,
+           "seconds": seconds, "shape": list(y.shape),
+           "finite": bool(torch.isfinite(y).all()), "wall_s": wall,
+           "xrt": seconds / wall, "lstm_recurrence_launches": launches,
+           "peak_mem_bytes": peak, "warmup": warm,
+           "stage_ms": _serve_stage_ms(torch, pipe, clip, rate),
+           "k1_ms_at_shape": k1_rows["serve_fast"]["ms"],
+           "k1_shape": k1_rows["serve_fast"]["shape"],
+           "kernel_vs_plain_max_abs": _max_dev(y, y_p),
+           "kernel_vs_plain_tol": BF16_CHAIN_TOL,
+           "bf16_vs_f32_max_abs": _max_dev(y, y32),
+           "bf16_vs_f32_tol": BF16_REL * ref_peak, "f32_peak": ref_peak,
+           "f32_wall_s": wall32, "f32_xrt": seconds / wall32,
+           "f32_peak_mem_bytes": peak32,
+           "bf16_full_window_wall_s": wall_full,
+           "bf16_full_window_xrt": seconds / wall_full}
+    emit(row)
+    if not (row["finite"] and tuple(y.shape) == (2, 2 * clip.shape[1])
+            and launches >= 1 and launches32 >= 1
+            and row["kernel_vs_plain_max_abs"] <= BF16_CHAIN_TOL
+            and row["bf16_vs_f32_max_abs"] <= row["bf16_vs_f32_tol"]):
+        raise AssertionError(f"fast_serve restore failed: {row}")
+    return launches, row["kernel_vs_plain_max_abs"], BF16_CHAIN_TOL
+
+
+def phase_serve_options(torch):
+    """The 120 s clip in f32 under each stereo option alone: 0.25 s
+    windows, mid-exact and source-rate, each counted, timed and held
+    against its plain-recurrence run; mid-exact and source-rate also keep
+    the SR output as their mid."""
+    import dataclasses
+
+    from ml_audio_restoration_torch.config import PipelineConfig
+    from ml_audio_restoration_torch.ops import lstm as L
+    from ml_audio_restoration_torch.pipeline import RestorationPipeline
+
+    dn, sr, st = _models(torch, torch.device("cuda"))
+    rate, seconds = 22050, 120.0
+    clip = _clip(seconds, rate, seed=3)
+    base = PipelineConfig()
+    mono, _ = RestorationPipeline(dn, sr, None, config=base).restore(clip,
+                                                                     rate)
+    out = {}
+    for name, extra in (("sub_0.25", {"stereo_chunk_seconds": 0.25}),
+                        ("mid_exact", {"stereo_mid_exact": True}),
+                        ("source_rate", {"stereo_source_rate": True})):
+        pipe = RestorationPipeline(dn, sr, st,
+                                   config=dataclasses.replace(base, **extra))
+        pipe.restore(clip, rate)  # cuDNN picks its algorithms
+        y, wall, launches, peak = _timed_restore(torch, L, pipe, clip, rate)
+        with L.plain_recurrence():
+            y_p, _ = pipe.restore(clip, rate)
+        row = {"phase": "serve_options", "option": name, "seconds": seconds,
+               "shape": list(y.shape), "finite": bool(torch.isfinite(y).all()),
+               "wall_s": wall, "xrt": seconds / wall,
+               "lstm_recurrence_launches": launches, "peak_mem_bytes": peak,
+               "kernel_vs_plain_max_abs": _max_dev(y, y_p),
+               "kernel_vs_plain_tol": PIPE_TOL}
+        ok = (row["finite"] and tuple(y.shape) == (2, 2 * clip.shape[1])
+              and launches >= 1 and row["kernel_vs_plain_max_abs"] <= PIPE_TOL)
+        if name != "sub_0.25":
+            row["mid_vs_sr_output_max_abs"] = _max_dev(y.mean(0), mono[0])
+            row["mid_tol"] = MID_TOL
+            ok &= row["mid_vs_sr_output_max_abs"] <= MID_TOL
+        emit(row)
+        if not ok:
+            raise AssertionError(f"restore option {name} failed: {row}")
+        out[name] = (launches, row["kernel_vs_plain_max_abs"], PIPE_TOL)
+        del y, y_p
+    return out
+
+
+def phase_serve_many(torch):
+    """Coalesced serving: eight 10 s recordings and one of 150 s (too long
+    to coalesce: slabs) through restore_many against single restores, then
+    restore_directory (coalesce 4) against restore_file over the same
+    recordings as WAVs in profiles/ (listed in .gitignore), removed after."""
+    import shutil
+
+    from ml_audio_restoration_torch.audio import load_audio, save_audio
+    from ml_audio_restoration_torch.ops import lstm as L
+    from ml_audio_restoration_torch.pipeline import RestorationPipeline
+
+    dn, sr, st = _models(torch, torch.device("cuda"))
+    pipe = RestorationPipeline(dn, sr, st)
+    rate = pipe.config.sample_rate
+    clips = ([_clip(10.0, rate, seed=100 + i) for i in range(8)]
+             + [_clip(150.0, rate, seed=200)])
+    audio_s = sum(c.shape[1] for c in clips) / rate
+    pipe.restore_many(clips)
+    runs, outs = {}, {}
+    for name, fn in (("restore_many", lambda: pipe.restore_many(clips)),
+                     ("single", lambda: [pipe.restore(c, rate)
+                                         for c in clips])):
+        torch.cuda.synchronize()
+        L.reset_launch_count()
+        t0 = time.perf_counter()
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        runs[name] = (None, time.perf_counter() - t0, L.launch_count)
+    many, single = outs.pop("restore_many"), outs.pop("single")
+    shapes_ok = all(a[0].shape == b[0].shape == (2, 2 * c.shape[1])
+                    for a, b, c in zip(many, single, clips))
+    dev = max(_max_dev(a[0], b[0]) for a, b in zip(many, single))
+    del many, single
+
+    root = os.path.join(ROOT, "profiles", "chip_smoke_serve_many")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        os.makedirs(os.path.join(root, "in"))
+        for i, c in enumerate(clips):
+            save_audio(os.path.join(root, "in", f"rec_{i}.wav"), c, rate)
+        torch.cuda.synchronize()
+        L.reset_launch_count()
+        t0 = time.perf_counter()
+        written = pipe.restore_directory(os.path.join(root, "in"),
+                                         os.path.join(root, "out"),
+                                         coalesce=4)
+        dir_wall = time.perf_counter() - t0
+        dir_launches = L.launch_count
+        same_bytes, file_dev = 0, 0.0
+        for i in range(len(clips)):
+            got = os.path.join(root, "out", f"rec_{i}_restored.wav")
+            want = os.path.join(root, "want.wav")
+            pipe.restore_file(os.path.join(root, "in", f"rec_{i}.wav"), want)
+            with open(got, "rb") as a, open(want, "rb") as b:
+                same_bytes += a.read() == b.read()
+            file_dev = max(file_dev, float(np.abs(
+                load_audio(got, None, mono=False)[0]
+                - load_audio(want, None, mono=False)[0]).max()))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row = {"phase": "serve_many", "recordings": len(clips),
+           "audio_s": audio_s, "shapes_ok": shapes_ok,
+           "many_vs_single_max_abs": dev, "tol": MANY_TOL,
+           "restore_many_wall_s": runs["restore_many"][1],
+           "single_wall_s": runs["single"][1],
+           "restore_many_xrt": audio_s / runs["restore_many"][1],
+           "single_xrt": audio_s / runs["single"][1],
+           "lstm_recurrence_launches": {
+               "restore_many": runs["restore_many"][2],
+               "single": runs["single"][2], "directory": dir_launches},
+           "directory_files": len(written), "directory_wall_s": dir_wall,
+           "directory_files_equal_bytes": same_bytes,
+           "directory_vs_restore_file_max_abs": file_dev,
+           "directory_tol": 1.0 / 32768}
+    emit(row)
+    if not (shapes_ok and dev <= MANY_TOL and len(written) == len(clips)
+            and file_dev <= 1.0 / 32768 and runs["restore_many"][2] >= 1
+            and dir_launches >= 1):
+        raise AssertionError(f"coalesced serving failed: {row}")
+    return runs["restore_many"][2], None, None
+
+
+def _feed_all(restorer, blocks):
+    """Feed every block, then flush: (output [B, ch, T*f], wall ms of each
+    call that emitted, and of every call (ms, the window lengths it ran
+    for the first time), the flush last)."""
+    outs, calls = [], []
+    for blk in blocks + [None]:
+        had = set(restorer._shapes)
+        t0 = time.perf_counter()
+        out = restorer.feed(blk) if blk is not None else restorer.flush()
+        calls.append(((time.perf_counter() - t0) * 1e3,
+                      sorted(restorer._shapes - had)))
+        outs.append(out if out.ndim == 3 else out[None])
+    emitted = [c[0] for c, o in zip(calls, outs) if o.shape[-1] > 0]
+    return np.concatenate(outs, axis=2), emitted, calls
+
+
+def _slowest(calls):
+    """The slowest call of a _feed_all run, and the calls that ran a window
+    length for the first time (none after a warmup)."""
+    i = max(range(len(calls)), key=lambda j: calls[j][0])
+    return ({"index": i, "of": len(calls), "flush": i == len(calls) - 1,
+             "ms": calls[i][0], "new_windows": calls[i][1]},
+            [[j, w] for j, (_, w) in enumerate(calls) if w])
+
+
+def phase_stream(torch, k1_rows):
+    """16 lockstep streams of 30 s in 0.5 s blocks, f32, context 1024,
+    lookahead 512: each stream against the single-shot whole-file restore
+    of its recording, the batch against 16 single-stream restorers, two
+    feeds against the plain recurrence, bf16 against f32."""
+    from ml_audio_restoration_torch.config import PipelineConfig
+    from ml_audio_restoration_torch.ops import lstm as L
+    from ml_audio_restoration_torch.pipeline import (
+        RestorationPipeline, StreamingRestorer)
+
+    dn, sr, st = _models(torch, torch.device("cuda"))
+    rate, seconds, b = 22050, 30.0, 16
+    block = int(0.5 * rate)
+    streams = np.concatenate([_clip(seconds, rate, seed=300 + i)
+                              for i in range(b)])
+    blocks = [streams[:, o:o + block]
+              for o in range(0, streams.shape[1], block)]
+    s = StreamingRestorer(dn, sr, st, batch=b)
+    warm = s.warmup(block)
+    torch.cuda.synchronize()
+    L.reset_launch_count()
+    t0 = time.perf_counter()
+    got, feed_ms, calls = _feed_all(s, blocks)
+    wall = time.perf_counter() - t0
+    launches = L.launch_count
+
+    whole = RestorationPipeline(dn, sr, st,
+                                config=PipelineConfig(whole_file=True))
+    vs_whole = 0.0
+    for i in range(b):
+        want = whole.restore(streams[i:i + 1], rate)[0].cpu().numpy()
+        vs_whole = max(vs_whole, float(np.abs(
+            got[i][:, 8000:-1200] - want[:, 8000:-1200]).max()))
+    vs_single = 0.0
+    for i in range(b):
+        one = _feed_all(StreamingRestorer(dn, sr, st),
+                        [x[i] for x in blocks])[0]
+        vs_single = max(vs_single, float(np.abs(got[i] - one[0]).max()))
+    # two feeds through the kernel and through the plain recurrence
+    k, p = (StreamingRestorer(dn, sr, st, batch=b) for _ in range(2))
+    k.feed(blocks[0])
+    out_k = k.feed(blocks[1])
+    with L.plain_recurrence():
+        p.feed(blocks[0])
+        out_p = p.feed(blocks[1])
+    vs_plain = float(np.abs(out_k - out_p).max())
+    bf16 = StreamingRestorer(dn, sr, st, batch=b, compute_dtype="bfloat16")
+    bf16.warmup(block)
+    got16, feed16_ms, calls16 = _feed_all(bf16, blocks)
+    slowest, new_windows = _slowest(calls)
+    slowest16, new_windows16 = _slowest(calls16)
+    ref_peak = float(np.abs(got).max())
+    row = {"phase": "stream", "streams": b, "seconds": seconds,
+           "block_s": block / rate, "context": s.context,
+           "lookahead": s.lookahead, "shape": list(got.shape),
+           "finite": bool(np.isfinite(got).all()), "warmup": warm,
+           "feeds_emitting": len(feed_ms),
+           "feed_ms_median": statistics.median(feed_ms),
+           "feed_ms_max": max(feed_ms), "slowest_call": slowest,
+           "new_windows_after_warmup": new_windows, "wall_s": wall,
+           "stream_audio_s_per_wall_s": b * seconds / wall,
+           "lstm_recurrence_launches": launches,
+           "launches_per_feed": launches / len(feed_ms),
+           "k1_committed_ms": k1_rows["stream_committed"]["ms"],
+           "k1_lookahead_ms": k1_rows["stream_lookahead"]["ms"],
+           "vs_whole_file_max_abs": vs_whole, "vs_whole_file_tol": STREAM_TOL,
+           "batch_vs_single_max_abs": vs_single, "batch_tol": MANY_TOL,
+           "kernel_vs_plain_max_abs": vs_plain,
+           "kernel_vs_plain_tol": PIPE_TOL,
+           "bf16_vs_f32_max_abs": float(np.abs(got16 - got).max()),
+           "bf16_vs_f32_tol": BF16_REL * ref_peak,
+           "bf16_feed_ms_median": statistics.median(feed16_ms),
+           "bf16_slowest_call": slowest16,
+           "bf16_new_windows_after_warmup": new_windows16}
+    emit(row)
+    if not (row["finite"] and got.shape == (b, 2, 2 * streams.shape[1])
+            and launches == 2 * len(feed_ms) and vs_whole <= STREAM_TOL
+            and vs_single <= MANY_TOL and vs_plain <= PIPE_TOL
+            and not new_windows and not new_windows16
+            and row["bf16_vs_f32_max_abs"] <= row["bf16_vs_f32_tol"]):
+        raise AssertionError(f"streaming failed: {row}")
+    return launches, vs_plain, PIPE_TOL
+
+
 def main() -> int:
     import torch
 
@@ -1136,10 +1621,40 @@ def main() -> int:
     launches = phase_train_full(torch)
     for row in rows[1:]:
         row["launches"] = launches[row["name"]]
-    emit({"kernels": [{key: row[key] for key in (
-        "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        for row in rows]})
+    k1 = phase_k1_shapes(torch)
+    paths = {"serve_fast": phase_serve_fast(torch, k1)}
+    paths.update((f"serve_{k}", v)
+                 for k, v in phase_serve_options(torch).items())
+    paths.update({
+        "serve_many": phase_serve_many(torch),
+        "stream": phase_stream(torch, k1)})
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # K1's new shapes, each with the launches of the run of the path that
+    # gives it (a stream feed launches one committed and one lookahead run)
+    launches_of = {"serve_fast": paths["serve_fast"][0],
+                   "serve_sub_f32": paths["serve_sub_0.25"][0],
+                   "serve_source_rate": paths["serve_source_rate"][0],
+                   "stream_committed": paths["stream"][0] // 2,
+                   "stream_lookahead": paths["stream"][0] // 2}
+    rows[0]["shapes"] = [
+        {**{key: k1[shape][key] for key in (
+            "path", "shape", "dtype", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "max_abs_err", "tol", "floor_ms",
+            "ctas_per_sm", "waves", "regs_per_thread")},
+         "launches": launches_of[shape]} for shape in k1]
+    rows[0]["path_launches"] = {p: v[0] for p, v in paths.items()}
+    # K1 against its plain version: at its own shapes, f32 (bar F32_TOL)
+    # apart from bf16 (bar BF16_TOL), and through each path's chain
+    for r in k1.values():
+        key = "max_abs_err_bf16" if r["dtype"] == "bfloat16" else "max_abs_err"
+        rows[0][key] = max(rows[0][key], r["max_abs_err"])
+    rows[0]["path_max_abs_err"] = {p: {"max_abs_err": v[1], "tol": v[2]}
+                                   for p, v in paths.items()
+                                   if v[1] is not None}
+    extra = ("max_abs_err_bf16", "shapes", "path_launches", "path_max_abs_err")
+    emit({"kernels": [{key: row[key] for key in keys + tuple(
+        k for k in extra if k in row)} for row in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

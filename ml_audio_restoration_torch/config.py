@@ -2,10 +2,21 @@
 
 The port's own copy of ml_audio_restoration_tpu/config.py, with the same
 fields and defaults, so a config written for one package reads the same in
-the other. Fields that only select TPU layouts or kernels (`packed_convs`,
-`quantize_int8`, `int8_scope`, `lstm_impl`) are accepted and ignored: the
-port computes the plain path, which the packed TPU path equals up to float
-reassociation, and routes the LSTM by device and grad mode.
+the other. PipelineConfig's fields fall in three kinds:
+
+- computed: `sample_rate`, `chunk_seconds`, `overlap_seconds`,
+  `enable_super_resolution`, `whole_file`, `compute_dtype` ("float32" or
+  "bfloat16"), `stereo_chunk_seconds`, `stereo_mid_exact`,
+  `stereo_source_rate`, `max_chunks_per_program`;
+- accepted and ignored, because they only pick TPU layouts or kernels:
+  `packed_convs` and `int8_scope` (the port computes the plain path, which
+  the packed TPU path equals up to float reassociation) and `lstm_impl`
+  (None, "scan" or "pallas"; the port routes the LSTM by device and grad
+  mode, and rejects any other value, as the JAX pipeline does);
+- not ported: `quantize_int8=True` raises NotImplementedError, since int8
+  serving changes the output (ROADMAP.md section 1, item 6).
+
+TrainConfig's `lstm_impl` and `packed_convs` are accepted and ignored.
 """
 from __future__ import annotations
 
@@ -114,18 +125,55 @@ class PipelineConfig:
     overlap_seconds: float = 0.05
     enable_super_resolution: bool = True
     whole_file: bool = False  # one chunk spanning the recording
-    compute_dtype: str = "float32"
-    # not ported yet: the pipeline raises when one of these is set
+    compute_dtype: str = "float32"  # or "bfloat16"
+    # the stereo LSTM over shorter internal windows (seconds; None = the
+    # whole chunk)
     stereo_chunk_seconds: Optional[float] = None
+    # out = mid +/- the predicted side, the mid being the stereo stage's input
     stereo_mid_exact: bool = False
+    # the stereo stage on the pre-SR signal; only its side is upsampled
     stereo_source_rate: bool = False
     # longer recordings run in slabs of this many chunks, then crossfade
     max_chunks_per_program: int = 64
     # TPU-only switches, accepted and ignored
     packed_convs: bool = True
-    quantize_int8: bool = False
     int8_scope: str = "packed"
     lstm_impl: Optional[str] = None
+    # not ported: True raises (check_pipeline_config)
+    quantize_int8: bool = False
+
+    def __post_init__(self):
+        check_pipeline_config(self)
+
+
+SERVING_LSTM_IMPLS = (None, "scan", "pallas")
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+def check_int8(quantize_int8: bool, owner: str) -> None:
+    """int8 serving is not ported: it changes the output (quantization
+    noise of 1e-3 to 1e-2 at waveform scale), so a float result in its
+    place would be a different answer, not a faster one."""
+    if quantize_int8:
+        raise NotImplementedError(
+            f"{owner}: quantize_int8 (int8 serving, ops/quant.py) is not "
+            f"ported yet (ROADMAP.md section 1, item 6)")
+
+
+def check_pipeline_config(cfg: "PipelineConfig") -> None:
+    """Raise on what the port does not compute: int8, an LSTM route other
+    than None/"scan"/"pallas" (the JAX pipeline's rule: "pallas_train" is a
+    training kernel) and a compute dtype other than f32/bf16. Called when a
+    PipelineConfig is made and again by the pipeline, since load_config
+    sets fields after construction."""
+    check_int8(cfg.quantize_int8, "PipelineConfig")
+    if cfg.lstm_impl not in SERVING_LSTM_IMPLS:
+        raise ValueError(
+            f"PipelineConfig.lstm_impl={cfg.lstm_impl!r}: serving accepts "
+            f"None (auto), 'scan' or 'pallas'")
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"PipelineConfig.compute_dtype must be one of "
+                         f"{COMPUTE_DTYPES}, got {cfg.compute_dtype!r}")
 
 
 @dataclass

@@ -193,7 +193,38 @@ int launch(const void* gx, const void* whh, const float* h0, const float* c0,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Registers a thread, static shared memory and CTAs an SM of the kernel
+// for (T, H): what sets how many waves a launch of B rows takes.
+template <typename T, int H>
+int kernel_resources(int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, lstm_recurrence_kernel<T, H>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.sharedSizeBytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[2], lstm_recurrence_kernel<T, H>, H * LANES, 0));
+}
+
+template <typename T>
+int resources_of(int hidden, int* info) {
+  switch (hidden) {
+    case 16: return kernel_resources<T, 16>(info);
+    case 32: return kernel_resources<T, 32>(info);
+    case 64: return kernel_resources<T, 64>(info);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
+
+// info[0..2] = registers a thread, static shared bytes a CTA, CTAs an SM of
+// the kernel for (hidden, dtype). Returns the cudaError_t.
+extern "C" int lstm_recurrence_resources(int hidden, int dtype, int* info) {
+  if (dtype == 0) return resources_of<float>(hidden, info);
+  if (dtype == 1) return resources_of<__nv_bfloat16>(hidden, info);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // Plain C interface for ctypes. dtype: 0 = f32, 1 = bf16. Returns the
 // cudaError_t of the launch (0 on success).

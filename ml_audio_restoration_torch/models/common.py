@@ -4,10 +4,12 @@ Counterpart of ml_audio_restoration_tpu/models/common.py. The models are
 `nn.Module`s whose submodule names are the upstream state-dict keys, so an
 upstream `.pth` loads through `load_state_dict(strict=True)`. In eval mode batch norm
 is folded into the preceding conv; the stereo separator also has a train
-forward, where batch norm normalizes by the batch statistics.
+forward, where batch norm normalizes by the batch statistics. bf16 serving
+runs a copy of each model cast by `cast_model`.
 """
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -29,6 +31,18 @@ def fold_conv_bn(conv: nn.Conv1d, bn: nn.BatchNorm1d):
     b = ((conv.bias.to(f32) - bn.running_mean.to(f32)) * g
          + bn.bias.to(f32)).to(w_dtype)
     return w, b
+
+
+def cast_model(model, dtype: torch.dtype):
+    """`model` for an eval forward in `dtype`: the model itself in f32
+    (None passes through), else a copy with every float parameter and buffer
+    cast, the BN statistics included, as the JAX package casts every float
+    leaf for bf16 serving. `fold_conv_bn` then folds in f32 from the rounded
+    weights and statistics and casts the result to `dtype`, which is the
+    JAX fold's arithmetic too."""
+    if model is None or dtype == torch.float32:
+        return model
+    return copy.deepcopy(model).to(dtype)
 
 
 def conv_bn(conv: nn.Conv1d, bn: nn.BatchNorm1d, x, *, lrelu: bool = True,

@@ -1,8 +1,9 @@
 """StereoSeparator: mono -> stereo upmix (dilated convs + LSTM + two decoders).
 
 Counterpart of ml_audio_restoration_tpu/models/stereo_separator.py (`apply`
-in eval and train mode, `encode`): a conv-k7 stem, 4 dilated blocks (k3 at dilations 1/2/4/8 then a
-pointwise k1, each conv-BN-LeakyReLU), a unidirectional LSTM (hidden 64)
+in eval and train mode, `encode`, `decode`): a conv-k7 stem, 4 dilated
+blocks (k3 at dilations 1/2/4/8 then a pointwise k1, each
+conv-BN-LeakyReLU), a unidirectional LSTM (hidden 64)
 whose recurrence is a CUDA kernel on the card, and two 4-conv k7 decoders
 for L and R. Output channel order is (L, R). The default configuration has
 494,786 parameters.
@@ -100,10 +101,16 @@ class StereoSeparator(nn.Module):
             h = conv_bn(block[3], block[4], h, train=train)
         return h
 
-    def forward(self, x):
-        """x [B, 1, T] -> [B, 2, T], channels (L, R)."""
+    def decode(self, h):
+        """The two decoders: LSTM output [B, H, T] -> [B, 2, T], channels
+        (L, R)."""
         train = self.training
-        h = self.encode(x)
-        h = self.lstm(h.transpose(1, 2)).transpose(1, 2)  # [B, H, T]
         return torch.cat([_decoder_apply(self.left_decoder, h, train),
                           _decoder_apply(self.right_decoder, h, train)], dim=1)
+
+    def forward(self, x):
+        """x [B, 1, T] -> [B, 2, T], channels (L, R): encode, the LSTM,
+        decode."""
+        h = self.encode(x)
+        h = self.lstm(h.transpose(1, 2)).transpose(1, 2)  # [B, H, T]
+        return self.decode(h)

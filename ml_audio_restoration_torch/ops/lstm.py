@@ -150,6 +150,25 @@ def _lstm_recurrence_cuda(gates_tm, w_hh, h0, c0):
     return out, hf, cf
 
 
+def recurrence_resources(hidden: int, dtype=torch.float32,
+                         device="cuda") -> dict:
+    """K1's resources on the card for (hidden, dtype): registers a thread,
+    static shared bytes a CTA and CTAs an SM (the occupancy API), with the
+    card's SM count. A launch of B rows takes ceil(B / (ctas_per_sm * sms))
+    waves."""
+    info = (ctypes.c_int * 3)()
+    fn = _build.load("lstm_recurrence").lstm_recurrence_resources
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    with torch.cuda.device(device):
+        err = fn(hidden, _KERNEL_DTYPES[dtype], info)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if err != 0:
+        raise RuntimeError(f"lstm_recurrence resources: CUDA error {err}")
+    return {"regs_per_thread": info[0], "static_smem_bytes": info[1],
+            "ctas_per_sm": info[2], "sms": sms}
+
+
 def lstm_recurrence(gates_tm, w_hh, h0, c0):
     """The recurrence over time-major gates [T, B, 4H] -> (out [B, T, H],
     hf, cf).
@@ -386,8 +405,11 @@ class LSTMRecurrenceTrain(torch.autograd.Function):
 def lstm(x, params, *, carry=None, return_carry: bool = False):
     """Single-layer LSTM over batch-major x [B, T, C] -> [B, T, H].
 
-    The projection emits TIME-MAJOR gates [T, B, 4H], the layout the
-    recurrence streams. The state starts at zero unless `carry` = (h, c)."""
+    The projection emits TIME-MAJOR gates [T, B, 4H] in x's dtype, the
+    layout the recurrence streams. The state starts at zero unless `carry`
+    = (h, c); it enters the recurrence in f32 and the output and the
+    returned carry come back in x's dtype (the JAX `impl="pallas"`
+    contract: bf16 x runs K1 on bf16 gates with f32 state)."""
     b, t_len, c_in = x.shape
     bias = params["b_ih"] + params["b_hh"]
     # one GEMM with the bias fused; its [T*B, 4H] result is already the

@@ -1,27 +1,37 @@
 """Offline restoration: denoise -> super-resolution -> stereo.
 
-Counterpart of the default branch of ml_audio_restoration_tpu/pipeline/
-restore.py: the recording is framed into a batch of overlapping chunks, the
-three eval models run over the batch, and the chunks are crossfaded back
-together. The chunk count is bucketed up to a multiple of 4, bucket padding
-gets zero crossfade weight, and recordings longer than
-`max_chunks_per_program` chunks run in slabs whose outputs are crossfaded
-exactly like chunks. `whole_file=True` runs one chunk spanning the
-recording.
+Counterpart of ml_audio_restoration_tpu/pipeline/restore.py: the recording
+is framed into a batch of overlapping chunks, the three eval models run over
+the batch, and the chunks are crossfaded back together. The chunk count is
+bucketed up to a multiple of 4, bucket padding gets zero crossfade weight,
+and recordings longer than `max_chunks_per_program` chunks run in slabs
+whose outputs are crossfaded exactly like chunks. `whole_file=True` runs one
+chunk spanning the recording.
+
+The serving options of PipelineConfig: `compute_dtype="bfloat16"` (a bf16
+copy of each model; K1 keeps its state in f32), `stereo_chunk_seconds` (the
+stereo stage over shorter internal windows, `stereo_sub_cfg` and
+`apply_stereo`), `stereo_mid_exact` and `stereo_source_rate`. All of them
+live in `_stage_stack`, which both `restore` and the coalesced
+`restore_many` run, so the two compute the same function.
 """
 from __future__ import annotations
 
 import os
+import time
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..audio import load_audio, normalize_audio, save_audio
+from ..audio import find_audio_files, load_audio, normalize_audio, save_audio
 from ..compat import load_pth, model_from_state_dict
-from ..config import PipelineConfig
-from ..ops import frame_structured, num_chunks, overlap_add
+from ..config import PipelineConfig, check_pipeline_config
+from ..models import cast_model
+from ..ops import frame_structured, num_chunks, overlap_add, upsample_linear
 
 
 def resolve_device(device) -> torch.device:
@@ -32,6 +42,15 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
     return dev
+
+
+def no_tf32():
+    """The reference is full f32. cuDNN convolutions default to TF32 on
+    Ampere and later cards (about three decimal digits), which would break
+    the 1e-3 chain bar, so every serving entry point turns both TF32
+    switches off when it is built."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def load_stage(path, name: str, device="cpu") -> Optional[nn.Module]:
@@ -53,8 +72,58 @@ def _bucket(n: int, granularity: int = 4) -> int:
     return max(granularity, ((n + granularity - 1) // granularity) * granularity)
 
 
-_NOT_PORTED = ("stereo_chunk_seconds", "stereo_mid_exact",
-               "stereo_source_rate")
+def stereo_sub_cfg(cfg: PipelineConfig, stage_len: int, f: int,
+                   sample_rate: Optional[int] = None):
+    """The stereo stage's internal windows: (sub, hop, overlap) in samples
+    at the stage's input rate, or None to run it on the whole stage input.
+
+    The window is `stereo_chunk_seconds` at `sample_rate` (the rate of the
+    audio being restored, default cfg.sample_rate) times the stage's rate
+    factor f, rounded down to a multiple of 4 as the JAX package rounds it
+    (so both compute the same windows); the overlap is `overlap_seconds`,
+    at most a quarter of the window. A window that covers the stage input
+    is no window at all."""
+    if cfg.stereo_chunk_seconds is None:
+        return None
+    rate = sample_rate or cfg.sample_rate
+    sub = int(round(cfg.stereo_chunk_seconds * rate * f))
+    sub = max(4, (sub // 4) * 4)
+    sub_ov = min(int(round(cfg.overlap_seconds * rate * f)), sub // 4)
+    if sub >= stage_len:
+        return None
+    return (sub, sub - sub_ov, sub_ov)
+
+
+def apply_stereo(st: nn.Module, x, sub_cfg):
+    """The stereo stage over [N, 1, T2] -> [N, 2, T2]. With `sub_cfg`
+    (stereo_sub_cfg) each row is reframed into M windows, the model runs on
+    the [N*M, 1, sub] batch and each channel is crossfaded back."""
+    if sub_cfg is None:
+        return st(x)
+    sub, sub_hop, sub_ov = sub_cfg
+    n, _, t2 = x.shape
+    m = num_chunks(t2, sub, sub_hop)
+    total2 = (m - 1) * sub_hop + sub
+    rows = F.pad(x[:, 0, :], (0, total2 - t2))  # [N, total2]
+    # frame_structured frames each of its "channels" (here the N rows):
+    # [M, sub, N] -> [N*M, 1, sub], row-major in (n, m)
+    frames = frame_structured(rows, m, sub, sub_hop)
+    y = st(frames.permute(2, 0, 1).reshape(n * m, 1, sub))  # [N*M, 2, sub]
+    y = y.reshape(n, m, 2, sub).permute(1, 0, 2, 3).reshape(m, n * 2, sub)
+    out = overlap_add(y, sub_hop, t2, overlap=sub_ov)  # [N*2, T2]
+    return out.reshape(n, 2, t2)
+
+
+def _to_host(outs):
+    """Start the copies of [(tensor, rate)] to host memory; returns them
+    with an event to wait on (None on the CPU), so the host can write an
+    earlier batch while the card runs this one."""
+    host = [(o.to("cpu", non_blocking=True), r) for o, r in outs]
+    event = None
+    if any(o.device.type == "cuda" for o, _ in outs):
+        event = torch.cuda.Event()
+        event.record()
+    return host, event
 
 
 class RestorationPipeline:
@@ -66,23 +135,14 @@ class RestorationPipeline:
                  config: Optional[PipelineConfig] = None,
                  device="cuda"):
         self.config = config or PipelineConfig()
-        if self.config.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={self.config.compute_dtype!r}: the port "
-                f"runs float32 only so far")
-        for field in _NOT_PORTED:
-            if getattr(self.config, field):
-                raise NotImplementedError(f"PipelineConfig.{field} is not "
-                                          f"ported yet")
+        check_pipeline_config(self.config)
         self.device = resolve_device(device)
-        # The reference is full f32. cuDNN convolutions default to TF32 on
-        # this card (about three decimal digits), which would break the
-        # 1e-3 chain bar, so both TF32 switches are turned off here.
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        no_tf32()
         self.denoiser, self.super_resolution, self.stereo = (
             None if m is None else m.to(self.device).eval()
             for m in (denoiser, super_resolution, stereo))
+        self._cast: dict = {}  # compute dtype -> the stage models in it
+        self._warmed: set = set()  # stack shapes warmup has run
 
     @classmethod
     def from_checkpoints(cls, denoiser_path=None, super_res_path=None,
@@ -110,34 +170,84 @@ class RestorationPipeline:
     def out_channels(self) -> int:
         return 2 if self.stereo is not None else 1
 
-    def _stack(self, chunks):
-        """The model stack over a chunk batch [N, chunk, 1] ->
-        per-chunk outputs [N, C_out, chunk*f]."""
-        x = chunks.permute(0, 2, 1)  # NCW
-        if self.denoiser is not None:
-            x = self.denoiser(x)
-        if self._has_sr:
-            x = self.super_resolution(x)
-        if self.stereo is not None:
-            x = self.stereo(x)
-        return x
+    def _models(self):
+        """(denoiser, super-resolution or None, stereo) in the compute
+        dtype."""
+        name = self.config.compute_dtype
+        if name not in self._cast:
+            dtype = getattr(torch, name)
+            self._cast[name] = tuple(cast_model(m, dtype) for m in (
+                self.denoiser, self.super_resolution, self.stereo))
+        dn, sr, st = self._cast[name]
+        return dn, (sr if self._has_sr else None), st
 
-    def _process(self, audio_padded, n_chunks: int, chunk_size: int,
+    def _stage_stack(self, chunk_size: int,
+                     sample_rate: Optional[int] = None):
+        """The per-chunk model stack: fn(chunks [N, chunk, 1] f32) ->
+        [N, C_out, chunk*f] f32. Every option lives here, so `restore` and
+        `restore_many` compute the same function. `sample_rate` is the rate
+        of the audio in the chunks (it sizes the stereo sub-window). Checks
+        the config again: a caller may have set a field since."""
+        cfg = self.config
+        check_pipeline_config(cfg)
+        dtype = getattr(torch, cfg.compute_dtype)
+        dn, sr, st = self._models()
+        f = self.upscale_factor
+        # source-rate stereo: the stage takes the pre-SR signal (chunk_size
+        # samples) and only its side is upsampled around the SR output
+        src_rate = cfg.stereo_source_rate and st is not None
+        st_len, st_f = (chunk_size, 1) if src_rate else (chunk_size * f, f)
+        sub_cfg = (stereo_sub_cfg(cfg, st_len, st_f, sample_rate=sample_rate)
+                   if st is not None else None)
+
+        def stack(chunks):
+            x = chunks.permute(0, 2, 1).to(dtype)  # NCW
+            if dn is not None:
+                x = dn(x)
+            side = None
+            if src_rate:
+                y = apply_stereo(st, x, sub_cfg)
+                side = (y[:, 0:1] - y[:, 1:2]) * 0.5
+            if sr is not None:
+                x = sr(x)
+            if st is not None:
+                if src_rate:
+                    if f > 1:
+                        side = upsample_linear(side, f)
+                    x = x + torch.cat([side, -side], dim=1).to(x.dtype)
+                else:
+                    y = apply_stereo(st, x, sub_cfg)
+                    if cfg.stereo_mid_exact:
+                        # out = mid +/- the predicted side: the mid is the
+                        # stage's input exactly
+                        side = (y[:, 0:1] - y[:, 1:2]) * 0.5
+                        y = torch.cat([x + side, x - side], dim=1)
+                    x = y
+            return x.float()
+
+        return stack
+
+    def _process(self, stack, audio_padded, n_chunks: int, chunk_size: int,
                  hop: int, overlap: int, valid: int):
         """frame -> stages -> overlap-add for one program's chunk batch."""
         f = self.upscale_factor
         chunks = frame_structured(audio_padded, n_chunks, chunk_size, hop)
-        x = self._stack(chunks)
+        x = stack(chunks)
         total = (n_chunks - 1) * hop + chunk_size
         return overlap_add(x, hop * f, total * f, overlap=overlap * f,
                            valid=valid)
 
-    @torch.inference_mode()
-    def restore(self, audio, sample_rate: Optional[int] = None):
-        """audio [C, T] (mixed to mono if C > 1), numpy or tensor ->
-        (tensor [out_ch, T*f] on the pipeline's device, out_rate)."""
+    def _framing(self, sample_rate: int):
+        """(chunk, hop, overlap) in samples at `sample_rate`."""
         cfg = self.config
-        sample_rate = sample_rate or cfg.sample_rate
+        chunk_size = int(round(cfg.chunk_seconds * sample_rate))
+        overlap = int(round(cfg.overlap_seconds * sample_rate))
+        return chunk_size, chunk_size - overlap, overlap
+
+    def _mono(self, audio):
+        """[C, T] or [T], numpy or tensor -> [1, T] f32 on the pipeline's
+        device, mixed down: the one mixdown of `restore` and
+        `restore_many`."""
         if not torch.is_tensor(audio):
             audio = torch.from_numpy(np.asarray(audio, np.float32))
         audio = audio.to(self.device, torch.float32)
@@ -145,24 +255,32 @@ class RestorationPipeline:
             audio = audio[None]
         if audio.shape[0] > 1:
             audio = audio.mean(dim=0, keepdim=True)
+        return audio
 
+    @torch.inference_mode()
+    def restore(self, audio, sample_rate: Optional[int] = None):
+        """audio [C, T] (mixed to mono if C > 1), numpy or tensor ->
+        (tensor [out_ch, T*f] on the pipeline's device, out_rate)."""
+        cfg = self.config
+        sample_rate = sample_rate or cfg.sample_rate
+        audio = self._mono(audio)
         t = audio.shape[1]
         f = self.upscale_factor
         if cfg.whole_file:
             chunk_size, hop, overlap = t, t, 0
             n = n_real = 1
         else:
-            chunk_size = int(round(cfg.chunk_seconds * sample_rate))
-            overlap = int(round(cfg.overlap_seconds * sample_rate))
-            hop = chunk_size - overlap
+            chunk_size, hop, overlap = self._framing(sample_rate)
             n_real = num_chunks(t, chunk_size, hop)
             n = _bucket(n_real)
+        stack = self._stage_stack(chunk_size, sample_rate)
 
         max_n = max(cfg.max_chunks_per_program, 4)
         if cfg.whole_file or n <= max_n:
             total = (n - 1) * hop + chunk_size
-            padded = torch.nn.functional.pad(audio, (0, total - t))
-            out = self._process(padded, n, chunk_size, hop, overlap, n_real)
+            padded = F.pad(audio, (0, total - t))
+            out = self._process(stack, padded, n, chunk_size, hop, overlap,
+                                n_real)
             return out[:, :t * f], sample_rate * f
 
         # Long recording: slabs of s chunks. Adjacent slabs share exactly
@@ -173,16 +291,100 @@ class RestorationPipeline:
         num_slabs = -(-n_real // s)
         slab_len = (s - 1) * hop + chunk_size
         needed = (num_slabs - 1) * s * hop + slab_len
-        padded = torch.nn.functional.pad(audio, (0, needed - t))
+        padded = F.pad(audio, (0, needed - t))
         outs = []
         for i in range(num_slabs):
             start = i * s * hop
             valid = min(max(n_real - i * s, 0), s)
-            outs.append(self._process(padded[:, start:start + slab_len], s,
-                                      chunk_size, hop, overlap, valid))
+            outs.append(self._process(stack, padded[:, start:start + slab_len],
+                                      s, chunk_size, hop, overlap, valid))
         out = overlap_add(torch.stack(outs), s * hop * f, needed * f,
                           overlap=overlap * f)
         return out[:, :t * f], sample_rate * f
+
+    @torch.inference_mode()
+    def restore_many(self, audios, sample_rate: Optional[int] = None):
+        """Coalesced restore of several recordings: their chunk frames are
+        packed one after another into one chunk batch, the model stack runs
+        once over it, and each recording is crossfaded from its own rows.
+        Returns [(tensor [out_ch, T_i*f], rate)] in input order, each equal
+        to `restore(audios[i])` up to the convolutions' batch-size-dependent
+        summation order: the stack is the same function (`_stage_stack`)
+        and rows outside a recording (bucket padding, or a neighbour's
+        chunks that its bucketed slice overhangs) get zero crossfade weight.
+
+        Groups are capped at `max_chunks_per_program` rows counted on the
+        bucketed coverage (a group such as [61, 2] chunks at 64 splits);
+        a recording whose own bucket exceeds the cap, and a group of one,
+        take `restore`."""
+        cfg = self.config
+        audios = list(audios)
+        if not audios:
+            return []
+        sample_rate = sample_rate or cfg.sample_rate
+        if cfg.whole_file or len(audios) == 1:
+            return [self.restore(a, sample_rate) for a in audios]
+
+        f = self.upscale_factor
+        chunk_size, hop, overlap = self._framing(sample_rate)
+        prepped = [self._mono(a) for a in audios]
+        max_n = max(cfg.max_chunks_per_program, 4)
+        metas = []  # (n_real, n_bucket) per recording
+        solo = []  # too long to coalesce: restore() with its slabs
+        # cur_cover is max(offset_i + n_bucket_i): the combined batch must
+        # cover every member's bucketed slice, so the cap applies to that
+        groups, cur, cur_n, cur_cover = [], [], 0, 0
+        for i, x in enumerate(prepped):
+            n_real = num_chunks(x.shape[1], chunk_size, hop)
+            metas.append((n_real, _bucket(n_real)))
+            if metas[i][1] > max_n:
+                solo.append(i)
+                continue
+            cover = max(cur_cover, cur_n + metas[i][1])
+            if cur and _bucket(max(cur_n + n_real, cover)) > max_n:
+                groups.append(cur)
+                cur, cur_n = [], 0
+                cover = metas[i][1]
+            cur.append(i)
+            cur_n += n_real
+            cur_cover = cover
+        if cur:
+            groups.append(cur)
+
+        results: list = [None] * len(audios)
+        for i in solo:
+            results[i] = self.restore(prepped[i], sample_rate)
+        stack = self._stage_stack(chunk_size, sample_rate)
+        for grp in groups:
+            if len(grp) == 1:
+                results[grp[0]] = self.restore(prepped[grp[0]], sample_rate)
+                continue
+            offs, rows = [], 0
+            for i in grp:
+                offs.append(rows)
+                rows += metas[i][0]
+            n_total = _bucket(max(rows, max(o + metas[i][1]
+                                            for o, i in zip(offs, grp))))
+            # each member framed as restore frames it, the rows one after
+            # another, zero rows up to the bucket
+            frames = []
+            for i in grp:
+                n_real, x = metas[i][0], prepped[i]
+                total = (n_real - 1) * hop + chunk_size
+                frames.append(frame_structured(
+                    F.pad(x, (0, total - x.shape[1])), n_real, chunk_size,
+                    hop))
+            frames.append(torch.zeros((n_total - rows, chunk_size, 1),
+                                      device=self.device))
+            big = stack(torch.cat(frames))
+            for o, i in zip(offs, grp):
+                n_real, nb = metas[i]
+                total = (nb - 1) * hop + chunk_size
+                out = overlap_add(big[o:o + nb], hop * f, total * f,
+                                  overlap=overlap * f, valid=n_real)
+                t = prepped[i].shape[1]
+                results[i] = (out[:, :t * f], sample_rate * f)
+        return results
 
     def restore_file(self, input_path, output_path,
                      sample_rate: Optional[int] = None,
@@ -197,6 +399,114 @@ class RestorationPipeline:
         save_audio(output_path, normalize_audio(restored.cpu().numpy()),
                    out_rate)
         return output_path, out_rate
+
+    def restore_directory(self, input_dir, output_dir,
+                          sample_rate: Optional[int] = None,
+                          suffix: str = "_restored",
+                          normalize: bool = True,
+                          coalesce: int = 4):
+        """Restore every WAV in `input_dir` (not recursive) into
+        `output_dir` as `<stem><suffix>.wav`, files equal to restore_file's.
+
+        `coalesce` files go to the card as one batch (`restore_many`; 1 =
+        one `restore` a file). One thread decodes the next batch while the
+        card runs this one, and the outputs of the batch before are copied
+        back and written meanwhile. Returns [(path, rate)] in file order."""
+        from concurrent.futures import ThreadPoolExecutor
+        from pathlib import Path
+
+        sr_in = sample_rate or self.config.sample_rate
+        out_dir = Path(output_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        files = find_audio_files(input_dir, recursive=False)
+        if not files:
+            return []
+        step = max(1, int(coalesce))
+        groups = [files[i:i + step] for i in range(0, len(files), step)]
+
+        def load(fs):
+            out = []
+            for path in fs:
+                audio, _ = load_audio(path, sample_rate=sr_in, mono=True)
+                out.append(normalize_audio(audio) if normalize else audio)
+            return out
+
+        results = []
+        pending: list = []  # (paths, host outputs, event) awaiting write
+
+        def write_pending():
+            while pending:
+                # pop before writing: a failed write is not retried
+                paths, host, event = pending.pop(0)
+                if event is not None:
+                    event.synchronize()
+                for path, (out, rate) in zip(paths, host):
+                    save_audio(path, normalize_audio(out.numpy()), rate)
+                    results.append((path, rate))
+
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            fut = ex.submit(load, groups[0])
+            try:
+                for gi, grp in enumerate(groups):
+                    audios = fut.result()
+                    if gi + 1 < len(groups):
+                        fut = ex.submit(load, groups[gi + 1])
+                    outs = (self.restore_many(audios, sr_in)
+                            if len(audios) > 1
+                            else [self.restore(audios[0], sr_in)])
+                    host = _to_host(outs)
+                    write_pending()
+                    pending.append(([out_dir / f"{p.stem}{suffix}.wav"
+                                     for p in grp], *host))
+            finally:
+                # a failure on one batch keeps the outputs of the batch
+                # before it
+                write_pending()
+        return results
+
+    def warmup(self, coalesce: int = 1,
+               sample_rate: Optional[int] = None) -> dict:
+        """Run zero audio through every chunk-count bucket before traffic
+        arrives: the CUDA kernels are built and loaded, cuDNN picks its
+        algorithms for each batch shape and the caching allocator grows to
+        the largest, so a first request pays none of it. The buckets run
+        from 4 to `max_chunks_per_program` (the top one is also the slab
+        shape); with `coalesce` > 1 the coalesced stack runs at each too.
+
+        `whole_file` mode has one shape per recording length: a no-op with
+        a warning. Returns {"programs": shapes run for the first time,
+        "seconds": wall, "buckets": the chunk counts covered}."""
+        cfg = self.config
+        if cfg.whole_file:
+            warnings.warn("warmup is a no-op in whole_file mode: programs "
+                          "are compiled per recording length")
+            return {"programs": 0, "seconds": 0.0, "buckets": []}
+        t0 = time.monotonic()
+        if self.device.type == "cuda":
+            from ..ops import _build
+
+            _build.load("lstm_recurrence")
+        sample_rate = sample_rate or cfg.sample_rate
+        chunk_size, hop, overlap = self._framing(sample_rate)
+        max_n = max(cfg.max_chunks_per_program, 4)
+        buckets = sorted({*range(4, max_n + 1, 4), max_n})
+        before = len(self._warmed)
+        stack = self._stage_stack(chunk_size, sample_rate)
+        with torch.inference_mode():
+            for n in buckets:
+                total = (n - 1) * hop + chunk_size
+                zeros = torch.zeros((1, total), device=self.device)
+                self._process(stack, zeros, n, chunk_size, hop, overlap, n)
+                self._warmed.add(("rec", n, chunk_size, hop, sample_rate,
+                                  cfg.compute_dtype))
+                if coalesce > 1:
+                    stack(torch.zeros((n, chunk_size, 1), device=self.device))
+                    self._warmed.add(("chunks", n, chunk_size, sample_rate,
+                                      cfg.compute_dtype))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return {"programs": len(self._warmed) - before,
+                "seconds": time.monotonic() - t0, "buckets": buckets}
 
 
 def restore_audio(input_path, output_path, *,

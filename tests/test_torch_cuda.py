@@ -7,7 +7,10 @@ there without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda -q
 
 Bars: K1 1e-5 in f32 and 1e-2 in bf16 (a summation-order change can flip
-one bf16 rounding of h, which the recurrence carries); K2 1e-5; K3 2e-5 on
+one bf16 rounding of h, which the recurrence carries), also at the serving
+shapes (0.25 s stereo windows of a 120 s restore, T=11,024 B=640; a
+streaming lookahead run, T=1,031 B=16 from a carry) and through one
+streaming feed (1e-4, the chain's kernel-vs-plain bar); K2 1e-5; K3 2e-5 on
 dgx, dh0 and dc0 (the bar JAX holds its Pallas backward to) and 1e-4 of its
 largest entry on dW_hh (a sum over T*B outer products); a train step
 on the smooth loss terms 1e-4 (chip_smoke.py's bar; the reference loss's
@@ -20,8 +23,10 @@ import pytest
 import torch
 
 from ml_audio_restoration_torch.config import TrainConfig
-from ml_audio_restoration_torch.models import StereoSeparator, init_params
+from ml_audio_restoration_torch.models import (
+    AudioDenoiser, AudioSuperResolution, StereoSeparator, init_params)
 from ml_audio_restoration_torch.ops import lstm as L
+from ml_audio_restoration_torch.pipeline import StreamingRestorer
 from ml_audio_restoration_torch.train.trainer import Trainer
 
 
@@ -66,6 +71,52 @@ def test_inference_kernel_matches_plain(card, dtype, tol, t, b, h):
     assert got[0].dtype == dtype
     for g, w in zip(got, want):
         assert float((g.float() - w.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,b,carry,dtype,tol", [
+    (11024, 640, False, torch.bfloat16, 1e-2),
+    (11024, 640, False, torch.float32, 1e-5),
+    (1031, 16, True, torch.float32, 1e-5),
+    (1031, 16, True, torch.bfloat16, 1e-2)])
+def test_inference_kernel_at_serving_shapes(card, t, b, carry, dtype, tol):
+    """K1 at the sub-chunked restore's shape (640 rows: more than one CTA
+    an SM) and at a streaming lookahead run's (short, odd T, a carry in)."""
+    args, _ = _inputs(t, b, 64, seed=5)
+    gates, w_hh, h0, c0 = (a.to(card) for a in args)
+    if not carry:
+        h0, c0 = torch.zeros_like(h0), torch.zeros_like(c0)
+    gates, w_hh = gates.to(dtype), w_hh.to(dtype)
+    got = L._lstm_recurrence_cuda(gates, w_hh, h0, c0)
+    want = L.lstm_recurrence_plain(gates, w_hh, h0, c0)
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    for g, w in zip(got, want):
+        assert float((g.float() - w.float()).abs().max()) <= tol
+    res = L.recurrence_resources(64, dtype)
+    assert res["ctas_per_sm"] >= 1 and res["regs_per_thread"] > 0
+
+
+@pytest.mark.cuda
+def test_streaming_feed_kernel_matches_plain(card):
+    """Two feeds of 4 streams at full width: the second feed (a carry in,
+    the lookahead run) through K1 equals it through the plain recurrence,
+    with two K1 launches a feed."""
+    gen = torch.Generator().manual_seed(3)
+    models = [init_params(m, gen) for m in (
+        AudioDenoiser(), AudioSuperResolution(), StereoSeparator())]
+    rng = np.random.default_rng(4)
+    blocks = (rng.normal(size=(2, 4, 4000)) * 0.1).astype(np.float32)
+    outs = []
+    for plain in (False, True):
+        s = StreamingRestorer(*models, batch=4, device=card)
+        with L.plain_recurrence() if plain else contextlib.nullcontext():
+            s.feed(blocks[0])
+            before = L.launch_count
+            outs.append(s.feed(blocks[1]))
+            launched = L.launch_count - before
+        assert launched == (0 if plain else 2)
+    assert outs[0].shape == (4, 2, 2 * 4000)
+    assert float(np.abs(outs[0] - outs[1]).max()) <= 1e-4
 
 
 @pytest.mark.cuda

@@ -18,7 +18,7 @@ from ml_audio_restoration_torch import cli
 from ml_audio_restoration_torch.audio import load_audio, save_audio, wav_info
 from ml_audio_restoration_torch.config import PipelineConfig
 from ml_audio_restoration_torch.pipeline import (
-    RestorationPipeline, restore_audio)
+    RestorationPipeline, StreamingRestorer, restore_audio)
 from test_torch_models import jax_model, port_model
 
 CHAIN_BAR = 1e-3
@@ -102,13 +102,32 @@ def test_cuda_default_raises_without_a_card(stages):
     RestorationPipeline(device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [
-    ("stereo_chunk_seconds", 0.5), ("stereo_mid_exact", True),
-    ("stereo_source_rate", True), ("compute_dtype", "bfloat16")])
-def test_unported_options_raise(field, value):
-    cfg = dataclasses.replace(PipelineConfig(), **{field: value})
-    with pytest.raises(NotImplementedError):
-        RestorationPipeline(config=cfg, device="cpu")
+def _int8_pipeline():
+    cfg = PipelineConfig()
+    cfg.quantize_int8 = True  # as a YAML overlay sets it
+    RestorationPipeline(config=cfg, device="cpu")
+
+
+@pytest.mark.parametrize("make,error", [
+    (_int8_pipeline, NotImplementedError),
+    (lambda: PipelineConfig(quantize_int8=True), NotImplementedError),
+    (lambda: StreamingRestorer(quantize_int8=True, device="cpu"),
+     NotImplementedError),
+    (lambda: StreamingRestorer(mesh=object(), device="cpu"),
+     NotImplementedError),
+    (lambda: StreamingRestorer(int8_scales={}, device="cpu"),
+     NotImplementedError),
+    (lambda: RestorationPipeline(config=dataclasses.replace(
+        PipelineConfig(), lstm_impl="pallas_train"), device="cpu"),
+     ValueError),
+    (lambda: StreamingRestorer(lstm_impl="pallas_train", device="cpu"),
+     ValueError)])
+def test_unported_options_raise(make, error):
+    """int8 serving and multi-device streaming are not ported and raise
+    (int8 changes the output, so a float result would be a different
+    answer); the training recurrence is no serving route."""
+    with pytest.raises(error):
+        make()
 
 
 def test_cli_restore_on_cpu(stages, tmp_path):
