@@ -33,23 +33,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
                (2 s chunks, batch 16) with K2/K3 launch counts, 10 timed
                steps (audio-s/s, the step split, peak memory) and a
                checkpoint resumed in a fresh trainer;
-  7. k1_shapes - K1 at the serving paths' shapes (sub-chunked stereo
+  7. train_convnets - denoiser and super-resolution training at full
+               width (batch 16 of 2 s; the denoiser's 78rpm degradation
+               runs inside the step): the degradation on the card against
+               the CPU on the same draws, one step card vs CPU, two seeded
+               10-step runs held equal bit for bit, then train_from_config
+               over seeded mono WAVs with 10 timed steps (audio-s/s, the
+               step split, peak memory) and a checkpoint resumed in a fresh
+               trainer whose next step equals the uninterrupted one's; one
+               line a family. No kernel of the package runs on this path;
+  8. k1_shapes - K1 at the serving paths' shapes (sub-chunked stereo
                T=11,024 B=640 in bf16 and f32, source-rate T=44,100 B=64,
                a streaming feed's committed T=22,048 and lookahead T=1,040
                runs at B=16 with a carry in): against its plain version,
                timed beside its bound, its latency floor (waves x steps),
                its registers, CTAs an SM and waves, and cuDNN's nn.LSTM;
-  8. serve_fast - a 120 s clip through config/fast_serve.yaml (bf16, 0.25 s
+  9. serve_fast - a 120 s clip through config/fast_serve.yaml (bf16, 0.25 s
                stereo windows): kernel vs plain recurrence, bf16 vs f32,
                xRT, the stage split, K1 launches, peak memory, and
                `warmup`;
-  9. serve_options - the clip in f32 with 0.25 s stereo windows, mid-exact
+ 10. serve_options - the clip in f32 with 0.25 s stereo windows, mid-exact
                (the mean of L and R is the SR output) and source-rate, each
                against its plain-recurrence run, timed;
- 10. serve_many - eight 10 s recordings and one of 150 s: restore_many vs
+ 11. serve_many - eight 10 s recordings and one of 150 s: restore_many vs
                single restores, then restore_directory (coalesce 4) vs
                restore_file over WAVs in profiles/;
- 11. stream  - 16 lockstep streams of 30 s in 0.5 s blocks: each against
+ 12. stream  - 16 lockstep streams of 30 s in 0.5 s blocks: each against
                the single-shot whole_file restore, the batch against 16
                single streams, one feed against the plain recurrence, bf16
                against f32; per-feed ms, the slowest call (a feed or the
@@ -1018,11 +1027,29 @@ def _write_corpus(root, files: int, seconds: float, rate: int = 22050):
                    _stereo_batch(1, frames, seed=1000 + i)["stereo"][0], rate)
 
 
+def _train_config(name: str, root, ckpt_dir: str, batch: int,
+                  seconds: float):
+    """One epoch of `name` over the WAVs in <root>/wavs: Adam at 1e-4, f32,
+    a checkpoint every epoch into <root>/<ckpt_dir>."""
+    from ml_audio_restoration_torch.config import Config
+
+    cfg = Config()
+    cfg.train.model = name
+    cfg.train.batch_size = batch
+    cfg.train.learning_rate = 1e-4
+    cfg.train.num_epochs = 1
+    cfg.train.save_every = 1
+    cfg.train.checkpoint_dir = os.path.join(root, ckpt_dir)
+    cfg.train.log_dir = os.path.join(root, "runs")
+    cfg.data.data_dir = os.path.join(root, "wavs")
+    cfg.data.chunk_duration = seconds
+    return cfg
+
+
 def phase_train_full(torch):
     """The training path at full width through train_from_config: seeded
     stereo WAVs, 2 s chunks at 22.05 kHz, batch 16, f32, Adam at 1e-4.
     Returns the K2 and K3 launches of the 12-step run, by kernel name."""
-    from ml_audio_restoration_torch.config import Config
     from ml_audio_restoration_torch.models import count_params
     from ml_audio_restoration_torch.ops import lstm as L
     from ml_audio_restoration_torch.train.trainer import (
@@ -1035,17 +1062,8 @@ def phase_train_full(torch):
         corpus_s = time.perf_counter() - t0
 
         def config(ckpt_dir):
-            cfg = Config()
-            cfg.train.model = "stereo_separator"
-            cfg.train.batch_size = batch
-            cfg.train.learning_rate = 1e-4
-            cfg.train.num_epochs = 1
-            cfg.train.save_every = 1
-            cfg.train.checkpoint_dir = os.path.join(tmp, ckpt_dir)
-            cfg.train.log_dir = os.path.join(tmp, "runs")
-            cfg.data.data_dir = os.path.join(tmp, "wavs")
-            cfg.data.chunk_duration = seconds
-            return cfg
+            return _train_config("stereo_separator", tmp, ckpt_dir, batch,
+                                 seconds)
 
         # the main path: one epoch of 12 steps plus validation, counted
         torch.cuda.synchronize()
@@ -1151,6 +1169,339 @@ def phase_train_full(torch):
         raise AssertionError(f"training run failed: {row}")
     return {name: counts[name] for name in ("lstm_train_fwd",
                                             "lstm_train_bwd")}
+
+
+# The conv-net families at their published widths (config/denoiser.yaml,
+# config/super_resolution.yaml): the batch key their dataset yields, its
+# pairing, the corpus rate and the parameter count.
+CONVNETS = {
+    "denoiser": {"key": "clean", "pairing": "degrade", "rate": 22050,
+                 "params": 676242},
+    "super_resolution": {"key": "high", "pairing": "downsample",
+                         "rate": 44100, "params": 38273}}
+DEGRADE_TOL = 1e-5  # the simulator, card vs CPU on the same draws: FFTs
+#                     and convolutions summed in another order
+
+
+def _mono_batch(batch: int, frames: int, rate: int, seed: int):
+    """Tones under noise at -20 dB RMS, [B, 1, T] float32."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(frames) / rate
+    out = np.empty((batch, 1, frames), np.float32)
+    for i in range(batch):
+        x = (np.sin(2 * np.pi * rng.uniform(100, 3000) * t)
+             + 0.5 * rng.standard_normal(frames))
+        out[i, 0] = 0.1 * x / np.sqrt(np.mean(x ** 2))
+    return out
+
+
+def _convnet_trainer(torch, name, model, device, **cfg):
+    from ml_audio_restoration_torch.config import TrainConfig
+    from ml_audio_restoration_torch.train.trainer import Trainer
+
+    return Trainer(name, model, [], config=TrainConfig(model=name, **cfg),
+                   pairing=CONVNETS[name]["pairing"], device=device)
+
+
+def _convnet_degradation(torch):
+    """The simulator on the card against the CPU, on the same draws (made
+    on the CPU, then moved): batch 16 of 2 s at 22.05 kHz; then its pieces
+    timed on the card (median of 5 warm calls each)."""
+    from ml_audio_restoration_torch.config import ArtifactConfig
+    from ml_audio_restoration_torch.data import artifacts as A
+    from ml_audio_restoration_torch.ops.filters import bank_index
+
+    rate, cfg = 22050, ArtifactConfig()
+    clean = torch.from_numpy(_mono_batch(16, 44100, rate, seed=21))
+    draws = A.draw_artifacts(torch.Generator().manual_seed(21), clean.shape,
+                             rate)
+    want = A.apply_artifacts(clean, draws, rate)
+    x = clean.cuda()
+    cuda_draws = {k: v.cuda() for k, v in draws.items()}
+    got = A.apply_artifacts(x, cuda_draws, rate)
+    again = A.apply_artifacts(x, cuda_draws, rate)
+    fir = {taps: torch.as_tensor(A.zero_phase_fir(4, cut, rate, band, taps),
+                                 device="cuda")
+           for cut, band, taps in ((2500.0, "high", 257),
+                                   (100.0, "low", 2049))}
+    bank = torch.as_tensor(A.zero_phase_fir_bank(
+        3, *cfg.rolloff_freq, rate, "low", 129, num=A.ROLLOFF_BANK),
+        device="cuda")
+    per_item = bank[bank_index(A.ROLLOFF_BANK, cuda_draws["rolloff_freq"],
+                               *cfg.rolloff_freq).long()]
+    gen = torch.Generator(device="cuda")
+    pieces = {
+        "draws": lambda: A.draw_artifacts(gen.manual_seed(1), x.shape, rate),
+        "pops": lambda: A._make_pops(cuda_draws, x.shape[-1], rate, cfg),
+        "crackle_fft_257": lambda: A._fir_same(x, fir[257]),
+        "rumble_fft_2049": lambda: A._fir_same(x, fir[2049]),
+        "rolloff_conv_129": lambda: A._fir_same(x, per_item),
+        "apply_artifacts": lambda: A.apply_artifacts(x, cuda_draws, rate),
+        "simulate_batch": lambda: A.simulate_batch(gen.manual_seed(1), x,
+                                                   rate)}
+    split = {k: _cuda_ms(torch, fn, 5) for k, fn in pieces.items()}
+    return {"shape": list(clean.shape), "max_abs": _max_dev(got.cpu(), want),
+            "tol": DEGRADE_TOL, "repeats_exactly": bool(torch.equal(got,
+                                                                     again)),
+            "pops": int(draws["pop_count"].sum()),
+            "degraded_minus_clean_max": _max_dev(want, clean),
+            "card_ms": split}
+
+
+def _convnet_step(torch, name, base):
+    """One optimizer step, card vs CPU, at batch 2 of the full-width chunk
+    on one degradation (a CPU generator gives the same draws on both):
+    TrainConfig defaults with clipping and EMA, on the smooth terms
+    (entry by entry) and on the reference loss (its gradient as a relative
+    L2 norm, SMOOTH_TERMS' comment). The smooth terms' gradients are also
+    read against a float64 step on the CPU (the same f32 inputs), which
+    says which side's f32 rounding the card-vs-CPU deviation comes from."""
+    import copy
+
+    spec = CONVNETS[name]
+    frames = 88200 if name == "super_resolution" else 44100
+    batch = {spec["key"]: _mono_batch(2, frames, spec["rate"], seed=22)}
+    cfg = {"max_grad_norm": 1.0, "ema_decay": 0.999}
+
+    def grads_of(tr):
+        return [p.grad.detach().cpu().float() for p in tr.model.parameters()]
+
+    out = {}
+    for label, kw in (("smooth", {"spectral_weight": 0.0}),
+                      ("reference", {})):
+        sides = []
+        for device in ("cuda", "cpu"):
+            tr = _convnet_trainer(torch, name, copy.deepcopy(base), device,
+                                  **cfg, **kw)
+            loss = float(tr._train_step(
+                batch, torch.Generator().manual_seed(23))["loss"])
+            stats = [v.detach().cpu() for k, v in tr.model.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))]
+            sides.append((loss, grads_of(tr), stats))
+        (lc, gc, sc), (lh, gh, sh) = sides
+        names = [n for n, _ in base.named_parameters()]
+        devs = [_max_dev(a, b) for a, b in zip(gc, gh)]
+        out[label] = {"loss": lc, "loss_rel": abs(lc - lh) / abs(lh),
+                      "grad_rel": _grad_devs(gc, gh),
+                      "grad_worst_param": names[int(np.argmax(devs))],
+                      "grad_rel_l2": _rel_l2(gc, gh),
+                      "bn_stats_max_abs": max(_max_dev(a, b)
+                                              for a, b in zip(sc, sh))}
+        if label == "smooth":
+            ref = _convnet_trainer(torch, name, copy.deepcopy(base).double(),
+                                   "cpu", **cfg, **kw)
+            inputs, targets = ref._derive(batch,
+                                          torch.Generator().manual_seed(23))
+            ref.model.train()
+            loss, _ = ref._loss(inputs.double(), targets.double())
+            loss.backward()
+            ref._update()  # clips the gradients in place, as the f32 steps
+            g64 = grads_of(ref)
+            out[label].update({"card_vs_f64_grad_rel": _grad_devs(gc, g64),
+                               "cpu_vs_f64_grad_rel": _grad_devs(gh, g64)})
+    return out
+
+
+def _convnet_runs(torch, name, base, steps: int = 10):
+    """Two `steps`-step runs on the card from one seed, the degradation
+    drawn per step from the trainer's (epoch, step) stream: losses and
+    final weights, BN statistics and EMA."""
+    import copy
+
+    spec = CONVNETS[name]
+    frames = 88200 if name == "super_resolution" else 44100
+    batch = {spec["key"]: _mono_batch(16, frames, spec["rate"], seed=24)}
+    runs = []
+    for _ in range(2):
+        tr = _convnet_trainer(torch, name, copy.deepcopy(base), "cuda",
+                              learning_rate=1e-3, ema_decay=0.999)
+        losses = [float(tr._train_step(batch, tr._seeded(2, i))["loss"])
+                  for i in range(steps)]
+        state = dict(tr.model.state_dict())
+        state.update({f"ema.{k}": v for k, v in tr.ema_params.items()})
+        runs.append((losses, state))
+    (la, sa), (lb, sb) = runs
+    return {"losses": la, "equal": la == lb and all(
+        torch.equal(v, sb[k]) for k, v in sa.items())}
+
+
+def _write_mono_corpus(root, files: int, seconds: float, rate: int):
+    from ml_audio_restoration_torch.audio import save_audio
+
+    os.makedirs(root, exist_ok=True)
+    frames = int(seconds * rate)
+    for i in range(files):
+        save_audio(os.path.join(root, f"take_{i:03d}.wav"),
+                   _mono_batch(1, frames, rate, seed=2000 + i)[0], rate)
+
+
+def _convnet_from_config(torch, name, root):
+    """train_from_config over seeded WAVs at batch 16 of 2 s with
+    validation; then 10 timed steps (audio-s/s, the step split by CUDA
+    events, peak memory) and a checkpoint resumed in a fresh trainer whose
+    next step equals the uninterrupted trainer's."""
+    from ml_audio_restoration_torch.train.trainer import (
+        build_trainer, train_from_config)
+
+    steps, batch, seconds = 12, 16, 2.0
+    spec = CONVNETS[name]
+    t0 = time.perf_counter()
+    _write_mono_corpus(os.path.join(root, "wavs"), 224, 2.5, spec["rate"])
+    corpus_s = time.perf_counter() - t0
+
+    def config(ckpt_dir):
+        return _train_config(name, root, ckpt_dir, batch, seconds)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history = train_from_config(config("ck"), steps_per_epoch=steps)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    written = sorted(os.listdir(os.path.join(root, "ck", name)))
+
+    # 2 warm-up and 10 timed steps from the same loader, each step's
+    # degradation drawn from its (epoch, step) stream as train() does
+    tr = build_trainer(config("ck_timed"), steps_per_epoch=steps)
+    tr.epoch = 1
+    it = enumerate(tr.train_loader)
+    for _ in range(2):
+        i, b = next(it)
+        tr._train_step(b, tr._seeded(2, i))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    timed = 0
+    for i, b in it:
+        tr._train_step(b, tr._seeded(2, i))
+        timed += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+
+    # the step split by CUDA events on one batch
+    b = next(iter(tr.train_loader))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    split = {"derive": 0.0, "forward": 0.0, "loss": 0.0, "backward": 0.0,
+             "optimizer": 0.0}
+    reps = 3
+    for r in range(reps):
+        ev[0].record()
+        inputs, targets = tr._derive(b, tr._seeded(2, 100 + r))
+        ev[1].record()
+        tr.model.train()
+        tr.optimizer.zero_grad(set_to_none=True)
+        out = tr._forward(inputs)
+        ev[2].record()
+        loss, _ = tr._criterion(out, targets)
+        ev[3].record()
+        loss.backward()
+        ev[4].record()
+        tr._update()
+        ev[5].record()
+        torch.cuda.synchronize()
+        for k, key in enumerate(split):
+            split[key] += ev[k].elapsed_time(ev[k + 1]) / reps
+    del out, loss
+
+    # checkpoint, resume in a fresh trainer, and take the next step on both
+    tr.save_checkpoint("checkpoint_epoch_1.pth")
+    fresh = build_trainer(config("ck_timed"), steps_per_epoch=steps)
+    same_progress = (fresh.epoch, fresh.global_step, fresh.lr) == (
+        tr.epoch, tr.global_step, tr.lr)
+    losses = [float(t._train_step(b, t._seeded(4, 0))["loss"])
+              for t in (tr, fresh)]
+    resumed = same_progress and losses[0] == losses[1] and all(
+        torch.equal(x, y) for x, y in zip(tr.model.state_dict().values(),
+                                          fresh.model.state_dict().values()))
+
+    # the forward's and backward's FLOPs as torch's counter sees them (the
+    # convolutions and matrix products, not elementwise work or the FFTs),
+    # over the split's times: the rate the step's convolutions reach
+    from torch.utils.flop_counter import FlopCounterMode
+
+    inputs, targets = fresh._derive(b, fresh._seeded(2, 200))
+    fresh.model.train()
+    with FlopCounterMode(display=False) as counted:
+        out = fresh._forward(inputs)
+    fwd_flops = counted.get_total_flops()
+    loss, _ = fresh._criterion(out, targets)
+    with FlopCounterMode(display=False) as counted:
+        loss.backward()
+    bwd_flops = counted.get_total_flops()
+    del out, loss
+    return {"corpus_write_s": corpus_s, "epoch_s": epoch_s,
+            "history": history, "checkpoints": written,
+            "timed_steps": timed, "timed_wall_s": wall,
+            "step_ms": wall * 1e3 / timed,
+            "audio_s_per_s": timed * batch * seconds / wall,
+            "split_ms": split, "split_sum_ms": sum(split.values()),
+            "counted_flops": {"forward": fwd_flops, "backward": bwd_flops},
+            "tflops_per_s": {"forward": fwd_flops / split["forward"] / 1e9,
+                             "backward": bwd_flops / split["backward"]
+                             / 1e9},
+            "peak_mem_bytes": peak, "resumed_next_step_equal": resumed}
+
+
+def phase_train_convnets(torch):
+    """The denoiser and super-resolution training paths at full width
+    (config/denoiser.yaml: 32/64/128, batch 16, 2 s at 22.05 kHz;
+    config/super_resolution.yaml: base 32, 4 blocks, batch 16, 2 s at
+    44.1 kHz), seeded random weights: for each family the degradation
+    (denoiser), one step card vs CPU, two seeded 10-step runs equal bit for
+    bit, and train_from_config over seeded WAVs written under profiles/
+    (removed after), timed. One JSON line a family."""
+    import shutil
+
+    from ml_audio_restoration_torch.models import count_params, init_params
+    from ml_audio_restoration_torch.train.trainer import MODELS
+
+    for name, spec in CONVNETS.items():
+        base = init_params(MODELS[name](), torch.Generator().manual_seed(20))
+        row = {"phase": "train_convnets", "family": name,
+               "params": count_params(base), "pairing": spec["pairing"],
+               "batch": 16, "chunk_seconds": 2.0, "rate": spec["rate"],
+               "dtype": "float32", "tol": {"step": STEP_TOL,
+                                           "degradation": DEGRADE_TOL,
+                                           "smooth_grad_card_vs_cpu": CPU_TOL,
+                                           "reference_grad_rel_l2":
+                                           REF_GRAD_L2["card_vs_cpu"]}}
+        if name == "denoiser":
+            row["degradation"] = _convnet_degradation(torch)
+        row["step_card_vs_cpu"] = _convnet_step(torch, name, base)
+        row["repeat_10_steps"] = _convnet_runs(torch, name, base)
+        root = os.path.join(ROOT, "profiles", f"chip_smoke_{name}")
+        shutil.rmtree(root, ignore_errors=True)
+        try:
+            row["from_config"] = _convnet_from_config(torch, name, root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        emit(row)
+        step, fc = row["step_card_vs_cpu"], row["from_config"]
+        ok = (row["params"] == spec["params"]
+              and row["repeat_10_steps"]["equal"]
+              and fc["resumed_next_step_equal"] and fc["timed_steps"] == 10
+              and "best_model.pth" in fc["checkpoints"]
+              and all(np.isfinite(fc["history"]["train_loss"]
+                                  + fc["history"]["val_loss"]))
+              and step["reference"]["grad_rel_l2"]
+              <= REF_GRAD_L2["card_vs_cpu"])
+        for side in step.values():
+            ok &= (side["loss_rel"] <= STEP_TOL
+                   and side["bn_stats_max_abs"] <= STEP_TOL)
+        # card vs CPU gradients at the chain's card-vs-CPU bar, as the
+        # stereo phase holds them: at -20 dB input the first conv's bias
+        # dominates its output and the BN-cancelled gradients of the early
+        # layers carry each side's f32 summation order (read 1.9e-4 for the
+        # denoiser; the f64 readings beside it say which side drifts)
+        ok &= step["smooth"]["grad_rel"] <= CPU_TOL
+        curve = row["repeat_10_steps"]["losses"]
+        ok &= bool(np.isfinite(curve).all() and curve[-1] < curve[0])
+        if "degradation" in row:
+            deg = row["degradation"]
+            ok &= (deg["max_abs"] <= DEGRADE_TOL and deg["repeats_exactly"]
+                   and deg["degraded_minus_clean_max"] > 0.1)
+        if not ok:
+            raise AssertionError(f"conv-net training failed: {row}")
 
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1619,6 +1970,7 @@ def main() -> int:
     phase_grad(torch)
     phase_train_small(torch)
     launches = phase_train_full(torch)
+    phase_train_convnets(torch)
     for row in rows[1:]:
         row["launches"] = launches[row["name"]]
     k1 = phase_k1_shapes(torch)

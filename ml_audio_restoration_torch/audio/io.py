@@ -7,9 +7,10 @@ ml_audio_restoration_tpu/audio/io.py.
 - normalize_audio: RMS-normalize to a target dB with a peak-clip guard.
 - load_audio_chunk: seek-read one random training chunk.
 - find_audio_files: the sorted audio files under a directory.
+- add_noise, apply_highpass_filter: small numpy/scipy helpers.
 
 WAV only; FLAC, mp3/ogg and the native codec are not ported yet (ROADMAP
-item 7).
+item 4).
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ def _check_wav(path):
     if low.endswith((".flac", ".mp3", ".ogg")):
         raise NotImplementedError(
             f"{path!r}: FLAC and mp3/ogg are not ported yet (ROADMAP item "
-            f"7); the port reads and writes WAV only")
+            f"4); the port reads and writes WAV only")
     if not low.endswith(".wav"):
         raise ValueError(f"{path!r}: the port reads and writes WAV only")
 
@@ -114,6 +115,26 @@ def load_audio_chunk(path, chunk_size: int, rng: np.random.Generator,
         start = int(rng.integers(0, audio.shape[-1] - chunk_size + 1))
         audio = audio[:, start:start + chunk_size]
     return audio
+
+
+def add_noise(audio, noise_level: float = 0.01, rng=None):
+    """audio plus Gaussian noise of std `noise_level` from `rng`."""
+    rng = rng or np.random.default_rng()
+    return audio + rng.normal(0, noise_level, audio.shape).astype(np.float32)
+
+
+def apply_highpass_filter(audio, sample_rate: int, cutoff_freq: float = 80.0):
+    """RBJ biquad high-pass (Q=0.707) along the last axis, rumble
+    removal."""
+    from scipy.signal import lfilter
+
+    w0 = 2 * math.pi * cutoff_freq / sample_rate
+    q = 0.707
+    alpha = math.sin(w0) / (2 * q)
+    cosw = math.cos(w0)
+    b = np.array([(1 + cosw) / 2, -(1 + cosw), (1 + cosw) / 2])
+    a = np.array([1 + alpha, -2 * cosw, 1 - alpha])
+    return lfilter(b / a[0], a / a[0], audio, axis=-1).astype(np.float32)
 
 
 def find_audio_files(directory, extensions=AUDIO_EXTENSIONS,

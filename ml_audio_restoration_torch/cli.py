@@ -11,14 +11,18 @@
         python -m ml_audio_restoration_torch stream - --pcm f32le | \
         ffmpeg -f f32le -ac 2 -ar 44100 -i - restored.flac
 
-    python -m ml_audio_restoration_torch train stereo_separator \
+    python -m ml_audio_restoration_torch train denoiser \
         --data-dir wavs/ [--steps-per-epoch N] [--device cuda]
+    python -m ml_audio_restoration_torch train super_resolution \
+        --data-dir wavs_44k/ --config config/super_resolution.yaml
 
 `restore` restores one WAV file through the chain, or every WAV of a
 directory (coalesced device batches); `stream` feeds recordings block by
 block through the streaming restorer, one lockstep stream per input, or
-raw mono PCM from stdin to stdout (`-`); `train` trains the stereo
-separator on a directory of stereo WAVs. All run on the card unless
+raw mono PCM from stdin to stdout (`-`); `train` trains one model family
+on a directory of WAVs: the denoiser on clean mono chunks degraded on the
+device, super-resolution on 44.1 kHz chunks downsampled on the device, the
+stereo separator on stereo chunks. All run on the card unless
 `--device cpu` is given.
 """
 from __future__ import annotations
@@ -251,8 +255,7 @@ def _cmd_stream(args):
 
 
 def _add_train(sub):
-    p = sub.add_parser("train", help="train a model (stereo_separator so "
-                                     "far)")
+    p = sub.add_parser("train", help="train a model")
     p.add_argument("model", choices=["denoiser", "super_resolution",
                                      "stereo_separator"])
     p.add_argument("--config", default=None, help="YAML config overlay")

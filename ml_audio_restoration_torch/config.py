@@ -50,8 +50,8 @@ class StereoSeparatorConfig:
 
 @dataclass
 class ArtifactConfig:
-    """Knobs of the 78rpm artifact simulator (not ported yet; the stereo
-    family's training does not use it)."""
+    """Knobs of the 78rpm artifact simulator (data/artifacts.py), which
+    the denoiser's `degrade` pairing runs inside the train step."""
     impulse_rate: float = 10.0
     impulse_amplitude: Tuple[float, float] = (0.1, 0.5)
     surface_noise_level: Tuple[float, float] = (0.015, 0.03)

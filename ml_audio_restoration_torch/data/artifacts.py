@@ -1,0 +1,260 @@
+"""78rpm artifact simulator, run on the device inside the train step.
+
+Counterpart of ml_audio_restoration_tpu/data/artifacts.py on its default
+FIR path. Each item of a [B, C, T] batch gets, in this order:
+
+1. surface noise     - Gaussian, level ~ U(0.015, 0.03)
+2. pops              - Poisson-timed impulses (rate/s), amp ~ U(0.1, 0.5),
+                       polarity -1 with p=0.45, exponential decay 1-3 ms
+                       (amp-scaled), 3-8 kHz resonant ringing; shared by
+                       the item's channels
+3. crackle           - Gaussian noise through a zero-phase 2.5 kHz high-pass
+4. rumble            - Gaussian noise through a zero-phase 100 Hz low-pass
+5. bandwidth rolloff - zero-phase low-pass at U(6, 8) kHz on the whole mix
+
+The zero-phase filters are the truncated impulse responses of scipy's
+sosfiltfilt, designed on the host once and cached as numpy: 257 taps for
+the crackle, 2,049 for the rumble (both applied through an FFT), and a bank
+of 49 129-tap kernels over the roll-off range, one picked per item by
+`ops.filters.bank_index` and applied as a direct convolution.
+
+The JAX package draws from `jax.random` keys, which torch cannot
+reproduce, so the simulator is split in two: `draw_artifacts` makes every
+random quantity of a batch from a `torch.Generator` (on the generator's
+device), and `apply_artifacts` is a deterministic function of the audio and
+those draws. Fed the JAX package's own draws, `apply_artifacts` gives its
+`simulate_batch` output. The exact IIR path (`filter_mode="iir"`) and the
+adaptive per-item overrides are not ported yet (ROADMAP items 9 and 3).
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import ArtifactConfig
+from ..ops.filters import bank_index
+
+ROLLOFF_BANK = 49    # grid points of the roll-off cutoff bank
+FFT_ABOVE_TAPS = 192  # longer kernels are applied through an FFT
+
+
+# --------------------------------------------------------------------- FIR
+@functools.lru_cache(maxsize=64)
+def zero_phase_fir(order: int, cutoff_hz: float, sample_rate: float,
+                   btype: str, numtaps: int):
+    """Truncated impulse response of sosfiltfilt (symmetric, zero-phase),
+    float32 numpy [numtaps]."""
+    from scipy import signal as _sig
+
+    wn = cutoff_hz / (sample_rate / 2.0)
+    sos = _sig.butter(order, wn, btype=btype, output="sos")
+    pad = 8 * numtaps
+    delta = np.zeros(2 * pad + 1, np.float64)
+    delta[pad] = 1.0
+    h = _sig.sosfiltfilt(sos, delta)
+    half = numtaps // 2
+    kernel = h[pad - half:pad + half + 1]
+    return np.asarray(kernel, np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def zero_phase_fir_bank(order: int, f_lo: float, f_hi: float,
+                        sample_rate: float, btype: str, numtaps: int,
+                        num: int = 33):
+    """zero_phase_fir over a `num`-point linspace of cutoffs: [num, taps]."""
+    return np.stack([
+        zero_phase_fir(order, float(f), sample_rate, btype, numtaps)
+        for f in np.linspace(f_lo, f_hi, num)
+    ])
+
+
+def _fir_same(x, kernel):
+    """'same' convolution along the last axis of x [..., T] with a kernel
+    [K]; a direct one also takes one kernel per item, [B, K] for x
+    [B, C, T] (the roll-off bank).
+
+    Kernels longer than 192 taps go through the frequency domain, with the
+    JAX package's transform length (the next power of two >= T + K - 1) and
+    centred slice; shorter ones are a direct convolution."""
+    k = kernel.shape[-1]
+    t = x.shape[-1]
+    if k > FFT_ABOVE_TAPS:
+        if k % 2 != 1 or kernel.dim() != 1:
+            raise ValueError(f"the FFT branch takes one odd kernel, got "
+                             f"{tuple(kernel.shape)}")
+        n = 1 << max(t + k - 2, 1).bit_length()
+        y = torch.fft.irfft(torch.fft.rfft(x, n) * torch.fft.rfft(kernel, n),
+                            n)
+        return y[..., k // 2:k // 2 + t].to(x.dtype)
+    w = kernel.flip(-1)  # conv1d correlates: flip for a true convolution
+    if kernel.dim() == 1:
+        y = F.conv1d(x.reshape(-1, 1, t), w.view(1, 1, k), padding=k // 2)
+        return y.reshape(x.shape)
+    b, c = x.shape[0], x.shape[1]
+    y = F.conv1d(x.reshape(1, b * c, t), w.repeat_interleave(c, 0)[:, None],
+                 padding=k // 2, groups=b * c)
+    return y.reshape(x.shape)
+
+
+# --------------------------------------------------------------------- pops
+def _template_len(sample_rate: int, cfg: ArtifactConfig) -> int:
+    """Pop template length: the longest decay, 3 ms * (1 + amp bound)."""
+    amp_bound = max(cfg.impulse_amplitude[1], 1.0)
+    return int(math.ceil(sample_rate * 0.003 * (1.0 + amp_bound))) + 1
+
+
+def _make_pops(draws, num_samples: int, sample_rate: int,
+               cfg: ArtifactConfig):
+    """Sum of each item's decaying impulses as a [B, T] track."""
+    amps = draws["pop_amps"]  # [B, P]
+    b, p = amps.shape
+    dtype, dev = amps.dtype, amps.device
+    tmpl_len = _template_len(sample_rate, cfg)
+    num_pops = torch.clamp(draws["pop_count"], max=p)
+    active = (torch.arange(p, device=dev) < num_pops[:, None]).to(dtype)
+
+    n = torch.arange(tmpl_len, dtype=dtype, device=dev)  # [L]
+    decay_time = draws["pop_decay"] * (1.0 + amps)
+    decay_len = torch.floor(sample_rate * decay_time)  # [B, P]
+    tau = sample_rate * decay_time * 0.3
+    decay = torch.exp(-n / tau[..., None])  # [B, P, L]
+    valid = (n < decay_len[..., None]).to(dtype)
+
+    impulse = amps[..., None] * draws["pop_polarity"][..., None] * decay
+    t = n / sample_rate
+    resonance = (0.3 * torch.sin(2 * math.pi * draws["pop_freq"][..., None]
+                                 * t) * decay)
+    # ringing only where the decay spans more than 10 samples
+    ring_on = (decay_len > 10).to(dtype)[..., None]
+    impulse = impulse + resonance * amps[..., None] * 0.2 * ring_on
+    impulse = impulse * valid * active[..., None]
+
+    # Overlapping pops are summed without float atomics: each pop is written
+    # into its own row (no two writes of a row share an index), then the
+    # rows are summed. A scatter-add (index_add_, scatter_add_) would sum in
+    # a different order from run to run on the card and break "two runs
+    # from one seed are equal". At 2 s, 22.05 kHz, 10 pops/s and batch 16
+    # the rows are 16 x 76 x 44,201 floats (215 MB), written and read once.
+    idx = (draws["pop_locs"][..., None]
+           + torch.arange(tmpl_len, device=dev))  # [B, P, L]
+    rows = torch.zeros((b, p, num_samples + tmpl_len), dtype=dtype,
+                       device=dev)
+    rows.scatter_(2, idx, impulse)
+    return rows[..., :num_samples].sum(dim=1)
+
+
+# ---------------------------------------------------------------- simulator
+def max_pops_for(num_samples: int, sample_rate: int,
+                 cfg: ArtifactConfig) -> int:
+    """The static pop bound: three times the expected count, plus 16."""
+    return int(math.ceil(3.0 * (num_samples / sample_rate)
+                         * cfg.impulse_rate)) + 16
+
+
+def draw_artifacts(generator: torch.Generator, shape, sample_rate: int,
+                   cfg: ArtifactConfig | None = None, *,
+                   dtype: torch.dtype = torch.float32) -> dict:
+    """Every random quantity of a [B, C, T] batch's degradation, drawn from
+    `generator` on its device: per item the noise levels, the surface,
+    crackle and rumble noise [B, C, T], the Poisson pop count and, for
+    max_pops_for(T) pops, their locations, amplitudes, polarities, decay draws
+    (U(1, 3) ms before the amplitude scaling) and ringing frequencies, and
+    the roll-off cutoff."""
+    cfg = cfg or ArtifactConfig()
+    b, c, t = shape
+    p = max_pops_for(t, sample_rate, cfg)
+    g, dev = generator, generator.device
+
+    def uniform(lo, hi, *size, kind=dtype):
+        u = torch.rand(size, generator=g, device=dev, dtype=kind)
+        return u * (hi - lo) + lo
+
+    def normal():
+        return torch.randn((b, c, t), generator=g, device=dev, dtype=dtype)
+
+    expected = torch.full((b,), (t / sample_rate) * cfg.impulse_rate,
+                          dtype=torch.float32, device=dev)
+    amp_lo, amp_hi = cfg.impulse_amplitude
+    return {
+        "surface_level": uniform(*cfg.surface_noise_level, b),
+        "surface": normal(),
+        "pop_count": torch.poisson(expected, generator=g).long(),
+        "pop_locs": torch.randint(0, t, (b, p), generator=g, device=dev),
+        "pop_amps": uniform(amp_lo, amp_hi, b, p),
+        "pop_polarity": torch.where(
+            uniform(0.0, 1.0, b, p) < 0.45, -1.0, 1.0).to(dtype),
+        "pop_decay": uniform(0.001, 0.003, b, p),
+        "pop_freq": uniform(3000.0, 8000.0, b, p),
+        "crackle_level": uniform(*cfg.crackle_level, b),
+        "crackle": normal(),
+        "rumble_level": uniform(*cfg.rumble_level, b),
+        "rumble": normal(),
+        "rolloff_freq": uniform(*cfg.rolloff_freq, b, kind=torch.float32),
+    }
+
+
+def _check_filter_mode(filter_mode: str):
+    if filter_mode != "fir":
+        raise NotImplementedError(
+            f"filter_mode={filter_mode!r}: the IIR sosfiltfilt path is not "
+            f"ported yet (ROADMAP item 9); the port filters with FIR kernels")
+
+
+def apply_artifacts(audio, draws: dict, sample_rate: int,
+                    cfg: ArtifactConfig | None = None, *,
+                    filter_mode: str = "fir"):
+    """Degrade clean audio [B, C, T] with the artifacts `draws` describe
+    (draw_artifacts' keys, on audio's device) -> [B, C, T]. Deterministic:
+    the same audio and draws give the same output."""
+    _check_filter_mode(filter_mode)
+    cfg = cfg or ArtifactConfig()
+    t = audio.shape[-1]
+
+    def scaled(noise, level):
+        return draws[noise] * draws[level][:, None, None]
+
+    def kernel(*design):
+        return torch.as_tensor(zero_phase_fir(*design), device=audio.device)
+
+    out = audio + scaled("surface", "surface_level")
+    out = out + _make_pops(draws, t, sample_rate, cfg)[:, None]
+    out = out + _fir_same(scaled("crackle", "crackle_level"),
+                          kernel(4, 2500.0, sample_rate, "high", 257))
+    if cfg.add_rumble:
+        out = out + _fir_same(scaled("rumble", "rumble_level"),
+                              kernel(4, 100.0, sample_rate, "low", 2049))
+    if cfg.add_rolloff:
+        f_lo, f_hi = cfg.rolloff_freq
+        bank = torch.as_tensor(zero_phase_fir_bank(
+            3, f_lo, f_hi, sample_rate, "low", 129, num=ROLLOFF_BANK),
+            device=audio.device)
+        idx = bank_index(ROLLOFF_BANK, draws["rolloff_freq"], f_lo, f_hi)
+        out = _fir_same(out, bank[idx.long()])
+    return out
+
+
+def simulate_batch(generator: torch.Generator, batch, sample_rate: int,
+                   cfg: ArtifactConfig | None = None, *,
+                   filter_mode: str = "fir"):
+    """Degrade a [B, C, T] batch with draws from `generator`. The draws
+    are made on the generator's device and moved to the batch's, so a CPU
+    generator gives the same degradation on any device."""
+    _check_filter_mode(filter_mode)
+    draws = draw_artifacts(generator, tuple(batch.shape), sample_rate, cfg,
+                           dtype=batch.dtype)
+    draws = {k: v.to(batch.device) for k, v in draws.items()}
+    return apply_artifacts(batch, draws, sample_rate, cfg)
+
+
+def simulate_vinyl_artifacts(generator: torch.Generator, audio,
+                             sample_rate: int,
+                             cfg: ArtifactConfig | None = None, **kwargs):
+    """Degrade one item, [C, T] or [T] -> the same shape."""
+    squeeze = audio.dim() == 1
+    batch = audio[None, None] if squeeze else audio[None]
+    out = simulate_batch(generator, batch, sample_rate, cfg, **kwargs)[0]
+    return out[0] if squeeze else out

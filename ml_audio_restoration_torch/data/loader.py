@@ -5,7 +5,8 @@ DataLoader, train_val_split), with the same numpy generators: from one
 seed both packages yield identical batches, which torch's DataLoader
 would not. One background thread decodes whole batches, in order, into a
 bounded queue; items are read sequentially on that thread because the
-datasets draw chunk starts from one seeded generator.
+datasets draw chunk starts from one seeded generator. A dataset with
+`getitems` reads a batch in one call (the JAX package's batch route).
 """
 from __future__ import annotations
 
@@ -60,6 +61,7 @@ class DataLoader:
             return iter(())
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
+        getitems = getattr(self.dataset, "getitems", None)
 
         def put(item) -> bool:
             # an abandoned iterator stops draining the queue; poll the stop
@@ -77,7 +79,10 @@ class DataLoader:
                 for batch_idx in batches:
                     if stop.is_set():
                         return
-                    items = [self.dataset[int(j)] for j in batch_idx]
+                    if getitems is not None:
+                        items = getitems([int(j) for j in batch_idx])
+                    else:
+                        items = [self.dataset[int(j)] for j in batch_idx]
                     if not put(collate(items)):
                         return
                 put(None)

@@ -3,8 +3,8 @@
 Counterpart of ml_audio_restoration_tpu/models/common.py. The models are
 `nn.Module`s whose submodule names are the upstream state-dict keys, so an
 upstream `.pth` loads through `load_state_dict(strict=True)`. In eval mode batch norm
-is folded into the preceding conv; the stereo separator also has a train
-forward, where batch norm normalizes by the batch statistics. bf16 serving
+is folded into the preceding conv; in train mode batch norm normalizes by
+the batch statistics. bf16 serving
 runs a copy of each model cast by `cast_model`.
 """
 from __future__ import annotations
@@ -46,13 +46,14 @@ def cast_model(model, dtype: torch.dtype):
 
 
 def conv_bn(conv: nn.Conv1d, bn: nn.BatchNorm1d, x, *, lrelu: bool = True,
-            train: bool = False):
+            train: bool = False, update_stats: bool = True):
     """conv -> BN -> optional LeakyReLU(0.2).
 
     Eval (train=False): BN folded into the conv. Train: BN by the batch
     statistics (ops.batch_norm_train), and `bn`'s running buffers are
     updated IN PLACE (num_batches_tracked too, as nn.BatchNorm1d does),
-    where the JAX package returns them as a new state."""
+    where the JAX package returns them as a new state; update_stats=False
+    leaves them as they are (the JAX caller discarding the new state)."""
     if not train:
         w, b = fold_conv_bn(conv, bn)
         y = conv1d(x, w, b, padding=conv.padding[0],
@@ -63,6 +64,8 @@ def conv_bn(conv: nn.Conv1d, bn: nn.BatchNorm1d, x, *, lrelu: bool = True,
     y, mean, var = batch_norm_train(y, bn.weight, bn.bias, bn.running_mean,
                                     bn.running_var, eps=bn.eps,
                                     momentum=bn.momentum)
+    if not update_stats:
+        return leaky_relu(y) if lrelu else y
     with torch.no_grad():
         bn.running_mean.copy_(mean)
         bn.running_var.copy_(var)
@@ -85,9 +88,11 @@ def double_conv_block(in_ch: int, out_ch: int) -> nn.Sequential:
         *conv_bn_lrelu_layers(out_ch, out_ch, 3, padding=1))
 
 
-def double_conv_block_apply(block: nn.Sequential, x):
-    x = conv_bn(block[0], block[1], x)
-    return conv_bn(block[3], block[4], x)
+def double_conv_block_apply(block: nn.Sequential, x, train: bool = False,
+                            update_stats: bool = True):
+    x = conv_bn(block[0], block[1], x, train=train, update_stats=update_stats)
+    return conv_bn(block[3], block[4], x, train=train,
+                   update_stats=update_stats)
 
 
 def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:

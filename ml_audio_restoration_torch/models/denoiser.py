@@ -1,11 +1,17 @@
 """AudioDenoiser: 1-D U-Net with learned and analytic impulse suppression.
 
-Counterpart of ml_audio_restoration_tpu/models/denoiser.py (eval `apply`):
-a 3-level encoder (32/64/128), a 256-wide bottleneck, a transpose-conv
-decoder with skip concatenation, a 3-conv sigmoid transient mask, the
-analytic impulse score of the raw input, the element-wise max of the two
-masks, and up to 90% suppression at detected impulses. The default
-configuration has 676,242 parameters. Tensors are NCW.
+Counterpart of ml_audio_restoration_tpu/models/denoiser.py (`apply` in
+eval and train mode, and `encode`): a 3-level encoder (32/64/128), a
+256-wide bottleneck, a transpose-conv decoder with skip concatenation, a
+3-conv sigmoid transient mask, the analytic impulse score of the raw input,
+the element-wise max of the two masks, and up to 90% suppression at
+detected impulses. The default configuration has 676,242 parameters.
+Tensors are NCW.
+
+`model.eval()` gives the eval forward (BN folded); `model.train()` the
+train forward (BN by batch statistics, running buffers updated in place).
+Only the plain path is ported: the JAX package's `apply_train_packed` is
+TPU layout work that equals it up to float reassociation.
 """
 from __future__ import annotations
 
@@ -55,17 +61,28 @@ class AudioDenoiser(nn.Module):
             nn.Conv1d(f0 // 4, 1, 3, padding=1), nn.Sigmoid())
         self.final_conv = nn.Conv1d(f0, out_channels, 1)
 
+    def encode(self, x):
+        """Encoder + bottleneck: x [B, in_ch, T] -> [B, 2 * features[-1],
+        T / 2**len(features)], the contrastive loss's features. In train
+        mode BN uses the batch statistics but never updates its running
+        buffers (the JAX package discards that state)."""
+        h = x
+        for block in self.encoder:
+            h = max_pool1d(double_conv_block_apply(block, h, self.training,
+                                                   update_stats=False))
+        return double_conv_block_apply(self.bottleneck, h, self.training,
+                                       update_stats=False)
+
     def forward(self, x):
-        """Eval forward: x [B, in_ch, T] -> [B, out_ch, T]."""
-        if self.training:
-            raise NotImplementedError("only the eval forward is ported")
+        """x [B, in_ch, T] -> [B, out_ch, T], in the module's mode."""
+        train = self.training
         skips = []
         h = x
         for block in self.encoder:
-            h = double_conv_block_apply(block, h)
+            h = double_conv_block_apply(block, h, train)
             skips.append(h)
             h = max_pool1d(h)
-        h = double_conv_block_apply(self.bottleneck, h)
+        h = double_conv_block_apply(self.bottleneck, h, train)
 
         for i in range(len(self.features)):
             up, block = self.decoder[2 * i], self.decoder[2 * i + 1]
@@ -74,7 +91,8 @@ class AudioDenoiser(nn.Module):
             if h.shape[-1] != skip.shape[-1]:
                 # odd-length level: right-pad to the skip length
                 h = F.pad(h, (0, skip.shape[-1] - h.shape[-1]))
-            h = double_conv_block_apply(block, torch.cat([skip, h], dim=1))
+            h = double_conv_block_apply(block, torch.cat([skip, h], dim=1),
+                                        train)
 
         td = h
         convs = [self.transient_detector[j] for j in (0, 2, 4)]

@@ -1,11 +1,14 @@
 """AudioSuperResolution: x2 (or x4) bandwidth extension.
 
-Counterpart of ml_audio_restoration_tpu/models/super_resolution.py (eval
-`apply`): a k7 stem, residual blocks (conv3-BN-LeakyReLU-conv3-BN +
+Counterpart of ml_audio_restoration_tpu/models/super_resolution.py
+(`apply` in eval and train mode): a k7 stem, residual blocks (conv3-BN-LeakyReLU-conv3-BN +
 identity), a middle conv+BN (no activation) with a long skip from the stem,
 log2(upscale) transpose-conv (k4, s2, p1) stages, a k5 HF-emphasis conv, a
 k7 reconstruction, and a global residual of the linearly interpolated
 input. The default configuration (base 32, 4 blocks) has 38,273 parameters.
+`model.train()` gives the train forward (BN by batch statistics, running
+buffers updated in place); the JAX package's `apply_train_packed` is TPU
+layout work that equals the plain path up to float reassociation.
 """
 from __future__ import annotations
 
@@ -26,8 +29,9 @@ class ResidualBlock(nn.Module):
         self.bn2 = nn.BatchNorm1d(c)
 
     def forward(self, x):
-        h = conv_bn(self.conv1, self.bn1, x)
-        return conv_bn(self.conv2, self.bn2, h, lrelu=False) + x
+        h = conv_bn(self.conv1, self.bn1, x, train=self.training)
+        return conv_bn(self.conv2, self.bn2, h, lrelu=False,
+                       train=self.training) + x
 
 
 class AudioSuperResolution(nn.Module):
@@ -51,15 +55,14 @@ class AudioSuperResolution(nn.Module):
         self.reconstruction = nn.Conv1d(c, channels, 7, padding=3)
 
     def forward(self, x):
-        """Eval forward: x [B, ch, T] -> [B, ch, T * upscale]."""
-        if self.training:
-            raise NotImplementedError("only the eval forward is ported")
+        """x [B, ch, T] -> [B, ch, T * upscale], in the module's mode."""
         stem = self.initial[0]
         h0 = leaky_relu(conv1d(x, stem.weight, stem.bias, padding=3))
         h = h0
         for block in self.residual_blocks:
             h = block(h)
-        h = h0 + conv_bn(self.middle[0], self.middle[1], h, lrelu=False)
+        h = h0 + conv_bn(self.middle[0], self.middle[1], h, lrelu=False,
+                         train=self.training)
         for up in self.upsample_blocks:
             h = leaky_relu(conv_transpose1d(h, up[0].weight, up[0].bias,
                                             stride=2, padding=1))

@@ -54,17 +54,17 @@ def batch_norm_train(x, scale, bias, running_mean, running_var, *,
     Normalizes by the batch statistics and returns (y, new_mean, new_var)
     with torch's momentum convention, running <- (1-m)*running + m*batch,
     the running variance unbiased with n = B*T. As in the JAX package, the
-    statistics are computed in f32 whatever x's dtype, as E[x^2] - E[x]^2
-    clamped at 0 (in bf16 that difference can go negative and turn the
-    forward NaN), and y comes back in x's dtype. The new running
-    statistics carry no gradient."""
-    xf = x.float()
+    statistics are computed in at least f32 (a bf16 x in f32, an f64 x in
+    f64), as E[x^2] - E[x]^2 clamped at 0 (in bf16 that difference can go
+    negative and turn the forward NaN), and y comes back in x's dtype. The
+    new running statistics carry no gradient."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     n = x.shape[0] * x.shape[2]
     m = xf.mean(dim=(0, 2))
     sq = xf.square().mean(dim=(0, 2))
     v = torch.clamp(sq - m.square(), min=0.0)
-    k = torch.rsqrt(v + eps) * scale.float()
-    y = torch.addcmul(bias.float()[:, None], xf - m[:, None],
+    k = torch.rsqrt(v + eps) * scale.to(xf.dtype)
+    y = torch.addcmul(bias.to(xf.dtype)[:, None], xf - m[:, None],
                       k[:, None]).to(x.dtype)
     with torch.no_grad():
         unbiased = v * (n / max(n - 1, 1))

@@ -67,7 +67,7 @@ class StreamingRestorer:
         if mesh is not None:
             raise NotImplementedError(
                 "StreamingRestorer: a device mesh (multi-device streaming) "
-                "is not ported yet (ROADMAP.md section 1, item 6)")
+                "is not ported yet (ROADMAP.md section 1, item 8)")
         if lstm_impl not in SERVING_LSTM_IMPLS:
             raise ValueError(
                 f"lstm_impl must be pallas|scan|None, got {lstm_impl!r}")

@@ -8,7 +8,7 @@ checkpoint plus best_model; resume walks them newest first.
 
 The format is torch.save (`checkpoint_epoch_{n}.pth`, `best_model.pth`),
 since flax/msgpack is not on the card's machine; reading the JAX package's
-`.msgpack` checkpoints is not ported yet (ROADMAP item 7).
+`.msgpack` checkpoints is not ported yet (ROADMAP item 4).
 """
 from __future__ import annotations
 

@@ -1,22 +1,28 @@
-"""Training runtime of the port: the stereo separator.
+"""Training runtime of the port: the denoiser, super-resolution and
+stereo-separator families.
 
-Counterpart of ml_audio_restoration_tpu/train/trainer.py for the one family
-whose training runs the hand-written LSTM kernels: `stereo_separator` with
-the `mono_target_stereo` pairing (the input is the channel mean of a stereo
-chunk; `identity` is accepted too). Adam with optional global-norm clipping
-(optax's `clip_by_global_norm` semantics), ReduceLROnPlateau (patience 5,
-factor 0.5) by mutating the optimizer's `lr`, an optional EMA of the weights
-for validation and rendering, checkpoint/resume with retention and a
-corrupt-file fallback, metrics every 50 steps.
+Counterpart of ml_audio_restoration_tpu/train/trainer.py. The pairings
+derive (input, target) on the device from each host batch: `degrade` runs
+the 78rpm simulator (data/artifacts.py) on the clean chunk inside the
+step, with draws from a generator seeded from (seed, epoch, step) as the
+JAX package folds them into its key, so a resumed run draws the same
+degradations; `downsample` makes the SR input with the linear downsample
+by the model's factor; `mono_target_stereo` takes the channel mean of a
+stereo chunk; `identity` trains on clean pairs. Adam with optional
+global-norm clipping (optax's `clip_by_global_norm` semantics),
+ReduceLROnPlateau (patience 5, factor 0.5) by mutating the optimizer's
+`lr`, an optional EMA of the weights for validation and rendering,
+checkpoint/resume with retention and a corrupt-file fallback, metrics
+every 50 steps.
 
 Under grad the stereo LSTM runs the training recurrence (K2 forward, K3
 backward, csrc/lstm_train.cu); validation and rendering run the eval
-forward under no grad, which takes the inference kernel K1.
+forward under no grad, which takes the inference kernel K1. The denoiser
+and SR are convolutions only.
 
-Not ported yet: the mixed/adaptive datasets and the on-device artifact
-simulator (ROADMAP item 5). Asking for the denoiser or super-resolution
-family or their pairings (item 5), bf16 compute (item 5), data
-parallelism or multi-host (item 6) raises NotImplementedError.
+Not ported yet: the mixed and adaptive datasets and their pairings
+(ROADMAP item 3), bf16 compute (item 2), data parallelism or multi-host
+(item 8). Asking for them raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -33,15 +39,23 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import Config, PipelineConfig, TrainConfig
+from ..config import ArtifactConfig, Config, PipelineConfig, TrainConfig
+from ..data.artifacts import simulate_batch
 from ..losses import restoration_loss, stereo_metrics
-from ..models import StereoSeparator, count_params, init_params
+from ..models import (
+    AudioDenoiser, AudioSuperResolution, StereoSeparator, count_params,
+    init_params)
+from ..ops import interp_linear
 from ..pipeline.restore import resolve_device
 from . import checkpoints as ckpt
 from .metrics import MetricsLogger
 
-MODELS = {"stereo_separator": StereoSeparator}
-PAIRINGS = ("mono_target_stereo", "identity")
+MODELS = {"denoiser": AudioDenoiser,
+          "super_resolution": AudioSuperResolution,
+          "stereo_separator": StereoSeparator}
+PAIRINGS = ("degrade", "identity", "downsample", "mono_target_stereo")
+# the JAX package's other pairings, and the dataset kinds that give them
+SEMI_SUPERVISED = ("mixed", "degrade_adaptive")
 
 
 def _nwc(x):
@@ -49,23 +63,32 @@ def _nwc(x):
     return x.transpose(1, 2)
 
 
+def _step_seed(seed: int, *stream: int) -> int:
+    """A 63-bit generator seed for one stream of draws: (seed, 2 * epoch,
+    step) for a train step, (seed, 2 * epoch + 1, batch) for validation."""
+    state = np.random.SeedSequence([seed, *stream]).generate_state(
+        1, np.uint64)[0]
+    return int(state) >> 1
+
+
 def _check_supported(model_name: str, cfg: TrainConfig, pairing: str):
     if model_name not in MODELS:
+        raise ValueError(f"unknown model {model_name!r}")
+    if pairing in SEMI_SUPERVISED:
         raise NotImplementedError(
-            f"training {model_name!r} is not ported yet (ROADMAP item 5); "
-            f"the port trains {sorted(MODELS)}")
+            f"pairing {pairing!r}: semi-supervised and adaptive training "
+            f"are not ported yet (ROADMAP item 3); the port trains with "
+            f"{PAIRINGS}")
     if pairing not in PAIRINGS:
-        raise NotImplementedError(
-            f"pairing {pairing!r} is not ported yet (ROADMAP item 5); the "
-            f"port trains with {PAIRINGS}")
+        raise ValueError(f"unknown pairing {pairing!r}")
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r}: bf16 training is not "
-            f"ported yet (ROADMAP item 5)")
+            f"ported yet (ROADMAP item 2)")
     if cfg.data_parallel > 1:
         raise NotImplementedError(
             f"data_parallel={cfg.data_parallel}: data-parallel training is "
-            f"not ported yet (ROADMAP item 6)")
+            f"not ported yet (ROADMAP item 8)")
 
 
 class Trainer:
@@ -77,11 +100,13 @@ class Trainer:
     def __init__(self, model_name: str, model: nn.Module, train_loader,
                  val_loader=None, *,
                  config: Optional[TrainConfig] = None,
+                 artifact_config: Optional[ArtifactConfig] = None,
                  sample_rate: int = 22050,
                  pairing: Optional[str] = None,
                  logger: Optional[MetricsLogger] = None,
                  device="cuda"):
         self.cfg = config or TrainConfig(model=model_name)
+        self.artifact_cfg = artifact_config or ArtifactConfig()
         self.model_name = model_name
         self.sample_rate = sample_rate
         self.train_loader = train_loader
@@ -101,6 +126,13 @@ class Trainer:
         torch.backends.cudnn.deterministic = True
         self.model = model.to(self.device)
         self.logger = logger
+        # SR derives its low-rate input from the high-rate target by the
+        # model's own factor (2 per transpose-conv stage)
+        self._sr_factor = (2 ** len(model.upsample_blocks)
+                           if model_name == "super_resolution" else 2)
+        # the degradation's draws, on the device; reseeded per step
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(_step_seed(self.cfg.seed))
 
         self.lr = self.cfg.learning_rate
         self.optimizer = self._make_optimizer()
@@ -126,12 +158,31 @@ class Trainer:
         print("\ninterrupt: finishing step, checkpointing, then exiting...")
         self.interrupted = True
 
-    def _derive(self, batch):
-        """(inputs, targets) [B, T, C] on the device from a host batch."""
-        if self.pairing == "mono_target_stereo":
-            stereo = _nwc(torch.as_tensor(batch["stereo"]).to(self.device))
+    def _seeded(self, *stream: int) -> torch.Generator:
+        """The trainer's generator, reseeded for one stream of draws."""
+        return self._gen.manual_seed(_step_seed(self.cfg.seed, *stream))
+
+    def _derive(self, batch, generator: Optional[torch.Generator] = None):
+        """(inputs, targets) [B, T, C] on the device from a host batch.
+        `degrade` draws from `generator` (default: the trainer's, where it
+        stands)."""
+        def host(key):
+            return torch.as_tensor(batch[key]).to(self.device)
+
+        p = self.pairing
+        if p == "degrade":
+            clean = host("clean")
+            degraded = simulate_batch(generator or self._gen, clean,
+                                      self.sample_rate, self.artifact_cfg)
+            return _nwc(degraded), _nwc(clean)
+        if p == "downsample":
+            high = host("high")
+            low = interp_linear(high, high.shape[-1] // self._sr_factor)
+            return _nwc(low), _nwc(high)
+        if p == "mono_target_stereo":
+            stereo = _nwc(host("stereo"))
             return stereo.mean(dim=-1, keepdim=True), stereo
-        x = _nwc(torch.as_tensor(batch["clean"]).to(self.device))
+        x = _nwc(host("clean"))
         return x, x
 
     def _forward(self, inputs, params=None):
@@ -189,8 +240,8 @@ class Trainer:
                 for name, p in self.model.named_parameters():
                     self.ema_params[name].mul_(float(d)).add_(p, alpha=rest)
 
-    def _step(self, batch, train: bool):
-        inputs, targets = self._derive(batch)
+    def _step(self, batch, train: bool, generator=None):
+        inputs, targets = self._derive(batch, generator)
         if train:
             self.model.train()
             self.optimizer.zero_grad(set_to_none=True)
@@ -209,11 +260,11 @@ class Trainer:
                 metrics.update(stereo_metrics(out.detach()))
         return metrics
 
-    def _train_step(self, batch):
-        return self._step(batch, train=True)
+    def _train_step(self, batch, generator=None):
+        return self._step(batch, True, generator)
 
-    def _eval_step(self, batch):
-        return self._step(batch, train=False)
+    def _eval_step(self, batch, generator=None):
+        return self._step(batch, False, generator)
 
     # ------------------------------------------------------------- epochs
     def train_epoch(self) -> float:
@@ -221,10 +272,11 @@ class Trainer:
         # cadence and at the end, so the host runs ahead of the card
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         n = 0
-        for batch in self.train_loader:
+        for i, batch in enumerate(self.train_loader):
             if self.interrupted:
                 break
-            metrics = self._train_step(batch)
+            metrics = self._train_step(batch,
+                                       self._seeded(2 * self.epoch, i))
             total += metrics["loss"]
             n += 1
             if self.logger and self.global_step % 50 == 0:
@@ -260,8 +312,9 @@ class Trainer:
             return 0.0
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         n = 0
-        for batch in self.val_loader:
-            total += self._eval_step(batch)["loss"]
+        for i, batch in enumerate(self.val_loader):
+            total += self._eval_step(
+                batch, self._seeded(2 * self.epoch + 1, i))["loss"]
             n += 1
         return float(total) / max(n, 1)
 
@@ -351,9 +404,9 @@ class Trainer:
                 break
         return self.history
 
-    def _render(self, batch):
+    def _render(self, batch, generator=None):
         """(inputs, targets, restored) [B, T, C] of the eval forward."""
-        inputs, targets = self._derive(batch)
+        inputs, targets = self._derive(batch, generator)
         self.model.eval()
         with torch.no_grad():
             out = self._forward(inputs, self.eval_state())
@@ -367,7 +420,8 @@ class Trainer:
         batch = next(iter(self.val_loader), None)
         if batch is None:
             return
-        inputs, targets, out = self._render(batch)
+        inputs, targets, out = self._render(
+            batch, self._seeded(1_000_000 + self.epoch))
         if self.logger is None:
             return
         for tag, arr in (("degraded", inputs), ("clean", targets),
@@ -475,10 +529,11 @@ class Trainer:
 def render_test_outputs(trainer: Trainer, suffix: str, test_audio_dir,
                         test_output_dir, sample_rate: int = 22050,
                         max_seconds: int = 30, chunk_seconds: float = 2.0):
-    """Restore each test file with the trained stage (eval weights) every
-    save interval: mono mix at `sample_rate`, first 30 s, chunked inference
-    with no crossfade; writes _original/_degraded/_restored WAVs and keeps
-    only the newest epoch's outputs."""
+    """Restore each test file with the trained stage (eval weights) in its
+    own slot of the pipeline, every save interval: mono mix at
+    `sample_rate`, first 30 s, chunked inference with no crossfade; writes
+    _original/_degraded/_restored WAVs and keeps only the newest epoch's
+    outputs."""
     from ..audio import find_audio_files, load_audio, save_audio
     from ..pipeline import RestorationPipeline
 
@@ -489,8 +544,10 @@ def render_test_outputs(trainer: Trainer, suffix: str, test_audio_dir,
     if not files:
         print(f"  no test audio in {test_dir}")
         return
+    slot = {"denoiser": "denoiser", "super_resolution": "super_resolution",
+            "stereo_separator": "stereo"}[trainer.model_name]
     pipe = RestorationPipeline(
-        stereo=trainer.eval_model(),
+        **{slot: trainer.eval_model()},
         config=PipelineConfig(sample_rate=sample_rate,
                               chunk_seconds=chunk_seconds,
                               overlap_seconds=0.0),
@@ -520,22 +577,40 @@ def render_test_outputs(trainer: Trainer, suffix: str, test_audio_dir,
 
 # ---------------------------------------------------------------- frontend
 def build_trainer(cfg: Config, steps_per_epoch: Optional[int] = None,
-                  device="cuda") -> Trainer:
-    """The Trainer that train_from_config runs: dataset and split, seeded
-    loaders, the model initialized from `cfg.train.seed` (drawn on the CPU,
-    so a seed gives the same weights on any device), the logger, and the
-    checkpoint directory <checkpoint_dir>/<model>, resumed if it holds a
-    readable checkpoint."""
-    from ..data import DataLoader, StereoDataset, train_val_split
+                  device="cuda", dataset_kind: str = "standard") -> Trainer:
+    """The Trainer that train_from_config runs: the family's dataset and
+    split, seeded loaders, the model initialized from `cfg.train.seed`
+    (drawn on the CPU, so a seed gives the same weights on any device), the
+    logger, and the checkpoint directory <checkpoint_dir>/<model>, resumed
+    if it holds a readable checkpoint. dataset_kind 'mixed' and 'adaptive'
+    (the denoiser's semi-supervised datasets) are not ported yet."""
+    from ..data import (
+        DataLoader, RestorationDataset, StereoDataset, SuperResolutionDataset,
+        train_val_split)
 
     name = cfg.train.model
-    if name not in MODELS:
+    if dataset_kind != "standard":
         raise NotImplementedError(
-            f"training {name!r} is not ported yet (ROADMAP item 5); the "
-            f"port trains {sorted(MODELS)}")
+            f"dataset_kind={dataset_kind!r}: the mixed and adaptive datasets "
+            f"are not ported yet (ROADMAP item 3)")
     d = cfg.data
-    dataset = StereoDataset(d.data_dir, d.sample_rate, d.chunk_duration,
-                            resample_chunks=d.resample_chunks)
+    if name == "denoiser":
+        dataset = RestorationDataset(d.data_dir, d.sample_rate,
+                                     d.chunk_duration,
+                                     resample_chunks=d.resample_chunks)
+        model_kwargs = dataclasses.asdict(cfg.denoiser)
+        model_kwargs["features"] = tuple(model_kwargs["features"])
+    elif name == "super_resolution":
+        dataset = SuperResolutionDataset(d.data_dir,
+                                         chunk_duration=d.chunk_duration,
+                                         resample_chunks=d.resample_chunks)
+        model_kwargs = dataclasses.asdict(cfg.super_resolution)
+    elif name == "stereo_separator":
+        dataset = StereoDataset(d.data_dir, d.sample_rate, d.chunk_duration,
+                                resample_chunks=d.resample_chunks)
+        model_kwargs = dataclasses.asdict(cfg.stereo_separator)
+    else:
+        raise ValueError(f"unknown model {name!r}")
     tr_idx, va_idx = train_val_split(dataset, d.val_split, cfg.train.seed)
     if steps_per_epoch:
         tr_idx = tr_idx[:steps_per_epoch * cfg.train.batch_size]
@@ -549,13 +624,12 @@ def build_trainer(cfg: Config, steps_per_epoch: Optional[int] = None,
                              shuffle=False, seed=cfg.train.seed)
                   if val_bs > 0 else None)
 
-    model = init_params(
-        MODELS[name](**dataclasses.asdict(cfg.stereo_separator)),
-        torch.Generator().manual_seed(cfg.train.seed))
+    model = init_params(MODELS[name](**model_kwargs),
+                        torch.Generator().manual_seed(cfg.train.seed))
     logger = MetricsLogger(Path(cfg.train.log_dir) / name, name)
     trainer = Trainer(name, model, train_loader, val_loader,
-                      config=cfg.train, sample_rate=d.sample_rate,
-                      logger=logger,
+                      config=cfg.train, artifact_config=d.artifacts,
+                      sample_rate=d.sample_rate, logger=logger,
                       device=device)
     trainer.checkpoint_dir = Path(cfg.train.checkpoint_dir) / name
     trainer.maybe_resume()
@@ -563,10 +637,10 @@ def build_trainer(cfg: Config, steps_per_epoch: Optional[int] = None,
 
 
 def train_from_config(cfg: Config, steps_per_epoch: Optional[int] = None,
-                      device="cuda"):
+                      device="cuda", dataset_kind: str = "standard"):
     """Config-driven training: build_trainer, then train() with test-audio
     rendering when `cfg.train.test_audio_dir` is set. Returns the history."""
-    trainer = build_trainer(cfg, steps_per_epoch, device)
+    trainer = build_trainer(cfg, steps_per_epoch, device, dataset_kind)
     test_fn = None
     if cfg.train.test_audio_dir:
         out_dir = (cfg.train.test_output_dir

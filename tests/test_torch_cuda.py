@@ -14,7 +14,9 @@ streaming feed (1e-4, the chain's kernel-vs-plain bar); K2 1e-5; K3 2e-5 on
 dgx, dh0 and dc0 (the bar JAX holds its Pallas backward to) and 1e-4 of its
 largest entry on dW_hh (a sum over T*B outer products); a train step
 on the smooth loss terms 1e-4 (chip_smoke.py's bar; the reference loss's
-log-magnitude terms are ill-conditioned in f32, PERF.md).
+log-magnitude terms are ill-conditioned in f32, PERF.md). The conv-net
+families: the 78rpm degradation 1e-5 against the CPU on the same draws,
+and two seeded runs equal bit for bit.
 """
 import contextlib
 
@@ -226,3 +228,62 @@ def test_train_step_matches_plain(card):
     scale = max(float(g.abs().max()) for g in gp)
     assert max(float((a - b).abs().max()) for a, b in zip(gk, gp)) \
         <= 1e-4 * scale
+
+
+# ------------------------------------------------- conv-net training
+def _mono(b, t, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, 1, t))
+    return (0.1 * x / np.sqrt(np.mean(x ** 2))).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_degradation_matches_cpu_and_repeats(card):
+    """The 78rpm simulator on the card against the CPU on the same draws
+    (1e-5, chip_smoke.py's bar), bit for bit on a rerun, and a CPU
+    generator gives the card the CPU's degradation."""
+    from ml_audio_restoration_torch.data import artifacts as A
+
+    clean = torch.from_numpy(_mono(4, 22050, 0))
+    draws = A.draw_artifacts(torch.Generator().manual_seed(0), clean.shape,
+                             22050)
+    want = A.apply_artifacts(clean, draws, 22050)
+    on_card = {k: v.to(card) for k, v in draws.items()}
+    got = A.apply_artifacts(clean.to(card), on_card, 22050)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+    assert torch.equal(got, A.apply_artifacts(clean.to(card), on_card,
+                                              22050))
+    via = A.simulate_batch(torch.Generator().manual_seed(0), clean.to(card),
+                           22050)
+    assert float((via.cpu() - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,pairing,key", [
+    ("denoiser", "degrade", "clean"),
+    ("super_resolution", "downsample", "high")])
+def test_convnet_runs_repeat_bit_for_bit(card, name, pairing, key):
+    """Two 3-step runs from one seed on the card are equal bit for bit,
+    the degradation drawn on the card included; the step matches the CPU's
+    on the smooth terms (1e-4 relative loss)."""
+    model_cls = AudioDenoiser if name == "denoiser" else AudioSuperResolution
+    batch = {key: _mono(4, 4096, 1)}
+    config = TrainConfig(model=name, spectral_weight=0.0, learning_rate=1e-3)
+    runs = []
+    for _ in range(2):
+        tr = Trainer(name, init_params(model_cls(),
+                                       torch.Generator().manual_seed(0)),
+                     [], pairing=pairing, config=config, device=card)
+        losses = [float(tr._train_step(batch, tr._seeded(2, i))["loss"])
+                  for i in range(3)]
+        runs.append((losses, tr.model.state_dict()))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(v, runs[1][1][k]) for k, v in runs[0][1].items())
+    losses = []
+    for device in (card, "cpu"):
+        tr = Trainer(name, init_params(model_cls(),
+                                       torch.Generator().manual_seed(0)),
+                     [], pairing=pairing, config=config, device=device)
+        losses.append(float(tr._train_step(
+            batch, torch.Generator().manual_seed(5))["loss"]))
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])

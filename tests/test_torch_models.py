@@ -163,8 +163,3 @@ def test_init_params_follows_the_generator():
     a, b, c = weights(0), weights(0), weights(1)
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert float(a.abs().max()) <= 1.0
-
-
-def test_training_forward_not_ported():
-    with pytest.raises(NotImplementedError):
-        AudioDenoiser(features=(8, 16)).train()(torch.zeros(1, 1, 16))

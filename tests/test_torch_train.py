@@ -601,7 +601,7 @@ def test_native_rate_quirk_matches_jax(tmp_path):
 def test_flac_in_corpus_raises(tmp_path):
     root = _write_corpus(tmp_path / "wavs", n=2)
     (root / "x.flac").write_bytes(b"fLaC")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
         StereoDataset(root, SR, 0.1)
 
 
@@ -641,18 +641,17 @@ def test_config_matches_jax(tmp_path):
 
 # ------------------------------------------------------- unported options
 @pytest.mark.parametrize("kw,match", [
-    ({"model_name": "denoiser"}, "item 5"),
-    ({"pairing": "degrade"}, "item 5"),
-    ({"compute_dtype": "bfloat16"}, "item 5"),
-    ({"data_parallel": 2}, "item 6"),
+    ({"pairing": "mixed"}, "item 3"),
+    ({"pairing": "degrade_adaptive"}, "item 3"),
+    ({"compute_dtype": "bfloat16"}, "item 2"),
+    ({"data_parallel": 2}, "item 8"),
 ])
 def test_unported_options_raise(kw, match):
-    name = kw.pop("model_name", "stereo_separator")
     pairing = kw.pop("pairing", None)
     params, state = _jax_weights()
     loader = DataLoader(ToyStereo(), batch_size=B, seed=0)
     with pytest.raises(NotImplementedError, match=match):
-        Trainer(name, _port_model(params, state), loader,
+        Trainer("stereo_separator", _port_model(params, state), loader,
                 config=_cfg(TrainConfig, **kw), pairing=pairing,
                 device="cpu")
 
