@@ -14,11 +14,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                (each at every H it takes, 16, 32 and 64: one step of one
                row, an odd T with a random carry in, and gates of
                magnitude ~60 that saturate every activation; K2 and K3 also
-               repeat bit for bit), then at its main-path shape held
+               repeat bit for bit), then at its main-path shapes held
                against its plain version again and timed beside its bound,
-               the plain version and a library yardstick (the dW_hh pass
-               also alone; K2 beside its latency floor, counted from step
-               latencies the probe measures);
+               its latency floor (counted from step latencies the probe
+               measures), the plain version and cuDNN's nn.LSTM (the
+               dW_hh pass also alone): K2 and K3 at the f32 training shape
+               (T=44,100 B=16) and at the bf16 fast-train preset's
+               (T=11,025 B=64, bf16 gates);
   4. main    - the offline restore chain at full published widths with
                seeded random weights: kernel vs plain recurrence on a 4 s
                clip, card vs CPU on the same clip, a 120 s clip (64 bucketed
@@ -42,23 +44,45 @@ Phases, each printing one JSON line; any failure exits non-zero:
                step split, peak memory) and a checkpoint resumed in a fresh
                trainer whose next step equals the uninterrupted one's; one
                line a family. No kernel of the package runs on this path;
-  8. k1_shapes - K1 at the serving paths' shapes (sub-chunked stereo
+  8. train_bf16 - bf16 AMP training: config/stereo_fast_train.yaml (bf16,
+               batch 64 of 0.5 s) through train_from_config over 860
+               seeded stereo WAVs (12 steps + validation; K2/K3 on bf16
+               gates and K1 on bf16 gates counted), 10 timed steps beside
+               the same shape in f32 (audio-s/s, the step split, peak
+               memory), one step kernel vs plain recurrence and card vs
+               CPU, two seeded runs equal and a resumed trainer's next
+               step; then the denoiser and SR over their yamls in bf16,
+               one step against their f32 step (at batch 2 card vs CPU
+               and bf16 vs f32 within twice the CPU's bf16-vs-f32
+               distance), 10 timed steps in each dtype; one line each;
+  9. train_semi - the denoiser's semi-supervised training at full width
+               (config/denoiser.yaml, batch 16 of 2 s) over seeded clean
+               WAVs and "real" ones degraded by the port's simulator:
+               `mixed` and `adaptive` through train_from_config (the
+               adaptive set's on_epoch_end firing), `mixed` with the
+               contrastive term over MixedRestorationDataset(
+               use_contrastive=True) in f32 and in bf16; each one step
+               card vs CPU (in f32 the gradient of each loss term too; in
+               bf16 within twice the CPU's bf16-vs-f32 distance), two
+               seeded runs equal, 10 timed steps; no kernel runs there;
+ 10. k1_shapes - K1 at the serving paths' shapes (sub-chunked stereo
                T=11,024 B=640 in bf16 and f32, source-rate T=44,100 B=64,
                a streaming feed's committed T=22,048 and lookahead T=1,040
-               runs at B=16 with a carry in): against its plain version,
+               runs at B=16 with a carry in) and at the bf16 preset's
+               validation (T=11,025 B=64, bf16): against its plain version,
                timed beside its bound, its latency floor (waves x steps),
                its registers, CTAs an SM and waves, and cuDNN's nn.LSTM;
-  9. serve_fast - a 120 s clip through config/fast_serve.yaml (bf16, 0.25 s
+ 11. serve_fast - a 120 s clip through config/fast_serve.yaml (bf16, 0.25 s
                stereo windows): kernel vs plain recurrence, bf16 vs f32,
                xRT, the stage split, K1 launches, peak memory, and
                `warmup`;
- 10. serve_options - the clip in f32 with 0.25 s stereo windows, mid-exact
+ 12. serve_options - the clip in f32 with 0.25 s stereo windows, mid-exact
                (the mean of L and R is the SR output) and source-rate, each
                against its plain-recurrence run, timed;
- 11. serve_many - eight 10 s recordings and one of 150 s: restore_many vs
+ 13. serve_many - eight 10 s recordings and one of 150 s: restore_many vs
                single restores, then restore_directory (coalesce 4) vs
                restore_file over WAVs in profiles/;
- 12. stream  - 16 lockstep streams of 30 s in 0.5 s blocks: each against
+ 14. stream  - 16 lockstep streams of 30 s in 0.5 s blocks: each against
                the single-shot whole_file restore, the batch against 16
                single streams, one feed against the plain recurrence, bf16
                against f32; per-feed ms, the slowest call (a feed or the
@@ -386,11 +410,11 @@ def _k3_cases(torch, L, randn):
 
 
 def phase_train_kernels(torch):
-    """K2 and K3 against their plain versions, then at the stereo training
-    shape (2 s chunks at 22.05 kHz, batch 16) held against them again and
-    timed; K2 beside its latency floor, counted from the step latencies the
-    probe of ops/_latency.py measures."""
-    from ml_audio_restoration_torch.ops import _latency
+    """K2 and K3 against their plain versions, then at the two training
+    shapes (the f32 step's 2 s chunks at 22.05 kHz, batch 16; the bf16
+    fast-train preset's 0.5 s chunks, batch 64, bf16 gates) held against
+    them again and timed beside their latency floors, counted from the
+    step latencies the probe of ops/_latency.py measures."""
     from ml_audio_restoration_torch.ops import lstm as L
 
     dev = torch.device("cuda")
@@ -468,23 +492,57 @@ def phase_train_kernels(torch):
         raise AssertionError(f"lstm_train_bwd disagrees with plain: {check}")
     bwd_err = max(bwd_err, case_err)
 
-    # the training shape: 2 s chunks at 22.05 kHz, batch 16
-    t, b, h = 44100, 16, 64
-    gates, w_hh, h0, c0 = train_inputs(t, b, h)
+    main = _train_kernels_at(torch, L, randn, "train_full", 44100, 16,
+                             torch.float32)
+    fast = _train_kernels_at(torch, L, randn, "train_bf16", 11025, 64,
+                             torch.bfloat16)
+    src = "ml_audio_restoration_torch/csrc/lstm_train.cu"
+    rows = []
+    for name, line, err, replaces in (
+            ("lstm_train_fwd", "fwd", max(f32_err, bf16_err, halves_err,
+                                          cases["f32"], cases["saturated"]),
+             ":223"),
+            ("lstm_train_bwd", "bwd", bwd_err, ":260")):
+        # the f32 training shape first; the shapes list holds both
+        shapes = [dict(r[line]) for r in (main, fast)]
+        first = shapes[0]
+        rows.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": "ml_audio_restoration_tpu/ops/pallas/lstm.py"
+                        + replaces,
+            "max_abs_err": max([err] + [x["max_abs_err"] for x in shapes]),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"], "shapes": shapes})
+    return rows
+
+
+def _train_kernels_at(torch, L, randn, path, t, b, dtype):
+    """K2 (gates in `dtype`) and K3 at one training shape (H=64): held
+    against their plain versions on the same inputs, timed (median of 5
+    calls) beside their bounds, latency floors, the plain versions and
+    cuDNN's nn.LSTM in the gates' dtype (train-mode forward for K2, forward
+    + backward minus forward for K3). Returns {"fwd": row, "bwd": row}."""
+    from ml_audio_restoration_torch.ops import _latency
+
+    dev = torch.device("cuda")
+    h = 64
+    gates = randn(t, b, 4 * h, scale=0.5).to(dtype)
+    w_hh = randn(h, 4 * h, scale=0.15)
+    h0, c0 = randn(b, h, scale=0.3), randn(b, h, scale=0.3)
     dout, dhf, dcf = (randn(t, b, h, scale=0.1), randn(b, h, scale=0.1),
                       randn(b, h, scale=0.1))
     fwd = lambda: L._lstm_train_fwd_cuda(gates, w_hh, h0, c0)  # noqa: E731
     res = fwd()
     fwd_ms = _cuda_ms(torch, fwd, 5)
-    # K2's latency floor: its counted step chain at the step latencies the
-    # probe measures now, at the SM clock nvidia-smi reads right after
-    # (each kernel's floor at its main-path T: K1's is the restore's)
+    # the latency floors: each kernel's counted step chain at the step
+    # latencies the probe measures now, at the SM clock nvidia-smi reads
+    # right after (K1's at the restore's T)
     floor = _latency.step_floor(h, {"k1": 88200, "k2": t, "k3": t}, dev)
-    emit({"phase": "latency_probe", **floor})
-    fwd_floor = floor["floor"]["k2"]
+    emit({"phase": "latency_probe", "for": path, **floor})
     fwd_plain_ms, res_p = _timed_once(
         torch, lambda: L.lstm_recurrence_train_plain(gates, w_hh, h0, c0))
-    main_fwd_err = max(_max_dev(x, y) for x, y in zip(res, res_p))
+    fwd_err = max(_max_dev(x, y) for x, y in zip(res, res_p))
     del res_p
     out, _, _, acts, cseq = res
     bwd = lambda: L._lstm_train_bwd_cuda(  # noqa: E731
@@ -497,39 +555,44 @@ def phase_train_kernels(torch):
     dw_flops = 2.0 * t * b * h * 4 * h
     dw_bound, dw_by = _bound(dw_bytes, dw_flops)
     emit({"phase": "kernel_time", "kernel": "lstm_train_bwd dW_hh pass",
-          "shape": [t, b, h], "ms": dw_ms, "splits": L._dw_splits(t * b),
-          "bytes": dw_bytes, "flops": dw_flops, "bound_ms": dw_bound,
-          "bound_by": dw_by, "walk_ms": bwd_ms - dw_ms})
+          "path": path, "shape": [t, b, h], "ms": dw_ms,
+          "splits": L._dw_splits(t * b), "bytes": dw_bytes,
+          "flops": dw_flops, "bound_ms": dw_bound, "bound_by": dw_by,
+          "walk_ms": bwd_ms - dw_ms})
     bwd_plain_ms, grads_p = _timed_once(
         torch, lambda: L.lstm_recurrence_bwd_plain(
             acts, cseq, out, h0, c0, w_hh, dout, dhf, dcf))
-    main_bwd_err = max(_max_dev(grads[i], grads_p[i]) for i in (0, 2, 3))
-    main_dw_rel = (_max_dev(grads[1], grads_p[1])
-                   / float(grads_p[1].abs().max()))
+    bwd_err = max(_max_dev(grads[i], grads_p[i]) for i in (0, 2, 3))
+    dw_rel = (_max_dev(grads[1], grads_p[1])
+              / float(grads_p[1].abs().max()))
     del grads_p
     check = {"phase": "kernel_check", "kernel": "lstm_train_fwd+bwd",
-             "shape": [t, b, h], "fwd_f32_max_abs_err": main_fwd_err,
-             "fwd_tol": K2_TOL, "bwd_max_abs_err": main_bwd_err,
-             "bwd_tol": K3_TOL, "dw_rel_err": main_dw_rel, "dw_tol": DW_TOL}
+             "path": path, "shape": [t, b, h], "gates": str(dtype)[6:],
+             "fwd_max_abs_err": fwd_err, "fwd_tol": K2_TOL,
+             "fwd_out_dtypes": sorted({str(x.dtype)[6:] for x in res}),
+             "bwd_max_abs_err": bwd_err, "bwd_tol": K3_TOL,
+             "dw_rel_err": dw_rel, "dw_tol": DW_TOL}
     emit(check)
-    if not (main_fwd_err <= K2_TOL and main_bwd_err <= K3_TOL
-            and main_dw_rel <= DW_TOL):
-        raise AssertionError(f"lstm_train disagrees with plain at the "
-                             f"main-path shape: {check}")
+    if not (fwd_err <= K2_TOL and bwd_err <= K3_TOL and dw_rel <= DW_TOL
+            and check["fwd_out_dtypes"] == ["float32"]):
+        raise AssertionError(f"lstm_train disagrees with plain at "
+                             f"{path}'s shape: {check}")
 
     # yardstick only, never called by the port: cuDNN's LSTM in train mode
-    # with an identity input projection, forward for K2 and forward +
-    # backward minus forward for K3
+    # in the gates' dtype with an identity input projection, forward for
+    # K2 and forward + backward minus forward for K3
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    ref = torch.nn.LSTM(4 * h, h).to(dev).train()
+    ref = torch.nn.LSTM(4 * h, h).to(device=dev, dtype=dtype).train()
     with torch.no_grad():
         ref.weight_ih_l0.copy_(torch.eye(4 * h, device=dev))
         ref.weight_hh_l0.copy_(w_hh.T)
         ref.bias_ih_l0.zero_()
         ref.bias_hh_l0.zero_()
     x = gates.clone().requires_grad_()
-    hc = (h0[None].clone().requires_grad_(), c0[None].clone().requires_grad_())
+    hc = (h0[None].to(dtype).clone().requires_grad_(),
+          c0[None].to(dtype).clone().requires_grad_())
+    cot = (dout.to(dtype), dhf[None].to(dtype), dcf[None].to(dtype))
 
     def lib_fwd():
         return ref(x, hc)
@@ -537,8 +600,7 @@ def phase_train_kernels(torch):
     def lib_fwd_bwd():
         y, (hn, cn) = ref(x, hc)
         return torch.autograd.grad(
-            (y, hn, cn), (x, ref.weight_hh_l0, hc[0], hc[1]),
-            (dout, dhf[None], dcf[None]))
+            (y, hn, cn), (x, ref.weight_hh_l0, hc[0], hc[1]), cot)
 
     try:  # the yardstick only: cuDNN may refuse a sequence this long
         lib_grads = lib_fwd_bwd()
@@ -557,17 +619,18 @@ def phase_train_kernels(torch):
         del lib_grads
     del ref, x, hc
 
-    g4 = 4 * h
-    fwd_bytes = 4 * (t * b * g4 + h * g4 + 2 * b * h       # gates, W, h0/c0
-                     + t * b * (h + g4 + h) + 2 * b * h)   # out, acts, cseq
-    fwd_flops = 2.0 * t * b * h * g4                       # h @ W_hh
+    g4, item = 4 * h, gates.element_size()
+    fwd_bytes = (item * t * b * g4                         # gates
+                 + 4 * (h * g4 + 2 * b * h                 # W, h0/c0
+                        + t * b * (h + g4 + h) + 2 * b * h))  # outputs
+    fwd_flops = 2.0 * t * b * h * g4                       # h @ W_hh, f32
     bwd_bytes = 4 * (t * b * (g4 + 3 * h) + h * g4 + 4 * b * h  # residuals
                      + t * b * g4 + h * g4 + 2 * b * h)    # dgx, dW, dh0/dc0
     bwd_flops = 4.0 * t * b * h * g4   # d_lin @ W_hh^T and the dW products
     fwd_bound, fwd_by = _bound(fwd_bytes, fwd_flops)
     bwd_bound, bwd_by = _bound(bwd_bytes, bwd_flops)
     timing = {"phase": "kernel_time", "kernel": "lstm_train_fwd+bwd",
-              "shape": [t, b, h], "dtype": "float32",
+              "path": path, "shape": [t, b, h], "dtype": str(dtype)[6:],
               "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms,
               "fwd_library_ms": lib_fwd_ms, "fwd_bytes": fwd_bytes,
               "fwd_flops": fwd_flops, "fwd_bound_ms": fwd_bound,
@@ -577,27 +640,26 @@ def phase_train_kernels(torch):
               "bwd_flops": bwd_flops, "bwd_bound_ms": bwd_bound,
               "library_vs_kernel_max_abs": lib_dev,
               "fwd_ns_per_step": fwd_ms * 1e6 / t,
-              "fwd_floor_ms": fwd_floor["ms"],
-              "fwd_floor_ns_per_step": fwd_floor["ns_per_step"],
-              "fwd_floor_cycles_per_step": fwd_floor["cycles_per_step"],
+              "fwd_floor_ms": floor["floor"]["k2"]["ms"],
+              "fwd_floor_ns_per_step": floor["floor"]["k2"]["ns_per_step"],
+              "bwd_walk_floor_ms": floor["floor"]["k3"]["ms"],
               "bwd_ns_per_step": bwd_ms * 1e6 / t}
     emit(timing)
     del gates, res, out, acts, cseq, grads, dout
     torch.cuda.empty_cache()
-    src = "ml_audio_restoration_torch/csrc/lstm_train.cu"
-    return [
-        {"name": "lstm_train_fwd", "route": "cuda", "source": src,
-         "replaces": "ml_audio_restoration_tpu/ops/pallas/lstm.py:223",
-         "max_abs_err": max(f32_err, bf16_err, halves_err, cases["f32"],
-                            cases["saturated"], main_fwd_err), "ms": fwd_ms,
-         "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound,
-         "bound_by": fwd_by, "library_ms": lib_fwd_ms},
-        {"name": "lstm_train_bwd", "route": "cuda", "source": src,
-         "replaces": "ml_audio_restoration_tpu/ops/pallas/lstm.py:260",
-         "max_abs_err": max(bwd_err, main_bwd_err), "ms": bwd_ms,
-         "plain_ms": bwd_plain_ms,
-         "bound_ms": bwd_bound, "bound_by": bwd_by,
-         "library_ms": lib_bwd_ms}]
+    common = {"path": path, "shape": [t, b, h]}
+    return {
+        "fwd": {**common, "gates": str(dtype)[6:], "ms": fwd_ms,
+                "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound,
+                "bound_by": fwd_by, "library_ms": lib_fwd_ms,
+                "floor_ms": floor["floor"]["k2"]["ms"],
+                "max_abs_err": fwd_err, "tol": K2_TOL},
+        "bwd": {**common, "ms": bwd_ms, "dw_pass_ms": dw_ms,
+                "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound,
+                "bound_by": bwd_by, "library_ms": lib_bwd_ms,
+                "floor_ms": floor["floor"]["k3"]["ms"],
+                "max_abs_err": bwd_err, "tol": K3_TOL, "dw_rel_err": dw_rel,
+                "dw_tol": DW_TOL}}
 
 
 def _models(torch, dev):
@@ -1230,20 +1292,35 @@ def _convnet_degradation(torch):
     per_item = bank[bank_index(A.ROLLOFF_BANK, cuda_draws["rolloff_freq"],
                                *cfg.rolloff_freq).long()]
     gen = torch.Generator(device="cuda")
+    # the adaptive overrides at their 50/s bound: 316 pop rows an item
+    adaptive = {k: torch.full((x.shape[0],), v, device="cuda")
+                for k, v in (("impulse_rate", 50.0),
+                             ("impulse_amplitude_max", 1.0),
+                             ("noise_level", 0.05))}
+    adaptive_draws = A.draw_artifacts(gen.manual_seed(2), x.shape, rate,
+                                      overrides=adaptive)
     pieces = {
         "draws": lambda: A.draw_artifacts(gen.manual_seed(1), x.shape, rate),
         "pops": lambda: A._make_pops(cuda_draws, x.shape[-1], rate, cfg),
+        "pops_adaptive_50_per_s": lambda: A._make_pops(
+            adaptive_draws, x.shape[-1], rate, cfg),
         "crackle_fft_257": lambda: A._fir_same(x, fir[257]),
         "rumble_fft_2049": lambda: A._fir_same(x, fir[2049]),
         "rolloff_conv_129": lambda: A._fir_same(x, per_item),
         "apply_artifacts": lambda: A.apply_artifacts(x, cuda_draws, rate),
         "simulate_batch": lambda: A.simulate_batch(gen.manual_seed(1), x,
-                                                   rate)}
+                                                   rate),
+        "simulate_batch_adaptive": lambda: A.simulate_batch(
+            gen.manual_seed(1), x, rate, overrides=adaptive)}
     split = {k: _cuda_ms(torch, fn, 5) for k, fn in pieces.items()}
     return {"shape": list(clean.shape), "max_abs": _max_dev(got.cpu(), want),
             "tol": DEGRADE_TOL, "repeats_exactly": bool(torch.equal(got,
                                                                      again)),
             "pops": int(draws["pop_count"].sum()),
+            "pop_rows": {"default": list(cuda_draws["pop_amps"].shape),
+                         "adaptive_50_per_s":
+                         list(adaptive_draws["pop_amps"].shape)},
+            "pops_adaptive": int(adaptive_draws["pop_count"].sum()),
             "degraded_minus_clean_max": _max_dev(want, clean),
             "card_ms": split}
 
@@ -1504,6 +1581,582 @@ def phase_train_convnets(torch):
             raise AssertionError(f"conv-net training failed: {row}")
 
 
+# bf16 training: the stereo fast-train preset (config/stereo_fast_train.yaml)
+FAST_BATCH, FAST_SECONDS, FAST_STEPS = 64, 0.5, 12
+FAST_FILES = 860   # 774 train (12 steps of 64) + 86 validation at 0.1
+BF16_LOSS_REL = 1e-2  # one bf16 step against another route's, loss
+
+
+def _timed_steps(torch, tr, batches, seeds, params_of=None):
+    """10 timed train steps (after 2 warm-up ones) on `batches` with the
+    step's draws from `seeds` (None: the trainer's generator where it
+    stands), then the step split by CUDA events over 3 more steps: derive,
+    forward, loss, backward, optimizer. Returns the timing dict."""
+    for b, sd in zip(batches[:2], seeds[:2]):
+        tr._train_step(b, sd() if sd else None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for b, sd in zip(batches[2:12], seeds[2:12]):
+        tr._train_step(b, sd() if sd else None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    split = {"derive": 0.0, "forward": 0.0, "loss": 0.0, "backward": 0.0,
+             "optimizer": 0.0}
+    reps = 3
+    for r in range(reps):
+        b = batches[r]
+        gen = seeds[r]() if seeds[r] else None
+        ev[0].record()
+        inputs, targets = tr._derive(b, gen)
+        ev[1].record()
+        tr.model.train()
+        tr.optimizer.zero_grad(set_to_none=True)
+        params = tr._cast()
+        pre = ({n: x.clone() for n, x in tr.model.named_buffers()}
+               if tr.pairing == "mixed" else None)
+        out = tr._forward(inputs, params)
+        ev[2].record()
+        if tr.pairing == "mixed":  # the re-inference and encoders: "loss"
+            loss, _ = tr._semi_supervised(out, inputs, targets, b, params,
+                                          pre, gen or tr._gen)
+        else:
+            loss, _ = tr._criterion(out, targets)
+        ev[3].record()
+        loss.backward()
+        ev[4].record()
+        tr._update()
+        ev[5].record()
+        torch.cuda.synchronize()
+        for k, key in enumerate(split):
+            split[key] += ev[k].elapsed_time(ev[k + 1]) / reps
+    del out, loss
+    n = len(batches[2:12])
+    size = batches[0][next(iter(batches[0]))].shape
+    audio_s = size[0] * size[-1] / tr.sample_rate
+    return {"timed_steps": n, "timed_wall_s": wall,
+            "step_ms": wall * 1e3 / n, "audio_s_per_s": n * audio_s / wall,
+            "split_ms": split, "split_sum_ms": sum(split.values()),
+            "peak_mem_bytes": peak}
+
+
+def _step_grads(torch, tr, batch, gen=None, terms=()):
+    """(loss, train-forward output, gradients) of one step's loss and
+    backward, without the update; with `terms`, a fourth item: {term:
+    gradients} of each of those loss parts, one backward pass a term."""
+    inputs, targets = tr._derive(batch, gen)
+    tr.model.train()
+    tr.optimizer.zero_grad(set_to_none=True)
+    loss, (parts, out) = tr._loss(inputs, targets, None, batch, gen)
+    params = list(tr.model.parameters())
+    per_term = {}
+    for k in terms:
+        gs = torch.autograd.grad(parts[k], params, retain_graph=True,
+                                 allow_unused=True)
+        per_term[k] = [(torch.zeros_like(p) if g is None else g)
+                       .detach().float().cpu() for p, g in zip(params, gs)]
+    loss.backward()
+    got = (loss.item(), out.detach().float().cpu(),
+           [p.grad.detach().float().cpu() for p in params])
+    return got + (per_term,) if terms else got
+
+
+def _fast_config(root, ckpt_dir, dtype="bfloat16"):
+    """config/stereo_fast_train.yaml over the WAVs in <root>/wavs: one
+    epoch, a checkpoint each epoch under <root>/<ckpt_dir>."""
+    from ml_audio_restoration_torch.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "config", "stereo_fast_train.yaml"))
+    cfg.train.compute_dtype = dtype
+    cfg.train.num_epochs = 1
+    cfg.train.save_every = 1
+    cfg.train.checkpoint_dir = os.path.join(root, ckpt_dir)
+    cfg.train.log_dir = os.path.join(root, "runs")
+    cfg.data.data_dir = os.path.join(root, "wavs")
+    return cfg
+
+
+def _loader_batches(tr, n):
+    it = iter(tr.train_loader)
+    return [next(it) for _ in range(n)]
+
+
+def _fast_steps_compared(torch, root):
+    """One step of the fast-train preset on the smooth terms: at full
+    width kernel vs plain recurrence (bf16) beside the f32 step, and at
+    batch 2 card vs CPU (bf16, beside the CPU's f32 step). A bf16 step's
+    output and gradients are held within twice the CPU's own bf16-vs-f32
+    deviation (two bf16 roundings of one f32 function), the kernel-vs-plain
+    deviation within the bf16-vs-f32 one of the card."""
+    from ml_audio_restoration_torch.models import StereoSeparator, init_params
+    from ml_audio_restoration_torch.config import TrainConfig
+    from ml_audio_restoration_torch.ops import lstm as L
+    from ml_audio_restoration_torch.train.trainer import (
+        Trainer, build_trainer)
+
+    cfg = _fast_config(root, "ck_cmp")
+    batch = _loader_batches(build_trainer(cfg, steps_per_epoch=2), 1)[0]
+    base = init_params(StereoSeparator(), torch.Generator().manual_seed(31))
+
+    def step(device, dtype, b, plain=False):
+        tr = Trainer("stereo_separator", StereoSeparator(), [],
+                     config=TrainConfig(model="stereo_separator",
+                                        compute_dtype=dtype, **SMOOTH_TERMS),
+                     pairing="mono_target_stereo", device=device)
+        tr.model.load_state_dict(base.state_dict())
+        L.reset_launch_count()
+        with L.plain_recurrence() if plain else contextlib.nullcontext():
+            got = _step_grads(torch, tr, b)
+        return got, (L.train_fwd_launch_count, L.train_bwd_launch_count)
+
+    (k16, launched), (p16, plain_launched) = (
+        step("cuda", "bfloat16", batch), step("cuda", "bfloat16", batch,
+                                              plain=True))
+    k32, _ = step("cuda", "float32", batch)
+    small = {k: v[:2] for k, v in batch.items()}
+    (c16, _), (h16, _), (h32, _) = (step("cuda", "bfloat16", small),
+                                    step("cpu", "bfloat16", small),
+                                    step("cpu", "float32", small))
+    out = {"kernel_vs_plain": _bf16_devs(k16, p16),
+           "bf16_vs_f32_card": _bf16_devs(k16, k32),
+           "launches_kernel": launched, "launches_plain": plain_launched,
+           "card_vs_cpu_batch2": _bf16_devs(c16, h16),
+           "bf16_vs_f32_cpu_batch2": _bf16_devs(h16, h32)}
+    kp, bf = out["kernel_vs_plain"], out["bf16_vs_f32_card"]
+    cc, bc = out["card_vs_cpu_batch2"], out["bf16_vs_f32_cpu_batch2"]
+    out["ok"] = bool(
+        launched == (1, 1) and plain_launched == (0, 0)
+        and kp["out_rel_l2"] <= bf["out_rel_l2"]
+        and kp["grad_rel_l2"] <= bf["grad_rel_l2"]
+        and kp["loss_rel"] <= BF16_LOSS_REL
+        and cc["out_rel_l2"] <= 2 * bc["out_rel_l2"]
+        and cc["grad_rel_l2"] <= 2 * bc["grad_rel_l2"]
+        and cc["loss_rel"] <= BF16_LOSS_REL)
+    return out
+
+
+def _runs_equal(torch, make, batches, seeds):
+    """Two trainers from `make()` over the same batches and draws: equal
+    losses, weights, BN statistics and EMA, bit for bit."""
+    runs = []
+    for _ in range(2):
+        tr = make()
+        losses = [float(tr._train_step(b, sd() if sd else None)["loss"])
+                  for b, sd in zip(batches, seeds)]
+        state = dict(tr.model.state_dict())
+        if tr.ema_params is not None:
+            state.update({f"ema.{k}": v for k, v in tr.ema_params.items()})
+        runs.append((losses, state))
+    (la, sa), (lb, sb) = runs
+    return {"losses": la, "equal": la == lb and all(
+        torch.equal(v, sb[k]) for k, v in sa.items())}
+
+
+def _fast_train(torch, root):
+    """The preset through train_from_config (K2/K3/K1 counted), then 10
+    timed steps of its trainer, the same in f32, two seeded runs and a
+    resumed trainer's next step."""
+    from ml_audio_restoration_torch.models import count_params
+    from ml_audio_restoration_torch.ops import lstm as L
+    from ml_audio_restoration_torch.train.trainer import (
+        build_trainer, train_from_config)
+
+    t0 = time.perf_counter()
+    _write_corpus(os.path.join(root, "wavs"), files=FAST_FILES,
+                  seconds=FAST_SECONDS + 0.1)
+    corpus_s = time.perf_counter() - t0
+
+    # the main path: one epoch of 12 steps plus validation, counted
+    torch.cuda.synchronize()
+    L.reset_launch_count()
+    t0 = time.perf_counter()
+    history = train_from_config(_fast_config(root, "ck"),
+                                steps_per_epoch=FAST_STEPS)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    counts = {"lstm_train_fwd": L.train_fwd_launch_count,
+              "lstm_train_bwd": L.train_bwd_launch_count,
+              "lstm_recurrence_validation": L.launch_count}
+    written = sorted(os.listdir(os.path.join(root, "ck",
+                                             "stereo_separator")))
+
+    timing = {}
+    for dtype in ("bfloat16", "float32"):
+        tr = build_trainer(_fast_config(root, f"ck_{dtype}", dtype),
+                           steps_per_epoch=FAST_STEPS)
+        batches = _loader_batches(tr, FAST_STEPS)
+        L.reset_launch_count()
+        timing[dtype] = _timed_steps(torch, tr, batches, [None] * 12)
+        timing[dtype]["launches_per_step"] = {
+            "lstm_train_fwd": L.train_fwd_launch_count / 15,
+            "lstm_train_bwd": L.train_bwd_launch_count / 15}
+    params = count_params(tr.model)
+
+    cfg = _fast_config(root, "ck_runs")
+    batches = batches[:3]
+    runs = _runs_equal(
+        torch, lambda: build_trainer(_fast_config(root, "ck_none"),
+                                     steps_per_epoch=1), batches, [None] * 3)
+    tr = build_trainer(cfg, steps_per_epoch=FAST_STEPS)
+    tr.epoch = 1
+    for b in batches:
+        tr._train_step(b)
+    tr.save_checkpoint("checkpoint_epoch_1.pth")
+    fresh = build_trainer(cfg, steps_per_epoch=FAST_STEPS)
+    losses = [float(t._train_step(batches[0])["loss"]) for t in (tr, fresh)]
+    resumed = losses[0] == losses[1] and all(
+        torch.equal(x, y) for x, y in zip(tr.model.state_dict().values(),
+                                          fresh.model.state_dict().values()))
+    return {"params": params, "corpus_files": FAST_FILES,
+            "corpus_write_s": corpus_s, "epoch_s": epoch_s,
+            "history": history, "checkpoints": written,
+            "main_path_launches": counts, "timed": timing,
+            "repeat_3_steps": runs, "resumed_next_step_equal": resumed}
+
+
+def _bf16_devs(a, b):
+    """Deviations of one step (loss, output, gradients) from another's."""
+    return {"loss_rel": abs(a[0] - b[0]) / abs(b[0]),
+            "out_rel_l2": _rel_l2([a[1]], [b[1]]),
+            "grad_rel_l2": _rel_l2(a[2], b[2])}
+
+
+def _bf16_held(steps):
+    """A bf16 step on the card held as `_fast_steps_compared` holds the
+    preset's: `steps` maps (device, dtype) to one batch-2 step on the
+    same weights, batch and draws. The card's bf16 step against the CPU's,
+    and against the card's f32 step, each within twice the CPU's own
+    bf16-vs-f32 deviation in output and gradients (two bf16 roundings of
+    one f32 function, each within D of it, lie within 2D of each other).
+    Returns (deviations, ok)."""
+    d = {"card_vs_cpu_bf16": _bf16_devs(steps["cuda", "bfloat16"],
+                                        steps["cpu", "bfloat16"]),
+         "bf16_vs_f32_card": _bf16_devs(steps["cuda", "bfloat16"],
+                                        steps["cuda", "float32"]),
+         "bf16_vs_f32_cpu": _bf16_devs(steps["cpu", "bfloat16"],
+                                       steps["cpu", "float32"])}
+    ref = d["bf16_vs_f32_cpu"]
+    ok = all(d[k][m] <= 2 * ref[m]
+             for k in ("card_vs_cpu_bf16", "bf16_vs_f32_card")
+             for m in ("out_rel_l2", "grad_rel_l2"))
+    return d, bool(ok)
+
+
+def _convnet_bf16(torch, name):
+    """The denoiser or SR over its own yaml with compute_dtype bfloat16
+    (batch 16 of 2 s): one step against the same step in f32 (same
+    weights, batch and draws); at batch 2 the card's bf16 step against the
+    CPU's and against its f32 step (`_bf16_held`); then 10 timed steps in
+    each dtype on the same in-memory batches."""
+    import copy
+    import dataclasses
+
+    from ml_audio_restoration_torch.config import load_config
+    from ml_audio_restoration_torch.models import init_params
+    from ml_audio_restoration_torch.train.trainer import MODELS, Trainer
+
+    spec = CONVNETS[name]
+    cfg = load_config(os.path.join(ROOT, "config", f"{name}.yaml"))
+    kw = dataclasses.asdict(getattr(cfg, name))
+    if name == "denoiser":
+        kw["features"] = tuple(kw["features"])
+    base = init_params(MODELS[name](**kw), torch.Generator().manual_seed(32))
+    frames = int(cfg.data.chunk_duration * spec["rate"])
+    batches = [{spec["key"]: _mono_batch(16, frames, spec["rate"],
+                                         seed=40 + i)} for i in range(12)]
+
+    def trainer(dtype, device="cuda", **extra):
+        c = copy.deepcopy(cfg.train)
+        c.compute_dtype = dtype
+        for k, v in extra.items():
+            setattr(c, k, v)
+        return Trainer(name, copy.deepcopy(base), [], config=c,
+                       pairing=spec["pairing"], device=device,
+                       sample_rate=spec["rate"])
+
+    steps = {dtype: _step_grads(torch, trainer(dtype, spectral_weight=0.0),
+                                batches[0], torch.Generator().manual_seed(9))
+             for dtype in ("bfloat16", "float32")}
+    a, b = steps["bfloat16"], steps["float32"]
+    one = {"smooth_loss_rel": abs(a[0] - b[0]) / abs(b[0]),
+           "out_rel_l2": _rel_l2([a[1]], [b[1]]),
+           "grad_rel_l2": _rel_l2(a[2], b[2])}
+    small = {k: v[:2] for k, v in batches[0].items()}
+    held, held_ok = _bf16_held({
+        (device, dtype): _step_grads(
+            torch, trainer(dtype, device, spectral_weight=0.0), small,
+            torch.Generator().manual_seed(9))
+        for device in ("cuda", "cpu") for dtype in ("bfloat16", "float32")})
+    timing = {}
+    for dtype in ("bfloat16", "float32"):
+        tr = trainer(dtype)
+        seeds = [(lambda i=i, t=tr: t._seeded(2, i)) for i in range(12)]
+        timing[dtype] = _timed_steps(torch, tr, batches, seeds)
+    runs = _runs_equal(torch, lambda: trainer("bfloat16"), batches[:3],
+                       [(lambda i=i: torch.Generator("cuda").manual_seed(i))
+                        for i in range(3)])
+    return {"family": name, "batch": batches[0][spec["key"]].shape[0],
+            "frames": batches[0][spec["key"]].shape[-1],
+            "bf16_vs_f32_one_step": one, "batch2_step": held,
+            "timed": timing, "repeat_3_steps_bf16": runs,
+            "ok": bool(one["smooth_loss_rel"] <= BF16_LOSS_REL and held_ok
+                       and held["card_vs_cpu_bf16"]["loss_rel"]
+                       <= BF16_LOSS_REL
+                       and runs["equal"] and np.isfinite(a[0]))}
+
+
+def phase_train_bf16(torch):
+    """bf16 AMP training: config/stereo_fast_train.yaml (bf16, batch 64 of
+    0.5 s, 494,786 parameters) through train_from_config over seeded
+    stereo WAVs under profiles/ (removed after), K2/K3 on bf16 gates in the
+    step and K1 on bf16 gates in validation, counted; 10 timed steps beside
+    the same shape in f32; one step kernel vs plain and card vs CPU; two
+    seeded runs and a resumed trainer's next step; then the denoiser and SR
+    in bf16 against their f32 step, timed. Returns the launches of the
+    main path's run."""
+    import shutil
+
+    root = os.path.join(ROOT, "profiles", "chip_smoke_train_bf16")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        row = {"phase": "train_bf16",
+               "config": "config/stereo_fast_train.yaml",
+               "batch": FAST_BATCH, "chunk_seconds": FAST_SECONDS,
+               **_fast_train(torch, root)}
+        row["step_compared"] = _fast_steps_compared(torch, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(row)
+    counts, timed = row["main_path_launches"], row["timed"]
+    ok = (row["params"] == 494786 and row["step_compared"]["ok"]
+          and counts["lstm_train_fwd"] == FAST_STEPS
+          and counts["lstm_train_bwd"] == FAST_STEPS
+          and counts["lstm_recurrence_validation"] >= 1
+          and timed["bfloat16"]["launches_per_step"] == {
+              "lstm_train_fwd": 1.0, "lstm_train_bwd": 1.0}
+          and all(np.isfinite(row["history"]["train_loss"]
+                              + row["history"]["val_loss"]))
+          and "best_model.pth" in row["checkpoints"]
+          and timed["bfloat16"]["timed_steps"] == 10
+          and row["repeat_3_steps"]["equal"]
+          and row["resumed_next_step_equal"])
+    if not ok:
+        raise AssertionError(f"bf16 training failed: {row}")
+    for name in CONVNETS:
+        conv = {"phase": "train_bf16", **_convnet_bf16(torch, name)}
+        emit(conv)
+        if not conv["ok"]:
+            raise AssertionError(f"bf16 {name} training failed: {conv}")
+    return counts
+
+
+SEMI_FILES, SEMI_REAL = 224, 32  # clean 2.5 s WAVs; degraded "real" ones
+# a semi-supervised step's gradients, card vs CPU in f32, relative L2:
+# each loss term of a mixed step (read 2.4e-4 to 1.0e-3) and the adaptive
+# step's reference loss, whose log-spectral terms are ill-conditioned in
+# f32 (read 6.6e-3; PERF.md)
+SEMI_GRAD_TOL = {"mixed": 1e-2, "adaptive": 3e-2}
+SEMI_VARIANTS = ("mixed", "mixed_contrastive", "mixed_contrastive_bf16",
+                 "adaptive")
+
+
+def _write_real_corpus(root, files: int, seconds: float, rate: int = 22050):
+    """'Real' 78rpm recordings: seeded mono WAVs degraded by the port's
+    simulator on the CPU, each from its own seeded generator."""
+    import torch
+
+    from ml_audio_restoration_torch.audio import save_audio
+    from ml_audio_restoration_torch.data import simulate_batch
+
+    os.makedirs(root, exist_ok=True)
+    frames = int(seconds * rate)
+    for i in range(files):
+        x = torch.from_numpy(_mono_batch(1, frames, rate, seed=3000 + i))
+        y = simulate_batch(torch.Generator().manual_seed(3000 + i), x, rate)
+        save_audio(os.path.join(root, f"real_{i:03d}.wav"), y[0].numpy(),
+                   rate)
+
+
+def _semi_config(root, ckpt_dir, **train):
+    """config/denoiser.yaml over <root>/wavs and <root>/real: one epoch, a
+    checkpoint each epoch."""
+    from ml_audio_restoration_torch.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "config", "denoiser.yaml"))
+    cfg.train.num_epochs = 1
+    cfg.train.save_every = 1
+    cfg.train.checkpoint_dir = os.path.join(root, ckpt_dir)
+    cfg.train.log_dir = os.path.join(root, "runs")
+    for k, v in train.items():
+        setattr(cfg.train, k, v)
+    cfg.data.data_dir = os.path.join(root, "wavs")
+    cfg.data.degraded_dir = os.path.join(root, "real")
+    return cfg
+
+
+def _semi_variant(torch, root, variant):
+    """One semi-supervised variant of the denoiser at full width: 'mixed'
+    and 'adaptive' through train_from_config(dataset_kind=...),
+    'mixed_contrastive' through a Trainer over MixedRestorationDataset(
+    use_contrastive=True) with contrastive_weight 0.1, and
+    'mixed_contrastive_bf16' the same at compute_dtype bfloat16 (the
+    re-inference and both encoder passes on the step's one bf16 cast);
+    then one step card vs CPU at batch 2 (a CPU generator: the same draws
+    on both; in f32 the gradient of each loss term of a mixed step too, in
+    bf16 `_bf16_held`), two seeded 3-step runs and 10 timed steps of batch
+    16."""
+    import copy
+    from pathlib import Path
+
+    from ml_audio_restoration_torch.data import (
+        DataLoader, MixedRestorationDataset, train_val_split)
+    from ml_audio_restoration_torch.models import AudioDenoiser, init_params
+    from ml_audio_restoration_torch.train.trainer import (
+        Trainer, build_trainer, train_from_config)
+
+    kind = "adaptive" if variant == "adaptive" else "mixed"
+    contrastive = variant.startswith("mixed_contrastive")
+    dtype = "bfloat16" if variant.endswith("_bf16") else "float32"
+    cfg = _semi_config(root, f"ck_{variant}", compute_dtype=dtype,
+                       contrastive_weight=0.1 if contrastive else 0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if contrastive:
+        d = cfg.data
+        ds = MixedRestorationDataset(d.data_dir, d.degraded_dir,
+                                     d.sample_rate, d.chunk_duration,
+                                     synthetic_ratio=d.synthetic_ratio,
+                                     use_contrastive=True)
+        tr_idx, va_idx = train_val_split(ds, d.val_split, cfg.train.seed)
+        bs = cfg.train.batch_size
+        tr = Trainer("denoiser", init_params(
+            AudioDenoiser(), torch.Generator().manual_seed(cfg.train.seed)),
+            DataLoader(ds, bs, indices=tr_idx[:12 * bs],
+                       seed=cfg.train.seed),
+            DataLoader(ds, min(bs, len(va_idx)), indices=va_idx,
+                       shuffle=False, seed=cfg.train.seed),
+            config=cfg.train)
+        tr.checkpoint_dir = Path(cfg.train.checkpoint_dir) / "denoiser"
+        history = tr.train()
+    else:
+        history = train_from_config(cfg, steps_per_epoch=12,
+                                    dataset_kind=kind)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    hook = None
+    if not contrastive:
+        # resumed from the run's checkpoint; the adaptive set's re-analysis
+        # hook is read after one more epoch through Trainer.train
+        tr = build_trainer(cfg, steps_per_epoch=12, dataset_kind=kind)
+        if kind == "adaptive":
+            history["epoch_2"] = tr.train(num_epochs=2)["train_loss"]
+            hook = tr.train_loader.dataset._hook_used
+    ds = tr.train_loader.dataset
+    batches = _loader_batches(tr, 12)
+
+    # one step card vs CPU at batch 2 on the same draws, of a synthetic
+    # and a real item where the batch has both (each term then has a
+    # gradient)
+    base = copy.deepcopy(tr.model).cpu()
+    rows = [0, 1]
+    if "is_synthetic" in batches[0]:
+        syn = np.asarray(batches[0]["is_synthetic"]) > 0
+        if syn.any() and not syn.all():
+            rows = [int(np.argmax(syn)), int(np.argmax(~syn))]
+    small = {k: v[rows] for k, v in batches[0].items()}
+    terms = (("total", "supervised", "consistency", "cycle")
+             + (("contrastive",) if contrastive else ())
+             if kind == "mixed" and dtype == "float32" else ())
+
+    def side(device, dt):
+        c = copy.deepcopy(cfg.train)
+        c.compute_dtype = dt
+        t = Trainer("denoiser", copy.deepcopy(base), [], config=c,
+                    pairing=tr.pairing, device=device)
+        return _step_grads(torch, t, small,
+                           torch.Generator().manual_seed(51),
+                           terms if dt == "float32" else ())
+
+    if dtype == "float32":
+        card, cpu = side("cuda", dtype), side("cpu", dtype)
+        card_cpu = _bf16_devs(card, cpu)
+        def term_dev(k):
+            if any(bool(g.any()) for g in cpu[3][k]):
+                return _rel_l2(card[3][k], cpu[3][k])
+            # no gradient (all items of one type): nor may the card's have
+            return (float("inf") if any(bool(g.any()) for g in card[3][k])
+                    else 0.0)
+
+        card_cpu["term_grad_rel_l2"] = {k: term_dev(k) for k in terms}
+        card_cpu["ok"] = bool(
+            card_cpu["loss_rel"] <= CPU_TOL
+            and card_cpu["grad_rel_l2"] <= SEMI_GRAD_TOL[kind]
+            and all(v <= SEMI_GRAD_TOL[kind]
+                    for v in card_cpu["term_grad_rel_l2"].values()))
+    else:
+        card_cpu, ok = _bf16_held({(d, t): side(d, t)
+                                   for d in ("cuda", "cpu")
+                                   for t in ("bfloat16", "float32")})
+        card_cpu["ok"] = ok
+
+    runs = _runs_equal(
+        torch, lambda: Trainer("denoiser", copy.deepcopy(base), [],
+                               config=cfg.train, pairing=tr.pairing,
+                               device="cuda"),
+        batches[:3], [(lambda i=i: torch.Generator("cuda").manual_seed(i))
+                      for i in range(3)])
+    seeds = [(lambda i=i: tr._seeded(2, i)) for i in range(12)]
+    timing = _timed_steps(torch, tr, batches, seeds)
+    return {"variant": variant, "pairing": tr.pairing,
+            "compute_dtype": dtype,
+            "dataset": type(ds).__name__, "epoch_s": epoch_s,
+            "checkpoints": sorted(os.listdir(tr.checkpoint_dir)),
+            "history": history, "on_epoch_end_fired": hook,
+            "batch_keys": sorted(batches[0]),
+            "card_vs_cpu_batch2": card_cpu, "repeat_3_steps": runs,
+            "timed": timing}
+
+
+def phase_train_semi(torch):
+    """The denoiser's semi-supervised and adaptive training at full width
+    (config/denoiser.yaml: batch 16 of 2 s): seeded clean WAVs and "real"
+    ones degraded by the port's simulator on the CPU, under profiles/
+    (removed after); `mixed`, `mixed` with the contrastive term in f32 and
+    in bf16, and `adaptive` (on_epoch_end firing), each one step card vs
+    CPU, two seeded runs equal and 10 timed steps. No kernel of the
+    package runs here."""
+    import shutil
+
+    root = os.path.join(ROOT, "profiles", "chip_smoke_train_semi")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        _write_mono_corpus(os.path.join(root, "wavs"), SEMI_FILES, 2.5,
+                           22050)
+        _write_real_corpus(os.path.join(root, "real"), SEMI_REAL, 2.5)
+        corpus_s = time.perf_counter() - t0
+        for variant in SEMI_VARIANTS:
+            row = {"phase": "train_semi", "corpus_write_s": corpus_s,
+                   **_semi_variant(torch, root, variant)}
+            emit(row)
+            ok = (row["repeat_3_steps"]["equal"]
+                  and all(np.isfinite(row["history"]["train_loss"]
+                                      + row["history"]["val_loss"]))
+                  and "best_model.pth" in row["checkpoints"]
+                  and row["timed"]["timed_steps"] == 10
+                  and row["card_vs_cpu_batch2"]["ok"]
+                  and (variant != "adaptive" or row["on_epoch_end_fired"])
+                  and (not variant.startswith("mixed_contrastive")
+                       or "contrastive_pair" in row["batch_keys"]))
+            if not ok:
+                raise AssertionError(f"semi-supervised training failed: "
+                                     f"{row}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1594,7 +2247,8 @@ def phase_k1_shapes(torch):
     in bf16 (fast_serve) and f32, source-rate stereo's 64 chunks of
     44,100 steps, and a streaming feed of 16 streams in
     0.5 s blocks (22,048 committed steps, then 1,040 lookahead steps, both
-    from a carry). Returns the rows by path."""
+    from a carry), and the bf16 fast-train preset's validation (64 chunks
+    of 0.5 s, 11,025 steps, bf16). Returns the rows by path."""
     from ml_audio_restoration_torch.ops import _latency
     from ml_audio_restoration_torch.ops import lstm as L
 
@@ -1608,7 +2262,8 @@ def phase_k1_shapes(torch):
             ("serve_sub_f32", 11024, 640, torch.float32, False),
             ("serve_source_rate", 44100, 64, torch.float32, False),
             ("stream_committed", 22048, 16, torch.float32, True),
-            ("stream_lookahead", 1040, 16, torch.float32, True))):
+            ("stream_lookahead", 1040, 16, torch.float32, True),
+            ("train_bf16_validation", 11025, 64, torch.bfloat16, False))):
         rows[path] = _k1_at(torch, L, path, t, b, dtype, carry, floor_ns,
                             seed=10 + i)
     return rows
@@ -1971,8 +2626,13 @@ def main() -> int:
     phase_train_small(torch)
     launches = phase_train_full(torch)
     phase_train_convnets(torch)
+    bf16 = phase_train_bf16(torch)
+    phase_train_semi(torch)
     for row in rows[1:]:
+        # the f32 training step's run, then the bf16 preset's (its shape)
         row["launches"] = launches[row["name"]]
+        for shape, n in zip(row["shapes"], (launches, bf16)):
+            shape["launches"] = n[row["name"]]
     k1 = phase_k1_shapes(torch)
     paths = {"serve_fast": phase_serve_fast(torch, k1)}
     paths.update((f"serve_{k}", v)
@@ -1984,7 +2644,9 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K1's new shapes, each with the launches of the run of the path that
     # gives it (a stream feed launches one committed and one lookahead run)
-    launches_of = {"serve_fast": paths["serve_fast"][0],
+    launches_of = {"train_bf16_validation":
+                   bf16["lstm_recurrence_validation"],
+                   "serve_fast": paths["serve_fast"][0],
                    "serve_sub_f32": paths["serve_sub_0.25"][0],
                    "serve_source_rate": paths["serve_source_rate"][0],
                    "stream_committed": paths["stream"][0] // 2,
@@ -1995,7 +2657,9 @@ def main() -> int:
             "bound_by", "library_ms", "max_abs_err", "tol", "floor_ms",
             "ctas_per_sm", "waves", "regs_per_thread")},
          "launches": launches_of[shape]} for shape in k1]
-    rows[0]["path_launches"] = {p: v[0] for p, v in paths.items()}
+    rows[0]["path_launches"] = {
+        "train_bf16_validation": bf16["lstm_recurrence_validation"],
+        **{p: v[0] for p, v in paths.items()}}
     # K1 against its plain version: at its own shapes, f32 (bar F32_TOL)
     # apart from bf16 (bar BF16_TOL), and through each path's chain
     for r in k1.values():

@@ -269,6 +269,13 @@ def _add_train(sub):
     p.add_argument("--data-parallel", type=int, default=None,
                    help="size of the data-parallel axis (1 only so far)")
     p.add_argument("--steps-per-epoch", type=int, default=None)
+    p.add_argument("--mixed", action="store_true",
+                   help="semi-supervised training on synthetic + real "
+                        "degraded audio (requires --degraded-dir)")
+    p.add_argument("--degraded-dir", default=None,
+                   help="directory of real degraded recordings")
+    p.add_argument("--adaptive", action="store_true",
+                   help="fit artifact statistics to --degraded-dir recordings")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch path)")
@@ -289,9 +296,13 @@ def _cmd_train(args):
         v = getattr(args, field)
         if v is not None:
             overrides[section][field] = v
+    if args.mixed or args.adaptive:
+        overrides["data"]["degraded_dir"] = args.degraded_dir
     cfg = load_config(args.config, overrides)
+    dataset_kind = ("adaptive" if args.adaptive
+                    else "mixed" if args.mixed else "standard")
     train_from_config(cfg, steps_per_epoch=args.steps_per_epoch,
-                      device=args.device)
+                      device=args.device, dataset_kind=dataset_kind)
     return 0
 
 

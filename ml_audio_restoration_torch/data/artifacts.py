@@ -23,8 +23,10 @@ reproduce, so the simulator is split in two: `draw_artifacts` makes every
 random quantity of a batch from a `torch.Generator` (on the generator's
 device), and `apply_artifacts` is a deterministic function of the audio and
 those draws. Fed the JAX package's own draws, `apply_artifacts` gives its
-`simulate_batch` output. The exact IIR path (`filter_mode="iir"`) and the
-adaptive per-item overrides are not ported yet (ROADMAP items 9 and 3).
+`simulate_batch` output. The adaptive per-item overrides (impulse rate,
+amplitude bound, noise level; AdaptiveArtifactDataset) change only the
+draws. The exact IIR path (`filter_mode="iir"`) is not ported yet
+(ROADMAP item 9).
 """
 from __future__ import annotations
 
@@ -138,7 +140,8 @@ def _make_pops(draws, num_samples: int, sample_rate: int,
     # rows are summed. A scatter-add (index_add_, scatter_add_) would sum in
     # a different order from run to run on the card and break "two runs
     # from one seed are equal". At 2 s, 22.05 kHz, 10 pops/s and batch 16
-    # the rows are 16 x 76 x 44,201 floats (215 MB), written and read once.
+    # the rows are 16 x 76 x 44,201 floats (215 MB), written and read once;
+    # under the adaptive overrides' 50/s bound 16 x 316 x 44,201 (0.89 GB).
     idx = (draws["pop_locs"][..., None]
            + torch.arange(tmpl_len, device=dev))  # [B, P, L]
     rows = torch.zeros((b, p, num_samples + tmpl_len), dtype=dtype,
@@ -148,39 +151,70 @@ def _make_pops(draws, num_samples: int, sample_rate: int,
 
 
 # ---------------------------------------------------------------- simulator
-def max_pops_for(num_samples: int, sample_rate: int,
-                 cfg: ArtifactConfig) -> int:
-    """The static pop bound: three times the expected count, plus 16."""
-    return int(math.ceil(3.0 * (num_samples / sample_rate)
-                         * cfg.impulse_rate)) + 16
+ADAPTIVE_RATE_BOUND = 50.0  # pops/s: AdaptiveArtifactDataset's clip ceiling
+
+
+def max_pops_for(num_samples: int, sample_rate: int, cfg: ArtifactConfig,
+                 rate_bound: float | None = None) -> int:
+    """The static pop bound: three times the expected count at
+    `rate_bound` pops/s (default the config's rate), plus 16."""
+    rate = cfg.impulse_rate if rate_bound is None else rate_bound
+    return int(math.ceil(3.0 * (num_samples / sample_rate) * rate)) + 16
 
 
 def draw_artifacts(generator: torch.Generator, shape, sample_rate: int,
                    cfg: ArtifactConfig | None = None, *,
-                   dtype: torch.dtype = torch.float32) -> dict:
+                   dtype: torch.dtype = torch.float32,
+                   overrides: dict | None = None) -> dict:
     """Every random quantity of a [B, C, T] batch's degradation, drawn from
     `generator` on its device: per item the noise levels, the surface,
     crackle and rumble noise [B, C, T], the Poisson pop count and, for
     max_pops_for(T) pops, their locations, amplitudes, polarities, decay draws
     (U(1, 3) ms before the amplitude scaling) and ringing frequencies, and
-    the roll-off cutoff."""
+    the roll-off cutoff.
+
+    `overrides` holds per-item [B] tensors, as JAX's
+    `simulate_vinyl_artifacts(overrides=)` takes them: `impulse_rate` is
+    the Poisson mean's rate (and the pop bound becomes 50/s),
+    `impulse_amplitude_max` the amplitudes' upper end, clamped into
+    [amp_lo + 1e-6, max(amp_hi, 1)], and `noise_level` n draws the surface
+    level from U(0.5 n, 1.5 n) and the crackle's from U(0.3 n, 0.8 n)."""
     cfg = cfg or ArtifactConfig()
+    ov = overrides or {}
     b, c, t = shape
-    p = max_pops_for(t, sample_rate, cfg)
+    p = max_pops_for(t, sample_rate, cfg, ADAPTIVE_RATE_BOUND
+                     if "impulse_rate" in ov else None)
     g, dev = generator, generator.device
 
+    def unit(*size, kind=dtype):
+        return torch.rand(size, generator=g, device=dev, dtype=kind)
+
     def uniform(lo, hi, *size, kind=dtype):
-        u = torch.rand(size, generator=g, device=dev, dtype=kind)
-        return u * (hi - lo) + lo
+        return unit(*size, kind=kind) * (hi - lo) + lo
 
     def normal():
         return torch.randn((b, c, t), generator=g, device=dev, dtype=dtype)
 
-    expected = torch.full((b,), (t / sample_rate) * cfg.impulse_rate,
-                          dtype=torch.float32, device=dev)
+    def item(key):
+        return ov[key].to(device=dev, dtype=torch.float32)
+
+    def level(key, lo, span):
+        # JAX draws U(0, 1) * (span * n) + lo * n under a noise_level n
+        if "noise_level" not in ov:
+            return uniform(*getattr(cfg, key), b)
+        n = item("noise_level").to(dtype)
+        return unit(b) * (span * n) + lo * n
+
+    duration = t / sample_rate
+    expected = (duration * item("impulse_rate") if "impulse_rate" in ov
+                else torch.full((b,), duration * cfg.impulse_rate,
+                                dtype=torch.float32, device=dev))
     amp_lo, amp_hi = cfg.impulse_amplitude
+    if "impulse_amplitude_max" in ov:
+        amp_hi = torch.clamp(item("impulse_amplitude_max"), amp_lo + 1e-6,
+                             max(amp_hi, 1.0)).to(dtype)[:, None]
     return {
-        "surface_level": uniform(*cfg.surface_noise_level, b),
+        "surface_level": level("surface_noise_level", 0.5, 1.0),
         "surface": normal(),
         "pop_count": torch.poisson(expected, generator=g).long(),
         "pop_locs": torch.randint(0, t, (b, p), generator=g, device=dev),
@@ -189,7 +223,7 @@ def draw_artifacts(generator: torch.Generator, shape, sample_rate: int,
             uniform(0.0, 1.0, b, p) < 0.45, -1.0, 1.0).to(dtype),
         "pop_decay": uniform(0.001, 0.003, b, p),
         "pop_freq": uniform(3000.0, 8000.0, b, p),
-        "crackle_level": uniform(*cfg.crackle_level, b),
+        "crackle_level": level("crackle_level", 0.3, 0.5),
         "crackle": normal(),
         "rumble_level": uniform(*cfg.rumble_level, b),
         "rumble": normal(),
@@ -239,13 +273,14 @@ def apply_artifacts(audio, draws: dict, sample_rate: int,
 
 def simulate_batch(generator: torch.Generator, batch, sample_rate: int,
                    cfg: ArtifactConfig | None = None, *,
-                   filter_mode: str = "fir"):
-    """Degrade a [B, C, T] batch with draws from `generator`. The draws
-    are made on the generator's device and moved to the batch's, so a CPU
-    generator gives the same degradation on any device."""
+                   filter_mode: str = "fir", overrides: dict | None = None):
+    """Degrade a [B, C, T] batch with draws from `generator` (per-item
+    `overrides` as draw_artifacts takes them). The draws are made on the
+    generator's device and moved to the batch's, so a CPU generator gives
+    the same degradation on any device."""
     _check_filter_mode(filter_mode)
     draws = draw_artifacts(generator, tuple(batch.shape), sample_rate, cfg,
-                           dtype=batch.dtype)
+                           dtype=batch.dtype, overrides=overrides)
     draws = {k: v.to(batch.device) for k, v in draws.items()}
     return apply_artifacts(batch, draws, sample_rate, cfg)
 

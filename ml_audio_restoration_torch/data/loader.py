@@ -6,7 +6,9 @@ seed both packages yield identical batches, which torch's DataLoader
 would not. One background thread decodes whole batches, in order, into a
 bounded queue; items are read sequentially on that thread because the
 datasets draw chunk starts from one seeded generator. A dataset with
-`getitems` reads a batch in one call (the JAX package's batch route).
+`getitems` reads a batch in one call (the JAX package's batch route),
+its rows spread over `num_workers` threads once the starts are drawn, so
+every worker count gives the same batches.
 """
 from __future__ import annotations
 
@@ -28,12 +30,13 @@ class DataLoader:
     drop_last=True keeps every batch the same shape."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
-                 seed: int = 0, prefetch: int = 4,
+                 seed: int = 0, num_workers: int = 4, prefetch: int = 4,
                  drop_last: bool = True,
                  indices: Optional[Sequence[int]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
+        self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.indices = (np.asarray(indices) if indices is not None
@@ -80,7 +83,8 @@ class DataLoader:
                     if stop.is_set():
                         return
                     if getitems is not None:
-                        items = getitems([int(j) for j in batch_idx])
+                        items = getitems([int(j) for j in batch_idx],
+                                         threads=self.num_workers)
                     else:
                         items = [self.dataset[int(j)] for j in batch_idx]
                     if not put(collate(items)):

@@ -1,11 +1,14 @@
 """Training losses of the port (channels-last [B, T, C], as in the JAX
 package), counterpart of ml_audio_restoration_tpu/losses/. The
-semi-supervised losses and the transient spectral loss are not ported yet.
+transient spectral loss is not ported yet.
 """
 import torch
 
 from .impulse import impulse_loss
 from .metrics import lsd, si_sdr, snr
+from .semi_supervised import (
+    consistency_loss, contrastive_loss, cycle_consistency_loss,
+    semi_supervised_loss, supervised_loss)
 from .spectral import FFT_SIZES, LOG_EPS, multiscale_spectral_loss
 from .stereo import (
     decorrelation_loss,
@@ -78,9 +81,11 @@ def restoration_loss(output, target, *,
 
 
 __all__ = [
-    "FFT_SIZES", "LOG_EPS", "decorrelation_loss", "impulse_loss",
+    "FFT_SIZES", "LOG_EPS", "consistency_loss", "contrastive_loss",
+    "cycle_consistency_loss", "decorrelation_loss", "impulse_loss",
     "low_frequency_centering_loss", "lsd", "multiscale_spectral_loss",
-    "restoration_loss", "si_sdr", "snr", "spectral_clustering_loss",
-    "stereo_balance_loss", "stereo_metrics", "stereo_stats_match_loss",
+    "restoration_loss", "semi_supervised_loss", "si_sdr", "snr",
+    "spectral_clustering_loss", "stereo_balance_loss", "stereo_metrics",
+    "stereo_stats_match_loss", "supervised_loss",
     "temporal_consistency_loss",
 ]

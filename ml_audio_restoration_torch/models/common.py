@@ -5,7 +5,8 @@ Counterpart of ml_audio_restoration_tpu/models/common.py. The models are
 upstream `.pth` loads through `load_state_dict(strict=True)`. In eval mode batch norm
 is folded into the preceding conv; in train mode batch norm normalizes by
 the batch statistics. bf16 serving
-runs a copy of each model cast by `cast_model`.
+runs a copy of each model cast by `cast_model`; bf16 training runs on the
+parameters `cast_params` casts, with the BN statistics left in f32.
 """
 from __future__ import annotations
 
@@ -43,6 +44,23 @@ def cast_model(model, dtype: torch.dtype):
     if model is None or dtype == torch.float32:
         return model
     return copy.deepcopy(model).to(dtype)
+
+
+def cast_params(model: nn.Module, dtype: torch.dtype, params=None) -> dict:
+    """The parameters of a bf16 training or validation forward, for
+    `torch.func.functional_call`: `params` ({name: tensor}, default the
+    model's own) cast to `dtype`, each by a differentiable cast, so the
+    gradients reach the f32 originals. Buffers are left out, so the BN
+    running statistics stay f32 (JAX's trainer casts params only, never
+    `model_state`). A submodule marked `casts_own_weights` (the LSTM) keeps
+    its parameters as given: it casts them to its input's dtype inside its
+    own autograd Function, which hands the bias gradients back as JAX's
+    f32 sums instead of the bf16 that a cast copy would round them to."""
+    src = dict(model.named_parameters()) if params is None else params
+    own = tuple(f"{name}." for name, m in model.named_modules()
+                if getattr(m, "casts_own_weights", False))
+    return {n: p if n.startswith(own) else p.to(dtype)
+            for n, p in src.items()}
 
 
 def conv_bn(conv: nn.Conv1d, bn: nn.BatchNorm1d, x, *, lrelu: bool = True,

@@ -29,7 +29,10 @@ DILATIONS = (1, 2, 4, 8)
 class LSTMWeights(nn.Module):
     """The weights of torch's nn.LSTM under its state-dict names
     (weight_ih_l{k} [4H, C], weight_hh_l{k} [4H, H], bias_ih_l{k},
-    bias_hh_l{k}); the computation is ops.lstm.stacked_lstm."""
+    bias_hh_l{k}); the computation is ops.lstm.stacked_lstm, which casts
+    the weights to its input's dtype itself (`cast_params` leaves them)."""
+
+    casts_own_weights = True
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1):
         super().__init__()

@@ -9,10 +9,13 @@ order is torch's (i, f, g, o).
 Two routes, as in the JAX package:
 - inference (no gradient wanted): K1, csrc/lstm_recurrence.cu, beside
   `lstm_recurrence_plain`;
-- training (grad enabled and an input requires grad): the autograd
-  Function `LSTMRecurrenceTrain`, whose forward is K2 and whose backward
-  is K3 (csrc/lstm_train.cu), beside `lstm_recurrence_train_plain` and
-  `lstm_recurrence_bwd_plain`. It runs in f32 whatever the gates' dtype.
+- training (grad enabled and an input requires grad): K2 forward and K3
+  backward (csrc/lstm_train.cu), beside `lstm_recurrence_train_plain` and
+  `lstm_recurrence_bwd_plain`, in f32 whatever the gates' dtype. `lstm`
+  trains through the autograd Function `LSTMTrain`, which owns the
+  projection too, so the f32 gate cotangent reaches the projection's
+  backward as it does in JAX (see there); `lstm_recurrence` takes gates
+  already projected through `LSTMRecurrenceTrain`.
 
 Parameter dicts use the JAX package's layout: w_ih [C, 4H], w_hh [H, 4H],
 b_ih and b_hh [4H].
@@ -371,35 +374,102 @@ def _lstm_train_bwd_cuda(acts, cseq, out, h0, c0, w_hh, dout, dhf, dcf):
     return dgx, dw, dh0, dc0
 
 
+def _train_fwd(gates_tm, w_hh, h0, c0):
+    """(plain?, K2's outputs): K2 on a CUDA tensor, its plain version on a
+    CPU tensor or inside plain_recurrence()."""
+    plain = _use_plain(gates_tm)
+    fwd = lstm_recurrence_train_plain if plain else _lstm_train_fwd_cuda
+    return plain, fwd(gates_tm, w_hh, h0, c0)
+
+
+def _train_bwd(plain, acts, cseq, out, h0, c0, w_hh, dout, dhf, dcf):
+    """K3 (or its plain version) in the residuals' dtype -> (dgx, dW_hh,
+    dh0, dc0)."""
+    bwd = lstm_recurrence_bwd_plain if plain else _lstm_train_bwd_cuda
+    dt = acts.dtype
+    return bwd(acts, cseq, out, h0.to(dt), c0.to(dt), w_hh.to(dt),
+               dout.to(dt), dhf.to(dt), dcf.to(dt))
+
+
 class LSTMRecurrenceTrain(torch.autograd.Function):
     """Training recurrence: K2 forward, K3 backward.
 
     Twin of ml_audio_restoration_tpu/ops/lstm.py::lstm_recurrence_train.
     Takes time-major gates [T, B, 4H], w_hh [H, 4H], h0/c0 [B, H]; returns
     (out [T, B, H], hf, cf), all f32. The backward returns dgx time-major.
-    It computes dgx in f32 even for bf16 gates, as the JAX VJP does, but
-    torch's engine casts a gradient to its input's dtype, so bf16 gates get
-    a bf16 dgx. On a CPU tensor, or inside plain_recurrence(), both halves
-    run their plain versions."""
+    torch's engine casts a gradient to its input's dtype, so bf16 gates
+    get a rounded dgx here; `lstm` trains through `LSTMTrain` instead. On
+    a CPU tensor, or inside plain_recurrence(), both halves run their
+    plain versions."""
 
     @staticmethod
     def forward(ctx, gates_tm, w_hh, h0, c0):
-        ctx.plain = _use_plain(gates_tm)
-        fwd = (lstm_recurrence_train_plain if ctx.plain
-               else _lstm_train_fwd_cuda)
-        out, hf, cf, acts, cseq = fwd(gates_tm, w_hh, h0, c0)
+        ctx.plain, (out, hf, cf, acts, cseq) = _train_fwd(gates_tm, w_hh,
+                                                          h0, c0)
         ctx.save_for_backward(acts, cseq, out, h0, c0, w_hh)
         return out, hf, cf
 
     @staticmethod
     def backward(ctx, dout, dhf, dcf):
         acts, cseq, out, h0, c0, w_hh = ctx.saved_tensors
-        bwd = lstm_recurrence_bwd_plain if ctx.plain else _lstm_train_bwd_cuda
-        dt = acts.dtype
-        dgx, dw, dh0, dc0 = bwd(acts, cseq, out, h0.to(dt), c0.to(dt),
-                                w_hh.to(dt), dout.to(dt), dhf.to(dt),
-                                dcf.to(dt))
+        dgx, dw, dh0, dc0 = _train_bwd(ctx.plain, acts, cseq, out, h0, c0,
+                                       w_hh, dout, dhf, dcf)
         return dgx, dw.to(w_hh.dtype), dh0, dc0
+
+
+class LSTMTrain(torch.autograd.Function):
+    """An LSTM under grad, the projection included: JAX's
+    `lstm(x, params, impl="pallas_train")` and its VJP, in x's dtype.
+
+    Forward: the weights are rounded to x's dtype, the gates are
+    `x @ W_ih` rounded to x's dtype plus the bias `b_hh + b_ih` in that
+    dtype (JAX's einsum with `preferred_element_type` x's dtype, then its
+    add), and K2 runs on them with W_hh upcast from that copy; out, hf, cf
+    are f32. In f32 every rounding is the f32 arithmetic's own, and the
+    result that of the fused-bias `addmm` and `LSTMRecurrenceTrain`.
+
+    Backward, pinned in bf16 from `jax.grad` through JAX's `lstm`: K3 gives an
+    f32 dgx, which JAX's VJP hands on unrounded. The jaxpr's projection
+    transposes are `dot_general(dgx_f32, <bf16 operand>,
+    preferred_element_type=bfloat16)`, which lower to a bf16 product: dgx is
+    rounded to bf16 first, and dx = dgx @ W_ih^T and dW_ih = x^T @ dgx sum in
+    f32 and round once to bf16. The bias cotangent is the f32 sum of the
+    unrounded dgx over (T, B), for b_ih and b_hh alike, never rounded; dW_hh is
+    K3's f32 sum rounded to bf16 (JAX's `dwhh.astype(w_hh.dtype)`). Each
+    gradient comes back in its input's dtype: pass the f32 weights (the
+    trainer's cast leaves the LSTM's to it) and the biases' f32 sums reach them
+    whole. x: [B, T, C]; returns time-major out [T, B, H] and hf, cf [B, H]."""
+
+    @staticmethod
+    def forward(ctx, x, w_ih, b_ih, b_hh, w_hh, h0, c0):
+        dt = x.dtype
+        b, t_len, c_in = x.shape
+        x_tm = x.transpose(0, 1).reshape(t_len * b, c_in)
+        w_ih_c, w_hh_c = w_ih.to(dt), w_hh.to(dt)
+        gates_tm = ((x_tm @ w_ih_c) + (b_hh.to(dt) + b_ih.to(dt))).view(
+            t_len, b, -1)
+        ctx.plain, (out, hf, cf, acts, cseq) = _train_fwd(gates_tm, w_hh_c,
+                                                          h0, c0)
+        ctx.dtypes = (w_ih.dtype, b_ih.dtype, b_hh.dtype, w_hh.dtype)
+        ctx.save_for_backward(x_tm, w_ih_c, w_hh_c, acts, cseq, out, h0, c0)
+        return out, hf, cf
+
+    @staticmethod
+    def backward(ctx, dout, dhf, dcf):
+        x_tm, w_ih_c, w_hh_c, acts, cseq, out, h0, c0 = ctx.saved_tensors
+        dgx, dw_hh, dh0, dc0 = _train_bwd(ctx.plain, acts, cseq, out, h0,
+                                          c0, w_hh_c, dout, dhf, dcf)
+        dt = x_tm.dtype
+        t_len, b, g4 = dgx.shape
+        g = dgx.view(t_len * b, g4)
+        g_dt = g.to(dt)
+        dx = g_dt @ w_ih_c.T
+        dw_ih = x_tm.T @ g_dt
+        db = g.sum(dim=0)
+        w_ih_t, b_ih_t, b_hh_t, w_hh_t = ctx.dtypes
+        return (dx.view(t_len, b, -1).transpose(0, 1), dw_ih.to(w_ih_t),
+                db.to(b_ih_t), db.to(b_hh_t), dw_hh.to(dt).to(w_hh_t), dh0,
+                dc0)
 
 
 def lstm(x, params, *, carry=None, return_carry: bool = False):
@@ -409,21 +479,33 @@ def lstm(x, params, *, carry=None, return_carry: bool = False):
     layout the recurrence streams. The state starts at zero unless `carry`
     = (h, c); it enters the recurrence in f32 and the output and the
     returned carry come back in x's dtype (the JAX `impl="pallas"`
-    contract: bf16 x runs K1 on bf16 gates with f32 state)."""
+    contract: bf16 x runs K1 on bf16 gates with f32 state). The weights
+    are cast to x's dtype here; under grad it trains through `LSTMTrain`
+    (JAX's `impl="pallas_train"`)."""
     b, t_len, c_in = x.shape
-    bias = params["b_ih"] + params["b_hh"]
-    # one GEMM with the bias fused; its [T*B, 4H] result is already the
-    # contiguous time-major layout the kernel reads
-    gates_tm = torch.addmm(bias, x.transpose(0, 1).reshape(t_len * b, c_in),
-                           params["w_ih"]).view(t_len, b, -1)
-    w_hh = params["w_hh"]
-    hid = w_hh.shape[0]
+    hid = params["w_hh"].shape[0]
     if carry is None:
         h0 = torch.zeros((b, hid), dtype=torch.float32, device=x.device)
         c0 = torch.zeros_like(h0)
     else:
         h0, c0 = carry
-    out, hf, cf = lstm_recurrence(gates_tm, w_hh, h0.float(), c0.float())
+    h0, c0 = h0.float(), c0.float()
+    if torch.is_grad_enabled() and any(
+            v.requires_grad for v in (x, h0, c0, *params.values())):
+        out_tm, hf, cf = LSTMTrain.apply(
+            x, params["w_ih"], params["b_ih"], params["b_hh"],
+            params["w_hh"], h0, c0)
+        out = out_tm.transpose(0, 1)
+    else:
+        # the weights in x's dtype (a no-op when they already are)
+        w_ih, b_ih, b_hh, w_hh = (params[k].to(x.dtype)
+                                  for k in ("w_ih", "b_ih", "b_hh", "w_hh"))
+        # one GEMM with the bias fused; its [T*B, 4H] result is already
+        # the contiguous time-major layout the kernel reads
+        gates_tm = torch.addmm(b_ih + b_hh,
+                               x.transpose(0, 1).reshape(t_len * b, c_in),
+                               w_ih).view(t_len, b, -1)
+        out, hf, cf = lstm_recurrence(gates_tm, w_hh, h0, c0)
     out = out.to(x.dtype)
     if return_carry:
         return out, (hf.to(x.dtype), cf.to(x.dtype))

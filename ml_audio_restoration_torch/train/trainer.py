@@ -8,21 +8,34 @@ step, with draws from a generator seeded from (seed, epoch, step) as the
 JAX package folds them into its key, so a resumed run draws the same
 degradations; `downsample` makes the SR input with the linear downsample
 by the model's factor; `mono_target_stereo` takes the channel mean of a
-stereo chunk; `identity` trains on clean pairs. Adam with optional
+stereo chunk; `identity` trains on clean pairs; `degrade_adaptive` runs
+the simulator with each item's own impulse rate, amplitude bound and noise
+level (AdaptiveArtifactDataset); `mixed` degrades the synthetic items of a
+MixedRestorationDataset batch and trains on the semi-supervised loss
+(supervised, consistency, cycle consistency through a re-degradation and
+an eval-mode re-inference, and an optional contrastive term through
+`encode`). The draws of one step come from the step's generator in a fixed
+order: the derive, the cycle's re-degradation, the contrastive pair.
+Adam with optional
 global-norm clipping (optax's `clip_by_global_norm` semantics),
 ReduceLROnPlateau (patience 5, factor 0.5) by mutating the optimizer's
 `lr`, an optional EMA of the weights for validation and rendering,
 checkpoint/resume with retention and a corrupt-file fallback, metrics
 every 50 steps.
 
-Under grad the stereo LSTM runs the training recurrence (K2 forward, K3
-backward, csrc/lstm_train.cu); validation and rendering run the eval
-forward under no grad, which takes the inference kernel K1. The denoiser
-and SR are convolutions only.
+`compute_dtype="bfloat16"` is JAX's AMP: each forward runs on bf16 casts
+of the f32 parameters (`models.cast_params`; the BN running statistics stay
+f32) and a bf16 input, and the output is cast back to f32 before the loss.
+Parameters, Adam state, EMA and checkpoints stay f32. No autocast and no
+loss scaling, as in JAX.
 
-Not ported yet: the mixed and adaptive datasets and their pairings
-(ROADMAP item 3), bf16 compute (item 2), data parallelism or multi-host
-(item 8). Asking for them raises NotImplementedError.
+Under grad the stereo LSTM runs the training recurrence (K2 forward, K3
+backward, csrc/lstm_train.cu; bf16 gates in bf16); validation and
+rendering run the eval forward under no grad, which takes the inference
+kernel K1. The denoiser and SR are convolutions only.
+
+Not ported yet: data parallelism or multi-host (ROADMAP item 8). Asking
+for it raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -41,10 +54,11 @@ from torch import nn
 
 from ..config import ArtifactConfig, Config, PipelineConfig, TrainConfig
 from ..data.artifacts import simulate_batch
-from ..losses import restoration_loss, stereo_metrics
+from ..losses import (
+    contrastive_loss, restoration_loss, semi_supervised_loss, stereo_metrics)
 from ..models import (
-    AudioDenoiser, AudioSuperResolution, StereoSeparator, count_params,
-    init_params)
+    AudioDenoiser, AudioSuperResolution, StereoSeparator, cast_params,
+    count_params, init_params)
 from ..ops import interp_linear
 from ..pipeline.restore import resolve_device
 from . import checkpoints as ckpt
@@ -53,9 +67,11 @@ from .metrics import MetricsLogger
 MODELS = {"denoiser": AudioDenoiser,
           "super_resolution": AudioSuperResolution,
           "stereo_separator": StereoSeparator}
-PAIRINGS = ("degrade", "identity", "downsample", "mono_target_stereo")
-# the JAX package's other pairings, and the dataset kinds that give them
-SEMI_SUPERVISED = ("mixed", "degrade_adaptive")
+PAIRINGS = ("degrade", "identity", "downsample", "mono_target_stereo",
+            "mixed", "degrade_adaptive")
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the per-item simulator parameters of the degrade_adaptive pairing
+ADAPTIVE_KEYS = ("impulse_rate", "impulse_amplitude_max", "noise_level")
 
 
 def _nwc(x):
@@ -74,17 +90,11 @@ def _step_seed(seed: int, *stream: int) -> int:
 def _check_supported(model_name: str, cfg: TrainConfig, pairing: str):
     if model_name not in MODELS:
         raise ValueError(f"unknown model {model_name!r}")
-    if pairing in SEMI_SUPERVISED:
-        raise NotImplementedError(
-            f"pairing {pairing!r}: semi-supervised and adaptive training "
-            f"are not ported yet (ROADMAP item 3); the port trains with "
-            f"{PAIRINGS}")
     if pairing not in PAIRINGS:
         raise ValueError(f"unknown pairing {pairing!r}")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: bf16 training is not "
-            f"ported yet (ROADMAP item 2)")
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of "
+                         f"{tuple(COMPUTE_DTYPES)}, got {cfg.compute_dtype!r}")
     if cfg.data_parallel > 1:
         raise NotImplementedError(
             f"data_parallel={cfg.data_parallel}: data-parallel training is "
@@ -114,6 +124,7 @@ class Trainer:
         self.pairing = pairing or getattr(
             getattr(train_loader, "dataset", None), "pairing", "degrade")
         _check_supported(model_name, self.cfg, self.pairing)
+        self.compute_dtype = COMPUTE_DTYPES[self.cfg.compute_dtype]
         self.device = resolve_device(device)
         # full f32 as in the JAX package: cuDNN's TF32 default would keep
         # about three decimal digits in every convolution
@@ -133,6 +144,9 @@ class Trainer:
         # the degradation's draws, on the device; reseeded per step
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(_step_seed(self.cfg.seed))
+        # encode() as a module's forward, for the contrastive term's
+        # functional calls
+        self._encoder = _Encoder(self.model)
 
         self.lr = self.cfg.learning_rate
         self.optimizer = self._make_optimizer()
@@ -162,19 +176,37 @@ class Trainer:
         """The trainer's generator, reseeded for one stream of draws."""
         return self._gen.manual_seed(_step_seed(self.cfg.seed, *stream))
 
+    def _host(self, batch, key):
+        """batch[key] as a tensor on the device."""
+        return torch.as_tensor(batch[key]).to(self.device)
+
     def _derive(self, batch, generator: Optional[torch.Generator] = None):
         """(inputs, targets) [B, T, C] on the device from a host batch.
-        `degrade` draws from `generator` (default: the trainer's, where it
-        stands)."""
-        def host(key):
-            return torch.as_tensor(batch[key]).to(self.device)
-
+        The degradations draw from `generator` (default: the trainer's,
+        where it stands)."""
+        host = partial(self._host, batch)
         p = self.pairing
+        gen = generator or self._gen
         if p == "degrade":
             clean = host("clean")
-            degraded = simulate_batch(generator or self._gen, clean,
-                                      self.sample_rate, self.artifact_cfg)
+            degraded = simulate_batch(gen, clean, self.sample_rate,
+                                      self.artifact_cfg)
             return _nwc(degraded), _nwc(clean)
+        if p == "degrade_adaptive":
+            clean = host("clean")
+            degraded = simulate_batch(
+                gen, clean, self.sample_rate, self.artifact_cfg,
+                overrides={k: host(k) for k in ADAPTIVE_KEYS})
+            return _nwc(degraded), _nwc(clean)
+        if p == "mixed":
+            # synthetic items arrive clean and are degraded here; real ones
+            # are degraded recordings, their own (unused) target
+            audio = host("audio")
+            degraded = simulate_batch(gen, audio, self.sample_rate,
+                                      self.artifact_cfg)
+            syn = host("is_synthetic")[:, None, None]
+            return (_nwc(torch.where(syn > 0, degraded, audio)),
+                    _nwc(audio))
         if p == "downsample":
             high = host("high")
             low = interp_linear(high, high.shape[-1] // self._sr_factor)
@@ -185,15 +217,35 @@ class Trainer:
         x = _nwc(host("clean"))
         return x, x
 
-    def _forward(self, inputs, params=None):
-        """Model output [B, T, C] for inputs [B, T, 1], in the model's
-        current mode; `params` ({name: tensor}) replaces its parameters."""
+    def _cast(self, params=None):
+        """The parameters of a forward in the compute dtype: `params`
+        ({name: tensor}; None for the live parameters) cast by
+        models.cast_params under bf16, as given under f32."""
+        if self.compute_dtype == torch.float32:
+            return params
+        return cast_params(self.model, self.compute_dtype, params)
+
+    def _forward(self, inputs, params=None, *, buffers=None,
+                 module=None, dtype=None):
+        """Model output [B, T, C] for inputs [B, T, C], in the model's
+        current mode: `params` ({name: tensor}) replaces its parameters and
+        `buffers` its buffers. Under bf16 compute (`dtype`, default the
+        trainer's) the input is cast to bf16 and the output back to f32
+        (pass `params` from `_cast`). `module` runs another forward of the
+        model (`self._encoder`)."""
+        module = module or self.model
+        prefix = "" if module is self.model else "model."
         x = inputs.transpose(1, 2)
-        if params is None:
-            out = self.model(x)
-        else:
-            out = torch.func.functional_call(self.model, params, (x,))
-        return out.transpose(1, 2)
+        dtype = dtype or self.compute_dtype
+        low = dtype != torch.float32
+        if low:
+            x = x.to(dtype)
+        swap = {prefix + n: v
+                for n, v in {**(params or {}), **(buffers or {})}.items()}
+        out = (torch.func.functional_call(module, swap, (x,)) if swap
+               else module(x))
+        out = out.transpose(1, 2)
+        return out.float() if low else out
 
     def _criterion(self, out, targets):
         c = self.cfg
@@ -210,12 +262,70 @@ class Trainer:
             lf_centering_weight=c.lf_centering_weight,
             stats_match_weight=c.stats_match_weight)
 
-    def _loss(self, inputs, targets, params=None):
+    def _loss(self, inputs, targets, params=None, batch=None,
+              generator=None):
         """(total, (parts, out)), as JAX's `_loss` without the state: the
-        train forward updates the BN buffers in place."""
+        train forward updates the BN buffers in place. `params` are the
+        parameters to run on (None: the live ones), cast here once and
+        shared by every forward of the step. The `mixed` pairing reads
+        `batch` and draws its re-degradations from `generator`."""
+        params = self._cast(params)
+        pre_step = None
+        if self.pairing == "mixed" and self.model.training:
+            # JAX runs the re-inference and the encoder on model_state, the
+            # statistics from before this step's train forward, which here
+            # updates the buffers in place
+            pre_step = {n: b.clone() for n, b in self.model.named_buffers()}
         out = self._forward(inputs, params)
-        total, parts = self._criterion(out, targets)
+        if self.pairing != "mixed":
+            total, parts = self._criterion(out, targets)
+            return total, (parts, out)
+        total, parts = self._semi_supervised(out, inputs, targets, batch,
+                                             params, pre_step,
+                                             generator or self._gen)
         return total, (parts, out)
+
+    def _semi_supervised(self, out, inputs, targets, batch, params, buffers,
+                         gen):
+        """The `mixed` pairing's loss (JAX's `_loss`): semi_supervised_loss
+        with an eval-mode re-inference and a re-degradation drawn from
+        `gen`, plus the contrastive term when its weight is above 0 and the
+        batch carries pairs. The extra forwards run in eval mode on
+        `params` and `buffers` (None: the model's own)."""
+        host = partial(self._host, batch)
+        was_training = self.model.training
+
+        def eval_forward(x, module=None):
+            self.model.eval()
+            try:
+                return self._forward(x, params, buffers=buffers,
+                                     module=module)
+            finally:
+                self.model.train(was_training)
+
+        def redegrade(x):
+            return _nwc(simulate_batch(gen, x.transpose(1, 2),
+                                       self.sample_rate, self.artifact_cfg))
+
+        total, parts = semi_supervised_loss(
+            out, inputs, targets, host("is_synthetic"),
+            model_fn=eval_forward, redegrade_fn=redegrade)
+        if self.cfg.contrastive_weight > 0 and "contrastive_pair" in batch:
+            # the opposite-type pair: a synthetic-type pair arrives clean
+            # and is degraded here, as the main input was
+            pair = host("contrastive_pair")
+            pair_syn = host("contrastive_pair_is_synthetic")[:, None, None]
+            degraded = simulate_batch(gen, pair, self.sample_rate,
+                                      self.artifact_cfg)
+            pair_in = _nwc(torch.where(pair_syn > 0, degraded, pair))
+            # the time-pooled bottleneck features of both inputs
+            emb_a, emb_b = (eval_forward(x, self._encoder).mean(dim=1)
+                            for x in (inputs, pair_in))
+            contr = contrastive_loss(emb_a, emb_b, host("contrastive_label"))
+            parts["contrastive"] = contr
+            total = total + self.cfg.contrastive_weight * contr
+            parts["total"] = total
+        return total, parts
 
     def _update(self):
         """Clip the gradients (if configured), take the Adam step, update
@@ -245,14 +355,16 @@ class Trainer:
         if train:
             self.model.train()
             self.optimizer.zero_grad(set_to_none=True)
-            loss, (parts, out) = self._loss(inputs, targets)
+            loss, (parts, out) = self._loss(inputs, targets, None, batch,
+                                            generator)
             loss.backward()
             self._update()
         else:
             self.model.eval()
             with torch.no_grad():
                 loss, (parts, out) = self._loss(inputs, targets,
-                                                self.ema_params)
+                                                self.ema_params, batch,
+                                                generator)
         metrics = {k: v.detach() for k, v in parts.items()}
         metrics["loss"] = loss.detach()
         if out.shape[-1] == 2:
@@ -405,11 +517,14 @@ class Trainer:
         return self.history
 
     def _render(self, batch, generator=None):
-        """(inputs, targets, restored) [B, T, C] of the eval forward."""
+        """(inputs, targets, restored) [B, T, C] of the eval forward on
+        the f32 eval weights, whatever the compute dtype (JAX's `_render`
+        does not cast)."""
         inputs, targets = self._derive(batch, generator)
         self.model.eval()
         with torch.no_grad():
-            out = self._forward(inputs, self.eval_state())
+            out = self._forward(inputs, self.eval_state(),
+                                dtype=torch.float32)
         return inputs, targets, out
 
     def log_audio_samples(self):
@@ -525,6 +640,18 @@ class Trainer:
         return False
 
 
+class _Encoder(nn.Module):
+    """`model.encode` as the forward of a module holding the model, so
+    torch.func.functional_call can run it on other parameters."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x):
+        return self.model.encode(x)
+
+
 # -------------------------------------------------------------- test audio
 def render_test_outputs(trainer: Trainer, suffix: str, test_audio_dir,
                         test_output_dir, sample_rate: int = 22050,
@@ -582,22 +709,32 @@ def build_trainer(cfg: Config, steps_per_epoch: Optional[int] = None,
     split, seeded loaders, the model initialized from `cfg.train.seed`
     (drawn on the CPU, so a seed gives the same weights on any device), the
     logger, and the checkpoint directory <checkpoint_dir>/<model>, resumed
-    if it holds a readable checkpoint. dataset_kind 'mixed' and 'adaptive'
-    (the denoiser's semi-supervised datasets) are not ported yet."""
+    if it holds a readable checkpoint. dataset_kind: 'standard', or for the
+    denoiser 'mixed' (synthetic + real degraded recordings from
+    `data.degraded_dir`, semi-supervised) or 'adaptive' (artifact
+    statistics fitted to those recordings); other families ignore it, as
+    in the JAX package."""
     from ..data import (
-        DataLoader, RestorationDataset, StereoDataset, SuperResolutionDataset,
+        AdaptiveArtifactDataset, DataLoader, MixedRestorationDataset,
+        RestorationDataset, StereoDataset, SuperResolutionDataset,
         train_val_split)
 
     name = cfg.train.model
-    if dataset_kind != "standard":
-        raise NotImplementedError(
-            f"dataset_kind={dataset_kind!r}: the mixed and adaptive datasets "
-            f"are not ported yet (ROADMAP item 3)")
     d = cfg.data
     if name == "denoiser":
-        dataset = RestorationDataset(d.data_dir, d.sample_rate,
-                                     d.chunk_duration,
-                                     resample_chunks=d.resample_chunks)
+        if dataset_kind == "mixed":
+            dataset = MixedRestorationDataset(
+                d.data_dir, d.degraded_dir, d.sample_rate, d.chunk_duration,
+                synthetic_ratio=d.synthetic_ratio,
+                resample_chunks=d.resample_chunks)
+        elif dataset_kind == "adaptive":
+            dataset = AdaptiveArtifactDataset(
+                d.data_dir, d.degraded_dir, d.sample_rate, d.chunk_duration,
+                resample_chunks=d.resample_chunks)
+        else:
+            dataset = RestorationDataset(d.data_dir, d.sample_rate,
+                                         d.chunk_duration,
+                                         resample_chunks=d.resample_chunks)
         model_kwargs = dataclasses.asdict(cfg.denoiser)
         model_kwargs["features"] = tuple(model_kwargs["features"])
     elif name == "super_resolution":

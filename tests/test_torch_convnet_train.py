@@ -37,7 +37,7 @@ from ml_audio_restoration_torch.compat import state_dict_from_jax
 from ml_audio_restoration_torch.config import TrainConfig
 from ml_audio_restoration_torch.data import DataLoader
 from ml_audio_restoration_torch.data import artifacts as PA
-from ml_audio_restoration_torch.train.trainer import Trainer, build_trainer
+from ml_audio_restoration_torch.train.trainer import Trainer
 from test_torch_artifacts import clean_batch, jax_draws
 from test_torch_models import jax_model, port_model
 from test_torch_pipeline import SMALL
@@ -360,17 +360,3 @@ def test_fixed_batch_loss_falls(name, pairing):
     losses = [float(tr._train_step(batch, tr._seeded(0))["loss"])
               for _ in range(6)]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
-
-
-@pytest.mark.parametrize("pairing", ["mixed", "degrade_adaptive"])
-def test_semi_supervised_pairings_raise(pairing):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-        _trainer("denoiser", pairing)
-
-
-def test_mixed_and_adaptive_dataset_kinds_raise():
-    from ml_audio_restoration_torch.config import Config
-
-    for kind in ("mixed", "adaptive"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-            build_trainer(Config(), device="cpu", dataset_kind=kind)

@@ -6,17 +6,20 @@ there without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda -q
 
-Bars: K1 1e-5 in f32 and 1e-2 in bf16 (a summation-order change can flip
-one bf16 rounding of h, which the recurrence carries), also at the serving
-shapes (0.25 s stereo windows of a 120 s restore, T=11,024 B=640; a
-streaming lookahead run, T=1,031 B=16 from a carry) and through one
-streaming feed (1e-4, the chain's kernel-vs-plain bar); K2 1e-5; K3 2e-5 on
-dgx, dh0 and dc0 (the bar JAX holds its Pallas backward to) and 1e-4 of its
-largest entry on dW_hh (a sum over T*B outer products); a train step
-on the smooth loss terms 1e-4 (chip_smoke.py's bar; the reference loss's
-log-magnitude terms are ill-conditioned in f32, PERF.md). The conv-net
-families: the 78rpm degradation 1e-5 against the CPU on the same draws,
-and two seeded runs equal bit for bit.
+Bars: K1 1e-5 in f32 and 1e-2 in bf16 (a summation-order change can flip one
+bf16 rounding of h, which the recurrence carries), also at the serving shapes
+(0.25 s stereo windows of a 120 s restore, T=11,024 B=640; a streaming
+lookahead run, T=1,031 B=16 from a carry) and through one streaming feed (1e-4,
+the chain's kernel-vs-plain bar); K2 1e-5; K3 2e-5 on dgx, dh0 and dc0 (the bar
+JAX holds its Pallas backward to) and 1e-4 of its largest entry on dW_hh (a sum
+over T*B outer products); a train step on the smooth loss terms 1e-4
+(chip_smoke.py's bar; the reference loss's log-magnitude terms are
+ill-conditioned in f32, PERF.md). K2 with bf16 gates and K3 also at the stereo
+fast-train preset's shape (T=11,025 B=64, config/stereo_fast_train.yaml), two
+seeded bf16 runs of each family equal bit for bit, and the f32 training LSTM
+(`LSTMTrain`) equal bit for bit to the fused-bias projection and
+`LSTMRecurrenceTrain`. The conv-net families: the 78rpm degradation 1e-5
+against the CPU on the same draws, and two seeded runs equal bit for bit.
 """
 import contextlib
 
@@ -196,6 +199,101 @@ def test_train_backward_repeats_bit_for_bit(card):
     res = (acts, cseq, out, h0, c0, w_hh, dout, dhf, dcf)
     first, second = L._lstm_train_bwd_cuda(*res), L._lstm_train_bwd_cuda(*res)
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_train_kernels_at_the_fast_train_shape(card):
+    """K2 on bf16 gates and K3 at T=11,025 B=64 H=64: T % 8 == 1, so the
+    8-step cp.async blocks end in a partial block of one step."""
+    t, b, h = 11025, 64, 64
+    args, cots = _inputs(t, b, h, seed=3)
+    gates, w_hh, h0, c0 = (a.to(card) for a in args)
+    gates = gates.bfloat16()
+    dout, dhf, dcf = (a.to(card) for a in cots)
+    k = L._lstm_train_fwd_cuda(gates, w_hh, h0, c0)
+    p = L.lstm_recurrence_train_plain(gates, w_hh, h0, c0)
+    assert all(x.dtype == torch.float32 for x in k)
+    for x, y in zip(k, p):
+        assert float((x - y).abs().max()) <= 1e-5
+    kb = L._lstm_train_bwd_cuda(p[3], p[4], p[0], h0, c0, w_hh, dout, dhf,
+                                dcf)
+    pb = L.lstm_recurrence_bwd_plain(p[3], p[4], p[0], h0, c0, w_hh, dout,
+                                     dhf, dcf)
+    for i in (0, 2, 3):
+        assert float((kb[i] - pb[i]).abs().max()) <= 2e-5
+    assert float((kb[1] - pb[1]).abs().max()) <= 1e-4 * float(
+        pb[1].abs().max())
+
+
+@pytest.mark.cuda
+def test_f32_training_lstm_matches_the_fused_projection(card):
+    """f32 `lstm` under grad (LSTMTrain: the projection as a product plus
+    the bias, K2, K3, the projection's backward) gives the output and
+    gradients of the fused-bias `addmm` and LSTMRecurrenceTrain, bit for
+    bit, at the stereo net's LSTM (C=128, H=64) over T=2,048 B=16."""
+    t, b, c, h = 2048, 16, 128, 64
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(b, t, c)).astype(np.float32))
+    params = {k: torch.from_numpy((rng.normal(size=s) * 0.1).astype(
+        np.float32)) for k, s in (("w_ih", (c, 4 * h)), ("w_hh", (h, 4 * h)),
+                                   ("b_ih", (4 * h,)), ("b_hh", (4 * h,)))}
+    dy = torch.from_numpy(rng.normal(size=(b, t, h)).astype(np.float32))
+
+    def run(route):
+        tp = {k: v.to(card).requires_grad_() for k, v in params.items()}
+        tx = x.to(card).requires_grad_()
+        if route == "lstm":
+            y = L.lstm(tx, tp)
+        else:
+            gates = torch.addmm(tp["b_ih"] + tp["b_hh"],
+                                tx.transpose(0, 1).reshape(t * b, c),
+                                tp["w_ih"]).view(t, b, -1)
+            h0 = torch.zeros(b, h, device=card)
+            y = L.LSTMRecurrenceTrain.apply(gates, tp["w_hh"], h0,
+                                            h0)[0].transpose(0, 1)
+        (y * dy.to(card)).sum().backward()
+        return [y.detach(), tx.grad] + [tp[k].grad for k in params]
+
+    for a, b_ in zip(run("lstm"), run("composition")):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,pairing,key,model", [
+    ("stereo_separator", "mono_target_stereo", "stereo",
+     lambda: StereoSeparator(base_channels=8, lstm_hidden=16)),
+    ("denoiser", "degrade", "clean", AudioDenoiser),
+    ("super_resolution", "downsample", "high", AudioSuperResolution)])
+def test_bf16_runs_repeat_bit_for_bit(card, name, pairing, key, model):
+    """Two seeded 2-step bf16 runs on the card are equal bit for bit (the
+    stereo net's through K2/K3 with bf16 gates, once each a step), and
+    parameters, Adam state and BN statistics stay f32."""
+    rng = np.random.default_rng(4)
+    ch = 2 if key == "stereo" else 1
+    batch = {key: (0.3 * rng.standard_normal((2, ch, 4096))).astype(
+        np.float32)}
+    config = TrainConfig(model=name, compute_dtype="bfloat16",
+                         learning_rate=1e-3, ema_decay=0.9)
+    runs = []
+    for _ in range(2):
+        tr = Trainer(name, init_params(model(),
+                                       torch.Generator().manual_seed(0)),
+                     [], pairing=pairing, config=config, device=card)
+        before = (L.train_fwd_launch_count, L.train_bwd_launch_count)
+        losses = [float(tr._train_step(batch, tr._seeded(2, i))["loss"])
+                  for i in range(2)]
+        launched = (L.train_fwd_launch_count - before[0],
+                    L.train_bwd_launch_count - before[1])
+        assert launched == ((2, 2) if name == "stereo_separator"
+                            else (0, 0))
+        runs.append((losses, tr.model.state_dict(), tr.ema_params))
+        assert all(v.dtype != torch.bfloat16
+                   for v in tr.model.state_dict().values())
+        for st in tr.optimizer.state.values():
+            assert st["exp_avg"].dtype == torch.float32
+    assert runs[0][0] == runs[1][0] and np.isfinite(runs[0][0]).all()
+    assert all(torch.equal(v, runs[1][1][k]) for k, v in runs[0][1].items())
+    assert all(torch.equal(v, runs[1][2][k]) for k, v in runs[0][2].items())
 
 
 @pytest.mark.cuda

@@ -641,9 +641,6 @@ def test_config_matches_jax(tmp_path):
 
 # ------------------------------------------------------- unported options
 @pytest.mark.parametrize("kw,match", [
-    ({"pairing": "mixed"}, "item 3"),
-    ({"pairing": "degrade_adaptive"}, "item 3"),
-    ({"compute_dtype": "bfloat16"}, "item 2"),
     ({"data_parallel": 2}, "item 8"),
 ])
 def test_unported_options_raise(kw, match):
