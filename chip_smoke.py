@@ -5,9 +5,10 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. device  - the card's name and power limit (nvidia-smi);
-  2. build   - nvcc builds every CUDA source of the package, one nvcc per
-               source, all started together (the kernels and the latency
-               probe of ops/_latency.py);
+  2. build   - every native source of the package, one compiler per
+               library, all started together: nvcc for the kernels and the
+               latency probe of ops/_latency.py, g++ for the audio codec
+               (csrc/wavio.cpp + csrc/flacio.cpp);
   3. kernels - each kernel (K1 inference recurrence, K2 train forward, K3
                train backward: its walk and its dW_hh pass) against its
                plain PyTorch version on the card, with stated tolerances
@@ -29,7 +30,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
   5. grad    - gradients through the eval stereo forward on the card are
                non-zero and match the plain recurrence's;
   6. train   - stereo-separator training at full width: one optimizer step
-               (kernel vs plain on the card, card vs CPU), 10-step loss
+               (kernel vs plain on the card, card vs CPU), 5-step loss
                trajectories (kernel vs plain; two kernel runs held equal),
                then train_from_config over seeded stereo WAVs
                (2 s chunks, batch 16) with K2/K3 launch counts, 10 timed
@@ -65,29 +66,51 @@ Phases, each printing one JSON line; any failure exits non-zero:
                card vs CPU (in f32 the gradient of each loss term too; in
                bf16 within twice the CPU's bf16-vs-f32 distance), two
                seeded runs equal, 10 timed steps; no kernel runs there;
- 10. k1_shapes - K1 at the serving paths' shapes (sub-chunked stereo
+ 10. files   - the files slice at full width with seeded weights, one
+               line a part: the 120 s clip through the port's FLAC writer
+               and the C++ and numpy decoders (bit for bit, equal to its
+               16-bit WAV; host ms of each codec beside the host CPU's
+               name), restore_file .flac -> .flac against .wav -> .wav on
+               the card (30 s); the three models as JAX-layout .msgpack
+               files restoring the 120 s clip bit for bit like their .pth
+               twins (xRT, K1 launches) and feeding a StreamingRestorer;
+               `export` of the .msgpack files (with and without --ema) and
+               of a trainer .pth with --ema, each loading strict and equal
+               to its source; the three evaluations of evaluate.py over
+               eight 8 s FLACs at 44.1 kHz and two stereo ones, card vs CPU
+               per file and metric within the change the chain's 1e-3
+               makes in it, the stereo one also against the plain
+               recurrence (K1 at T=44,100 B=8); train_from_config for two
+               steps of the denoiser and the stereo separator over a FLAC
+               corpus and its WAV twin (batches and losses bit for bit,
+               K2/K3 counted) and the C++ batch reader's rows/s against
+               the numpy route; analyze on a FLAC and the simulator on the
+               card against the CPU on the same draws;
+ 11. k1_shapes - K1 at the serving paths' shapes (sub-chunked stereo
                T=11,024 B=640 in bf16 and f32, source-rate T=44,100 B=64,
                a streaming feed's committed T=22,048 and lookahead T=1,040
-               runs at B=16 with a carry in) and at the bf16 preset's
-               validation (T=11,025 B=64, bf16): against its plain version,
+               runs at B=16 with a carry in), at the bf16 preset's
+               validation (T=11,025 B=64, bf16) and at evaluate's stereo
+               shape (T=44,100 B=8): against its plain version,
                timed beside its bound, its latency floor (waves x steps),
                its registers, CTAs an SM and waves, and cuDNN's nn.LSTM;
- 11. serve_fast - a 120 s clip through config/fast_serve.yaml (bf16, 0.25 s
+ 12. serve_fast - a 120 s clip through config/fast_serve.yaml (bf16, 0.25 s
                stereo windows): kernel vs plain recurrence, bf16 vs f32,
                xRT, the stage split, K1 launches, peak memory, and
                `warmup`;
- 12. serve_options - the clip in f32 with 0.25 s stereo windows, mid-exact
+ 13. serve_options - the clip in f32 with 0.25 s stereo windows, mid-exact
                (the mean of L and R is the SR output) and source-rate, each
                against its plain-recurrence run, timed;
- 13. serve_many - eight 10 s recordings and one of 150 s: restore_many vs
+ 14. serve_many - eight 10 s recordings and one of 150 s: restore_many vs
                single restores, then restore_directory (coalesce 4) vs
                restore_file over WAVs in profiles/;
- 14. stream  - 16 lockstep streams of 30 s in 0.5 s blocks: each against
+ 15. stream  - 16 lockstep streams of 30 s in 0.5 s blocks: each against
                the single-shot whole_file restore, the batch against 16
                single streams, one feed against the plain recurrence, bf16
                against f32; per-feed ms, the slowest call (a feed or the
                flush) with any window length warmup did not run (none
                may), and K1 launches a feed.
+Each phase's wall seconds follow it on a line {"phase_wall_s": ...}.
 Then one line {"kernels": [...]} and, last, the device line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Imports nothing of JAX.
@@ -152,21 +175,28 @@ def phase_device(torch):
 
 
 def phase_build():
-    """Builds every CUDA source of the package in parallel, one nvcc each:
-    the kernels and the latency probe."""
+    """Builds every native source of the package in parallel, one compiler
+    each: the CUDA kernels and the latency probe with nvcc, the audio codec
+    with g++."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from ml_audio_restoration_torch.audio import native
     from ml_audio_restoration_torch.ops import _build, _latency
 
-    sources = ("lstm_recurrence", "lstm_train", _latency.PROBE)
+    sources = ("lstm_recurrence", "lstm_train", _latency.PROBE,
+               native.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
     for name in sources:
         _build.load(name)
+    native.load_library()
     emit({"phase": "build", "sources": list(sources),
           "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": {k: _build.build_seconds.get(k) for k in sources}})
+          "nvcc_seconds": {k: _build.build_seconds.get(k) for k in sources
+                           if k not in _build.HOST_LIBRARIES},
+          "gxx_seconds": {k: _build.build_seconds.get(k) for k in sources
+                          if k in _build.HOST_LIBRARIES}})
 
 
 def _cuda_ms(torch, fn, reps: int) -> float:
@@ -882,7 +912,10 @@ UPDATE_L2 = {("smooth", "kernel_vs_plain"): 1e-3,
              ("smooth", "card_vs_cpu"): 1e-1,
              ("reference", "kernel_vs_plain"): 3e-1,
              ("reference", "card_vs_cpu"): 6e-1}
-TRAJ_UPDATE_L2 = 1e-2  # smooth terms, 10 steps at lr 1e-3, kernel vs plain
+TRAJ_UPDATE_L2 = 1e-2  # smooth terms at lr 1e-3, kernel vs plain (set
+#                     from 10-step readings; shorter runs drift less)
+TRAJ_STEPS = 5      # the trajectories' length (10 before the files phase
+#                     was added; the plain runs take most of the time)
 
 
 def _bn_fed_biases(model):
@@ -934,10 +967,10 @@ def phase_train_small(torch):
     """One full optimizer step at full width on a 0.25 s chunk, batch 4,
     TrainConfig defaults with clipping and EMA: kernel vs plain on the
     card, card vs CPU, and the card against itself (the reference loss and
-    its smooth terms); then 10 steps at lr 1e-3 on one fixed batch, kernel
-    vs plain and kernel vs kernel, the latter also with cuDNN's
-    nondeterministic algorithms (the trainer turns them off) and with
-    every op's deterministic one."""
+    its smooth terms); then TRAJ_STEPS steps at lr 1e-3 on one fixed
+    batch, kernel vs plain and kernel vs kernel, the latter also with
+    cuDNN's nondeterministic algorithms (the trainer turns them off) and
+    with every op's deterministic one."""
     import copy
 
     from ml_audio_restoration_torch.models import StereoSeparator, init_params
@@ -1023,24 +1056,25 @@ def phase_train_small(torch):
             ok &= (kp["grad_rel_l2"] <= REF_GRAD_L2["kernel_vs_plain"]
                    and kc["grad_rel_l2"] <= REF_GRAD_L2["card_vs_cpu"])
 
-    # 10 steps at lr 1e-3 on the fixed batch: kernel vs plain held on the
-    # smooth terms (loss and the 10-step update), reported on the reference
-    # loss; kernel vs kernel on the reference loss held equal, and read
+    # TRAJ_STEPS steps at lr 1e-3 on the fixed batch: kernel vs plain held
+    # on the smooth terms (loss and the whole update), reported on the
+    # reference loss; kernel vs kernel on the reference loss held equal, and read
     # with cuDNN's nondeterministic algorithms and with every op's
     # deterministic one
     runs = {}
     for name, kw in (("smooth", SMOOTH_TERMS), ("reference", {})):
         for label, plain in (("kernel", False), ("plain", True)):
-            runs[f"{name}_{label}"] = run("cuda", plain, 10,
+            runs[f"{name}_{label}"] = run("cuda", plain, TRAJ_STEPS,
                                           learning_rate=1e-3, **kw)
-    runs["reference_kernel_again"] = run("cuda", False, 10,
+    runs["reference_kernel_again"] = run("cuda", False, TRAJ_STEPS,
                                          learning_rate=1e-3)
     for label in ("", "_again"):
         runs[f"reference_kernel_cudnn_nondeterministic{label}"] = run(
-            "cuda", False, 10, cudnn_deterministic=False, learning_rate=1e-3)
+            "cuda", False, TRAJ_STEPS, cudnn_deterministic=False,
+            learning_rate=1e-3)
     with _all_deterministic(torch) as ops:
         runs["reference_kernel_all_deterministic"] = run(
-            "cuda", False, 10, learning_rate=1e-3)
+            "cuda", False, TRAJ_STEPS, learning_rate=1e-3)
     curves = {key: r[0] for key, r in runs.items()}
 
     def gap(a, b):
@@ -2157,6 +2191,570 @@ def phase_train_semi(torch):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ files
+FILES_REL = 1e-4    # a metric that reads neither the pipeline's output nor
+#                     the degradation, card vs CPU: f32 reductions in
+#                     another order
+EVAL_SECONDS = 8.0  # evaluate's default clip length
+DEVICES = (("card", "cuda"), ("cpu", "cpu"))
+FLAC_RESTORE_SECONDS = 30.0  # restore_file to FLAC: the numpy FLAC writer
+#                     encodes the 44.1 kHz stereo output on the host
+
+
+def _host_cpu() -> str:
+    """The host CPU for host-side figures: /proc/cpuinfo's model name and,
+    where the machine reports it as unknown, its vendor, family and model
+    numbers; the machine type and the CPU count."""
+    import platform
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    name = fields.get("model name", "unknown")
+    if name == "unknown" and "vendor_id" in fields:
+        name += (f" ({fields['vendor_id']} family "
+                 f"{fields.get('cpu family', '?')} model "
+                 f"{fields.get('model', '?')})")
+    return f"{name}, {platform.machine()}, {os.cpu_count()} CPUs"
+
+
+def _host_ms(fn):
+    """(host ms, result) of one call of fn."""
+    t0 = time.perf_counter()
+    out = fn()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+class _Recorded:
+    """A pipeline whose restore outputs are kept, in call order."""
+
+    def __init__(self, pipe):
+        self.pipe, self.device, self.outputs = pipe, pipe.device, []
+
+    def restore(self, audio, sample_rate):
+        out, rate = self.pipe.restore(audio, sample_rate)
+        self.outputs.append(out.detach().cpu())
+        return out, rate
+
+
+class _Moved:
+    """Replays recorded outputs moved by +-eps in a seeded sign pattern:
+    the pipeline's output at the chain's bar."""
+
+    def __init__(self, outputs, eps, seed):
+        self.device, self.outputs, self.eps = "cpu", list(outputs), eps
+        self.gen = np.random.default_rng(seed)
+
+    def restore(self, audio, sample_rate):
+        import torch
+
+        out = self.outputs.pop(0)
+        sign = self.gen.choice([-1.0, 1.0], size=tuple(out.shape))
+        return out + torch.from_numpy(self.eps * sign).float(), sample_rate
+
+
+# the metrics of each evaluation that read the pipeline's output, and
+# those that read the denoiser evaluation's degradation
+OUTPUT_METRICS = {"snr_restored", "sisdr_restored", "lsd_restored",
+                  "spec_restored", "lsd_model", "correlation_upmix",
+                  "width_upmix"}
+DEGRADED_METRICS = {"snr_degraded", "sisdr_degraded", "lsd_degraded",
+                    "spec_degraded"}
+
+
+def _metric_bars(rows_fn, recorded, rows_cpu):
+    """Per file and metric, the bar card vs CPU: the larger change of the
+    CPU's metric (two seeded sign patterns) when the pipeline's output
+    moves by +-CPU_TOL, the chain's bar, and the degradation by
+    +-DEGRADE_TOL, the simulator's card-vs-CPU bar; for the metrics that
+    read neither, FILES_REL of the value (at least FILES_REL)."""
+    from ml_audio_restoration_torch import evaluate as ev
+
+    simulate = ev.simulate_vinyl_artifacts
+    moved = []
+    try:
+        for seed in (0, 1):
+            signs = np.random.default_rng(seed + 10)
+
+            def moved_degradation(*args, **kw):
+                out = simulate(*args, **kw)
+                sign = signs.choice([-1.0, 1.0], size=tuple(out.shape))
+                return out + _tensor_like(DEGRADE_TOL * sign, out)
+
+            ev.simulate_vinyl_artifacts = moved_degradation
+            moved.append(rows_fn(_Moved(recorded, CPU_TOL, seed)))
+    finally:
+        ev.simulate_vinyl_artifacts = simulate
+    bars = []
+    for i, row in enumerate(rows_cpu):
+        bars.append({k: (max(abs(m[i][k] - v) for m in moved)
+                         if k in OUTPUT_METRICS | DEGRADED_METRICS
+                         else FILES_REL * max(1.0, abs(v)))
+                     for k, v in row.items()})
+    return bars
+
+
+def _tensor_like(array, like):
+    """`array` as a tensor of `like`'s dtype on its device."""
+    import torch
+
+    return torch.from_numpy(array).to(like.device, like.dtype)
+
+
+def _write_eval_files(root):
+    """Eight seeded 8 s mono FLACs at 44.1 kHz in <root>/eval and two
+    stereo ones (L and R decorrelated) in <root>/eval_stereo."""
+    from ml_audio_restoration_torch.audio import save_audio
+
+    rate = 44100
+    for i in range(8):
+        save_audio(os.path.join(root, "eval", f"take_{i}.flac"),
+                   _clip(EVAL_SECONDS, rate, seed=50 + i), rate)
+    for i in range(2):
+        mono = _clip(EVAL_SECONDS, rate, seed=60 + i)[0]
+        side = 0.03 * np.random.default_rng(70 + i).standard_normal(
+            mono.size)
+        save_audio(os.path.join(root, "eval_stereo", f"take_{i}.flac"),
+                   np.stack([mono + side, mono - side]).astype(np.float32),
+                   rate)
+
+
+def _files_flac(torch, L, tmp, pipe, rate, cpu_name):
+    """The 120 s clip through the FLAC writer, the C++ and the numpy
+    decoders (bit for bit, equal to its 16-bit WAV), host ms of each codec;
+    then restore_file .flac -> .flac against .wav -> .wav on the card."""
+    from ml_audio_restoration_torch.audio import (
+        flac, native, read_wav, save_audio, write_wav)
+
+    clip = _clip(120.0, rate, seed=3)
+    paths = {k: os.path.join(tmp, f"clip_{k}") for k in (
+        "a.flac", "numpy.wav", "native.wav")}
+    ms = {}
+    ms["flac_encode_numpy"], _ = _host_ms(
+        lambda: flac.write_flac(paths["a.flac"], clip.T, rate))
+    ms["wav_encode_numpy"], _ = _host_ms(
+        lambda: write_wav(paths["numpy.wav"], clip.T, rate))
+    ms["wav_encode_native"], _ = _host_ms(
+        lambda: native.write_pcm16(paths["native.wav"], clip.T, rate))
+    ms["flac_decode_native"], (a, _) = _host_ms(
+        lambda: native.read(paths["a.flac"]))
+    ms["flac_decode_numpy"], (b, _) = _host_ms(
+        lambda: flac.read_flac(paths["a.flac"]))
+    ms["wav_decode_native"], (c, _) = _host_ms(
+        lambda: native.read(paths["numpy.wav"]))
+    ms["wav_decode_numpy"], (d, _) = _host_ms(
+        lambda: read_wav(paths["numpy.wav"]))
+    decoders_equal = bool(np.array_equal(a, b) and np.array_equal(a, c)
+                          and np.array_equal(c, d)
+                          and np.array_equal(native.read(
+                              paths["native.wav"])[0], c))
+
+    short = clip[:, :int(FLAC_RESTORE_SECONDS * rate)]
+    outs, launches, wall = {}, {}, {}
+    for ext in ("flac", "wav"):
+        src = os.path.join(tmp, f"in.{ext}")
+        dst = os.path.join(tmp, f"out.{ext}")
+        save_audio(src, short, rate)
+        torch.cuda.synchronize()
+        L.reset_launch_count()
+        t0 = time.perf_counter()
+        _, out_rate = pipe.restore_file(src, dst)
+        wall[ext] = time.perf_counter() - t0
+        launches[ext] = L.launch_count
+        outs[ext], got_rate = native.read(dst)
+    row = {"phase": "files_flac", "seconds": 120.0, "host_cpu": cpu_name,
+           "host_ms": ms, "flac_bytes": os.path.getsize(paths["a.flac"]),
+           "wav_bytes": os.path.getsize(paths["numpy.wav"]),
+           "decoders_bit_equal": decoders_equal,
+           "restore_file_seconds": FLAC_RESTORE_SECONDS,
+           "restore_file_wall_s": wall, "restore_file_launches": launches,
+           "flac_out_equals_wav_out": bool(np.array_equal(outs["flac"],
+                                                          outs["wav"])),
+           "out_shape": list(outs["flac"].shape), "out_rate": got_rate}
+    emit(row)
+    if not (decoders_equal and row["flac_out_equals_wav_out"]
+            and got_rate == out_rate == 2 * rate
+            and outs["flac"].shape == (2 * short.shape[1], 2)
+            and launches == {"flac": 1, "wav": 1}):
+        raise AssertionError(f"FLAC files failed: {row}")
+    return launches["flac"]
+
+
+def _write_stage_files(torch, tmp, models):
+    """Each full-width seeded model as the JAX package's .msgpack (params,
+    BN state, EMA weights at half the parameters, name, epoch), written
+    by the port's msgpack writer, and as an upstream .pth."""
+    from ml_audio_restoration_torch.compat import (
+        jax_from_state_dict, msgpack, save_pth)
+
+    names = ("denoiser", "super_resolution", "stereo_separator")
+    files = {"msgpack": [], "pth": [], "state_dicts": []}
+    for name, model in zip(names, models):
+        sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        params, state = jax_from_state_dict(name, sd)
+        ema_sd = dict(sd)
+        for k, _ in model.named_parameters():
+            ema_sd[k] = sd[k] * 0.5
+        payload = {"params": params, "model_state": state,
+                   "ema_params": jax_from_state_dict(name, ema_sd)[0],
+                   "model_name": name, "epoch": np.asarray(0)}
+        path = os.path.join(tmp, f"{name}.msgpack")
+        with open(path, "wb") as f:
+            f.write(msgpack.dumps(payload))
+        files["msgpack"].append(path)
+        files["pth"].append(save_pth(os.path.join(tmp, f"{name}.pth"),
+                                     name, sd))
+        files["state_dicts"].append((sd, ema_sd))
+    return files
+
+
+def _files_msgpack(torch, L, files, rate):
+    """RestorationPipeline.from_checkpoints(*.msgpack) on the card against
+    the pipeline from the same weights' .pth, on the 120 s clip; a
+    StreamingRestorer from the .msgpack files takes one feed."""
+    from ml_audio_restoration_torch.pipeline import (
+        RestorationPipeline, StreamingRestorer)
+
+    clip = _clip(120.0, rate, seed=3)
+    pipes = {kind: RestorationPipeline.from_checkpoints(*files[kind])
+             for kind in ("msgpack", "pth")}
+    outs = {}
+    for kind, pipe in pipes.items():
+        pipe.restore(clip, rate)  # warm-up: cuDNN picks its algorithms
+        torch.cuda.synchronize()
+        L.reset_launch_count()
+        t0 = time.perf_counter()
+        outs[kind], _ = pipe.restore(clip, rate)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if kind == "msgpack":
+            launches, msgpack_wall = L.launch_count, wall
+    stream = StreamingRestorer.from_checkpoints(*files["msgpack"])
+    fed = stream.feed(clip[0, :rate // 2])
+    row = {"phase": "files_msgpack", "seconds": 120.0,
+           "wall_s": msgpack_wall, "xrt": 120.0 / msgpack_wall,
+           "lstm_recurrence_launches": launches,
+           "equals_pth_pipeline": bool(torch.equal(outs["msgpack"],
+                                                   outs["pth"])),
+           "stream_feed_shape": list(fed.shape),
+           "stream_feed_finite": bool(np.isfinite(fed).all())}
+    emit(row)
+    if not (row["equals_pth_pipeline"] and launches == 1
+            and bool(torch.isfinite(outs["msgpack"]).all())
+            and fed.ndim == 2 and fed.shape[0] == 2
+            and row["stream_feed_finite"]):
+        raise AssertionError(f".msgpack serving failed: {row}")
+    del pipes, outs, stream
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _files_export(torch, tmp, files):
+    """cli export of the .msgpack files (with and without --ema) and of a
+    port trainer checkpoint with --ema (one denoiser step at full width, so
+    its EMA differs from its weights): each upstream .pth loads strict and
+    equals its source (num_batches_tracked 0, as the JAX exporter
+    writes)."""
+    from ml_audio_restoration_torch import cli
+    from ml_audio_restoration_torch.compat import load_pth, model_from_state_dict
+    from ml_audio_restoration_torch.config import TrainConfig
+    from ml_audio_restoration_torch.models import AudioDenoiser, init_params
+    from ml_audio_restoration_torch.train.trainer import Trainer
+
+    names = ("denoiser", "super_resolution", "stereo_separator")
+    cases = []
+    for name, path, (sd, ema_sd) in zip(names, files["msgpack"],
+                                        files["state_dicts"]):
+        for ema in (False, True):
+            cases.append((f"{name}{'_ema' if ema else ''}", name, path, ema,
+                          ema_sd if ema else sd))
+    tr = Trainer("denoiser", init_params(AudioDenoiser(),
+                                         torch.Generator().manual_seed(0)),
+                 [], pairing="degrade",
+                 config=TrainConfig(model="denoiser", ema_decay=0.9,
+                                    checkpoint_dir=os.path.join(tmp, "ck")),
+                 device="cuda")
+    batch = {"clean": _mono_batch(2, 22050, 22050, seed=5)}
+    tr._train_step(batch, tr._seeded(0, 0))
+    tr.save_checkpoint("trainer.pth")
+    port_sd = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
+    port_ema = dict(port_sd)
+    port_ema.update({k: v.detach().cpu() for k, v in tr.ema_params.items()})
+    cases.append(("trainer_pth_ema", "denoiser",
+                  os.path.join(tr.checkpoint_dir, "trainer.pth"), True,
+                  port_ema))
+    result = {}
+    for label, name, src, ema, want in cases:
+        out = os.path.join(tmp, f"export_{label}.pth")
+        rc = cli.main(["export", src, out] + (["--ema"] if ema else []))
+        got = load_pth(out)
+        model_from_state_dict(name, got)  # strict=True, or it raises
+        equal = list(got) == list(want) and all(
+            torch.equal(got[k], torch.zeros_like(v)
+                        if k.endswith("num_batches_tracked") else v)
+            for k, v in want.items())
+        result[label] = {"rc": rc, "equal_to_source": equal}
+    ema_moved = not all(torch.equal(port_ema[k], port_sd[k])
+                        for k in tr.ema_params)
+    row = {"phase": "files_export", "exports": result,
+           "trainer_ema_differs_from_weights": ema_moved}
+    emit(row)
+    if not (ema_moved and all(r == {"rc": 0, "equal_to_source": True}
+                              for r in result.values())):
+        raise AssertionError(f"export failed: {row}")
+
+
+def _files_evaluate(torch, L, tmp, files):
+    """The three evaluations of evaluate.py at full width over the FLAC
+    files, on the card and on the CPU, each per-file metric card vs CPU
+    within its bar (_metric_bars); the stereo evaluation again with the
+    plain recurrence on the card (its upmixes at PIPE_TOL of K1's).
+    Returns (K1 launches of the card's stereo run, its shape, the
+    kernel-vs-plain deviation)."""
+    from ml_audio_restoration_torch import evaluate as ev
+    from ml_audio_restoration_torch.audio import find_audio_files
+    from ml_audio_restoration_torch.ops.chunking import num_chunks
+    from ml_audio_restoration_torch.pipeline import RestorationPipeline
+    from ml_audio_restoration_torch.pipeline.restore import _bucket
+
+    _write_eval_files(tmp)
+    mono = find_audio_files(os.path.join(tmp, "eval"))
+    stereo = find_audio_files(os.path.join(tmp, "eval_stereo"))
+    kinds = (("denoiser", 0, lambda p: ev.denoiser_rows(
+                 p, mono, seconds=EVAL_SECONDS, seed=0)),
+             ("super_resolution", 1, lambda p: ev.super_resolution_rows(
+                 p, mono, seconds=EVAL_SECONDS)),
+             ("stereo", 2, lambda p: ev.stereo_rows(
+                 p, stereo, seconds=EVAL_SECONDS)))
+    keys = ("denoiser_path", "super_res_path", "stereo_path")
+    rows, readings = {}, {}
+    for kind, idx, rows_fn in kinds:
+        ck = {keys[idx]: files["msgpack"][idx]}
+        card = _Recorded(RestorationPipeline.from_checkpoints(**ck))
+        cpu = _Recorded(RestorationPipeline.from_checkpoints(**ck,
+                                                             device="cpu"))
+        rows_fn(card)  # warm-up; its outputs are dropped below
+        card.outputs.clear()
+        torch.cuda.synchronize()
+        L.reset_launch_count()
+        t0 = time.perf_counter()
+        got = rows_fn(card)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = L.launch_count
+        t0 = time.perf_counter()
+        want = rows_fn(cpu)
+        cpu_wall = time.perf_counter() - t0
+        bars = _metric_bars(rows_fn, cpu.outputs, want)
+        devs = [{k: abs(g[k] - w[k]) for k in w} for g, w in zip(got, want)]
+        held = len(got) == len(want) > 0 and all(
+            d[k] <= b[k] for d, b in zip(devs, bars) for k in d)
+        readings[kind] = {
+            "files": len(got), "card_wall_s": wall, "cpu_wall_s": cpu_wall,
+            "lstm_recurrence_launches": launches,
+            "worst": {k: {"dev": max(d[k] for d in devs),
+                          "bar": min(b[k] for b in bars)}
+                      for k in want[0]},
+            "held": held, "means": ev._mean_rows(got, ndigits=4)}
+        rows[kind] = (card, launches)
+        if not held or not all(np.isfinite(list(g.values())).all()
+                               for g in got):
+            emit({"phase": "files_evaluate", **readings})
+            raise AssertionError(f"evaluate {kind}: card vs CPU failed")
+    card, launches = rows[kind]
+    kernel_out = list(card.outputs)
+    card.outputs.clear()
+    with L.plain_recurrence():
+        kinds[2][2](card)
+    vs_plain = max(_max_dev(a, b) for a, b in zip(kernel_out, card.outputs))
+    chunk = int(round(card.pipe.config.chunk_seconds * 22050))
+    hop = chunk - int(round(card.pipe.config.overlap_seconds * 22050))
+    b = _bucket(num_chunks(int(EVAL_SECONDS * 22050), chunk, hop))
+    row = {"phase": "files_evaluate", **readings,
+           "stereo_k1_shape": [chunk, b, 64],
+           "stereo_kernel_vs_plain_max_abs": vs_plain,
+           "stereo_kernel_vs_plain_tol": PIPE_TOL}
+    emit(row)
+    if not (vs_plain <= PIPE_TOL and launches == len(stereo)):
+        raise AssertionError(f"evaluate failed: {row}")
+    return launches, (chunk, b), vs_plain
+
+
+def _flac_twin_corpus(root, files: int, seconds: float, stereo: bool):
+    """<root>/wav/wavs and <root>/flac/wavs: the same seeded 16-bit audio
+    as WAV and as FLAC (the training configs read <root>/wavs)."""
+    from ml_audio_restoration_torch.audio import save_audio
+
+    frames = int(seconds * 22050)
+    for i in range(files):
+        x = (_stereo_batch(1, frames, seed=3000 + i)["stereo"][0] if stereo
+             else _mono_batch(1, frames, 22050, seed=3000 + i)[0])
+        for ext in ("wav", "flac"):
+            save_audio(os.path.join(root, ext, "wavs", f"take_{i:03d}.{ext}"),
+                       x, 22050)
+
+
+def _files_train(torch, L, tmp, cpu_name):
+    """train_from_config for two steps (batch 16 of 2 s) and a validation
+    batch of the denoiser and of the stereo separator over a FLAC corpus
+    (48 files, a third held out) and over the same audio as WAV: the first
+    batches and every loss equal bit for bit, K2/K3 counted on the stereo
+    runs. Then the C++ batch reader's mono rows/s against the numpy route
+    over the FLAC and WAV corpora."""
+    from ml_audio_restoration_torch.audio import flac, native, read_wav
+    from ml_audio_restoration_torch.train.trainer import (
+        build_trainer, train_from_config)
+
+    steps, batch, seconds = 2, 16, 2.0
+    out = {"phase": "files_train", "host_cpu": cpu_name, "steps": steps,
+           "batch": batch, "chunk_seconds": seconds}
+    k2k3 = {}
+    for name, stereo in (("denoiser", False), ("stereo_separator", True)):
+        root = os.path.join(tmp, name)
+        t0 = time.perf_counter()
+        _flac_twin_corpus(root, files=48, seconds=2.1, stereo=stereo)
+        corpus_s = time.perf_counter() - t0
+        runs = {}
+        for ext in ("wav", "flac"):
+            cfg, cfg_batch = (_train_config(name, os.path.join(root, ext),
+                                            ck, batch, seconds)
+                              for ck in ("ck", "ck_batch"))
+            cfg.data.val_split = cfg_batch.data.val_split = 1 / 3
+            first = next(iter(build_trainer(
+                cfg_batch, steps_per_epoch=steps).train_loader))
+            torch.cuda.synchronize()
+            L.reset_launch_count()
+            history = train_from_config(cfg, steps_per_epoch=steps)
+            torch.cuda.synchronize()
+            runs[ext] = (first, history, {
+                "lstm_train_fwd": L.train_fwd_launch_count,
+                "lstm_train_bwd": L.train_bwd_launch_count,
+                "lstm_recurrence_validation": L.launch_count})
+        (bw, hw, cw), (bf, hf, cf) = runs["wav"], runs["flac"]
+        out[name] = {
+            "corpus_write_s": corpus_s, "history_flac": hf,
+            "batches_equal": all(np.array_equal(bw[k], bf[k]) for k in bw),
+            "losses_equal": hw == hf, "launches_flac": cf,
+            "launches_wav": cw}
+        if stereo:
+            k2k3 = {k: cf[k] for k in ("lstm_train_fwd", "lstm_train_bwd")}
+    rates = {}
+    mono_root = os.path.join(tmp, "denoiser")
+    for ext, numpy_read in (("flac", flac.read_flac), ("wav", read_wav)):
+        paths = sorted(os.path.join(mono_root, ext, "wavs", p) for p in
+                       os.listdir(os.path.join(mono_root, ext, "wavs")))
+        starts = [i * 331 for i in range(len(paths))]
+        frames = int(seconds * 22050)
+        ms_native, got = _host_ms(lambda: native.read_batch_mono(
+            paths, starts, frames, threads=4))
+
+        def numpy_route():
+            rows = np.zeros((len(paths), frames), np.float32)
+            for row, p, s in zip(rows, paths, starts):
+                data, _ = numpy_read(p, start=s, frames=frames)
+                row[:data.shape[0]] = data.mean(axis=1)
+            return rows
+
+        ms_numpy, want = _host_ms(numpy_route)
+        rates[ext] = {"rows": len(paths), "native_rows_per_s":
+                      len(paths) / ms_native * 1e3,
+                      "numpy_rows_per_s": len(paths) / ms_numpy * 1e3,
+                      "equal": bool(np.array_equal(got, want))}
+    out["read_batch_mono"] = rates
+    emit(out)
+    ok = all(out[n]["batches_equal"] and out[n]["losses_equal"]
+             and np.isfinite(out[n]["history_flac"]["train_loss"]).all()
+             for n in ("denoiser", "stereo_separator"))
+    if not (ok and k2k3 == {"lstm_train_fwd": steps,
+                            "lstm_train_bwd": steps}
+            and out["stereo_separator"]["launches_flac"][
+                "lstm_recurrence_validation"] >= 1
+            and all(r["equal"] for r in rates.values())):
+        raise AssertionError(f"training over FLAC failed: {out}")
+    return k2k3
+
+
+def _files_analyze(torch, tmp, rate):
+    """analyze_78rpm_recording on a FLAC, and compare_synthetic_vs_real
+    with the simulator on the card and on the CPU: the same draws (a CPU
+    generator) give the same degradation within DEGRADE_TOL."""
+    from ml_audio_restoration_torch.audio import (
+        analyze, detect_impulses_analytical, load_audio, save_audio)
+    from ml_audio_restoration_torch.data.artifacts import \
+        simulate_vinyl_artifacts
+
+    path = os.path.join(tmp, "recording.flac")
+    clip = _clip(4.0, rate, seed=2)
+    save_audio(path, clip, rate)
+    with contextlib.redirect_stdout(sys.stderr):
+        report = analyze.analyze_78rpm_recording(path, rate)
+        compared = {label: analyze.compare_synthetic_vs_real(
+            path, clip, rate, seed=7, device=dev) for label, dev in DEVICES}
+    decoded, _ = load_audio(path, rate)
+    want = detect_impulses_analytical(decoded, rate)[2]
+    degraded = {label: simulate_vinyl_artifacts(
+        torch.Generator().manual_seed(7),
+        torch.from_numpy(clip).to(dev), rate).cpu()
+        for label, dev in DEVICES}
+    dev = _max_dev(degraded["card"], degraded["cpu"])
+    row = {"phase": "files_analyze", "impulse_stats": report["impulse_stats"],
+           "synthetic_card": compared["card"]["synthetic"],
+           "synthetic_cpu": compared["cpu"]["synthetic"],
+           "degradation_card_vs_cpu_max_abs": dev, "tol": DEGRADE_TOL}
+    emit(row)
+    if not (report["impulse_stats"] == want and want["num_impulses"] > 0
+            and dev <= DEGRADE_TOL
+            and compared["card"]["real"]["impulse_stats"] == want):
+        raise AssertionError(f"analyze failed: {row}")
+
+
+def phase_files(torch):
+    """The files slice at full published widths with seeded weights: FLAC,
+    .msgpack serving, export, evaluate, training over FLAC and analyze, one
+    line each. Returns the K1, K2 and K3 readings of its paths."""
+    from ml_audio_restoration_torch.audio import codecs
+    from ml_audio_restoration_torch.ops import lstm as L
+    from ml_audio_restoration_torch.pipeline import RestorationPipeline
+
+    cpu_name = _host_cpu()
+    emit({"phase": "files_codecs", "mp3": codecs.mp3_available(),
+          "ogg": codecs.ogg_available(), "host_cpu": cpu_name})
+    dev = torch.device("cuda")
+    models = _models(torch, dev)
+    rate = 22050
+    parts = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        flac_launches = part("flac", _files_flac, torch, L, tmp,
+                             RestorationPipeline(*models), rate, cpu_name)
+        files = part("write_stage_files", _write_stage_files, torch, tmp,
+                     models)
+        del models
+        msgpack_launches = part("msgpack", _files_msgpack, torch, L, files,
+                                rate)
+        part("export", _files_export, torch, tmp, files)
+        eval_launches, eval_shape, eval_dev = part(
+            "evaluate", _files_evaluate, torch, L, tmp, files)
+        k2k3 = part("train", _files_train, torch, L, tmp, cpu_name)
+        part("analyze", _files_analyze, torch, tmp, rate)
+    emit({"phase": "files_parts_s", **parts})
+    return {"k1": {"files_flac_restore": (flac_launches, None, None),
+                   "files_msgpack_restore": (msgpack_launches, None, None),
+                   "evaluate_stereo": (eval_launches, eval_dev, PIPE_TOL)},
+            "evaluate_shape": eval_shape, "k2k3": k2k3}
+
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2241,14 +2839,16 @@ def _k1_at(torch, L, path, t, b, dtype, carry, floor_ns, seed):
     return row
 
 
-def phase_k1_shapes(torch):
+def phase_k1_shapes(torch, evaluate_shape):
     """K1 at the shapes the serving paths give it: the 0.25 s stereo
     windows of a 120 s restore (64 chunks x 10 windows of 11,024 steps)
     in bf16 (fast_serve) and f32, source-rate stereo's 64 chunks of
     44,100 steps, and a streaming feed of 16 streams in
     0.5 s blocks (22,048 committed steps, then 1,040 lookahead steps, both
     from a carry), and the bf16 fast-train preset's validation (64 chunks
-    of 0.5 s, 11,025 steps, bf16). Returns the rows by path."""
+    of 0.5 s, 11,025 steps, bf16), and evaluate's stereo evaluation (the
+    8 s files' bucketed chunks of 2 s at 22.05 kHz, `evaluate_shape` =
+    (T, B) from the files phase). Returns the rows by path."""
     from ml_audio_restoration_torch.ops import _latency
     from ml_audio_restoration_torch.ops import lstm as L
 
@@ -2263,7 +2863,8 @@ def phase_k1_shapes(torch):
             ("serve_source_rate", 44100, 64, torch.float32, False),
             ("stream_committed", 22048, 16, torch.float32, True),
             ("stream_lookahead", 1040, 16, torch.float32, True),
-            ("train_bf16_validation", 11025, 64, torch.bfloat16, False))):
+            ("train_bf16_validation", 11025, 64, torch.bfloat16, False),
+            ("evaluate_stereo", *evaluate_shape, torch.float32, False))):
         rows[path] = _k1_at(torch, L, path, t, b, dtype, carry, floor_ns,
                             seed=10 + i)
     return rows
@@ -2610,6 +3211,14 @@ def phase_stream(torch, k1_rows):
     return launches, vs_plain, PIPE_TOL
 
 
+def _timed_phase(fn, *args):
+    """Run one phase and print its wall seconds on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit({"phase_wall_s": fn.__name__, "seconds": time.perf_counter() - t0})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2619,27 +3228,33 @@ def main() -> int:
     import ml_audio_restoration_torch  # noqa: F401  (fail before any output)
 
     phase_device(torch)
-    phase_build()
-    rows = [phase_kernels(torch)] + phase_train_kernels(torch)
-    phase_main(torch, rows[0])
-    phase_grad(torch)
-    phase_train_small(torch)
-    launches = phase_train_full(torch)
-    phase_train_convnets(torch)
-    bf16 = phase_train_bf16(torch)
-    phase_train_semi(torch)
+    _timed_phase(phase_build)
+    rows = ([_timed_phase(phase_kernels, torch)]
+            + _timed_phase(phase_train_kernels, torch))
+    _timed_phase(phase_main, torch, rows[0])
+    _timed_phase(phase_grad, torch)
+    _timed_phase(phase_train_small, torch)
+    launches = _timed_phase(phase_train_full, torch)
+    _timed_phase(phase_train_convnets, torch)
+    bf16 = _timed_phase(phase_train_bf16, torch)
+    _timed_phase(phase_train_semi, torch)
+    files = _timed_phase(phase_files, torch)
     for row in rows[1:]:
         # the f32 training step's run, then the bf16 preset's (its shape)
         row["launches"] = launches[row["name"]]
         for shape, n in zip(row["shapes"], (launches, bf16)):
             shape["launches"] = n[row["name"]]
-    k1 = phase_k1_shapes(torch)
-    paths = {"serve_fast": phase_serve_fast(torch, k1)}
+        row["path_launches"] = {"train_full": launches[row["name"]],
+                                "train_bf16": bf16[row["name"]],
+                                "files_train_flac": files["k2k3"][row["name"]]}
+    k1 = _timed_phase(phase_k1_shapes, torch, files["evaluate_shape"])
+    paths = {"serve_fast": _timed_phase(phase_serve_fast, torch, k1)}
     paths.update((f"serve_{k}", v)
-                 for k, v in phase_serve_options(torch).items())
+                 for k, v in _timed_phase(phase_serve_options, torch).items())
     paths.update({
-        "serve_many": phase_serve_many(torch),
-        "stream": phase_stream(torch, k1)})
+        "serve_many": _timed_phase(phase_serve_many, torch),
+        "stream": _timed_phase(phase_stream, torch, k1)})
+    paths.update(files["k1"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K1's new shapes, each with the launches of the run of the path that
@@ -2650,7 +3265,8 @@ def main() -> int:
                    "serve_sub_f32": paths["serve_sub_0.25"][0],
                    "serve_source_rate": paths["serve_source_rate"][0],
                    "stream_committed": paths["stream"][0] // 2,
-                   "stream_lookahead": paths["stream"][0] // 2}
+                   "stream_lookahead": paths["stream"][0] // 2,
+                   "evaluate_stereo": paths["evaluate_stereo"][0]}
     rows[0]["shapes"] = [
         {**{key: k1[shape][key] for key in (
             "path", "shape", "dtype", "ms", "plain_ms", "bound_ms",

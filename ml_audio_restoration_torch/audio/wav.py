@@ -7,6 +7,7 @@ either package decodes to the same samples in the other.
 """
 from __future__ import annotations
 
+import io
 import struct
 from pathlib import Path
 
@@ -112,6 +113,24 @@ def read_wav(path, start: int = 0, frames: int = -1):
     # a truncated data chunk leaves a partial last frame: decode whole frames
     raw = raw[:len(raw) // bpf * bpf]
     return _decode(raw, info), info.sample_rate
+
+
+def decode_wav(buf: bytes, always_2d: bool = True):
+    """Decode an in-memory WAV -> (float32 [T, C], sample_rate), or [T]
+    for a mono file when not always_2d. A data chunk shorter than its
+    declared size raises: a body cut off in transit is not decoded."""
+    f = io.BytesIO(buf)
+    info = _parse_header(f)
+    f.seek(info.data_offset)
+    want = min(info.data_size, info.frames * info.channels * info.bits // 8)
+    raw = f.read(want)
+    if len(raw) < want:
+        raise ValueError(f"truncated WAV: data chunk declares {want} "
+                         f"bytes, {len(raw)} present")
+    data = _decode(raw, info)
+    if not always_2d and info.channels == 1:
+        data = data[:, 0]
+    return data, info.sample_rate
 
 
 def encode_wav(data: np.ndarray, sample_rate: int,

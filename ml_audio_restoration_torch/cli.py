@@ -16,14 +16,24 @@
     python -m ml_audio_restoration_torch train super_resolution \
         --data-dir wavs_44k/ --config config/super_resolution.yaml
 
-`restore` restores one WAV file through the chain, or every WAV of a
-directory (coalesced device batches); `stream` feeds recordings block by
+    python -m ml_audio_restoration_torch analyze recording.flac [--plot]
+    python -m ml_audio_restoration_torch evaluate --eval-dir eval/ \
+        --denoiser best_model.msgpack [--stereo st.pth] [--device cpu]
+    python -m ml_audio_restoration_torch export best_model.msgpack \
+        denoiser.pth [--ema]
+
+`restore` restores one recording through the chain, or every recording of
+a directory (coalesced device batches); `stream` feeds recordings block by
 block through the streaming restorer, one lockstep stream per input, or
 raw mono PCM from stdin to stdout (`-`); `train` trains one model family
-on a directory of WAVs: the denoiser on clean mono chunks degraded on the
-device, super-resolution on 44.1 kHz chunks downsampled on the device, the
-stereo separator on stereo chunks. All run on the card unless
-`--device cpu` is given.
+on a directory of recordings: the denoiser on clean mono chunks degraded
+on the device, super-resolution on 44.1 kHz chunks downsampled on the
+device, the stereo separator on stereo chunks; `analyze` prints a
+recording's impulse statistics; `evaluate` measures checkpoints' quality
+on held-out audio; `export` writes a checkpoint as an upstream `.pth`.
+Recordings are WAV, FLAC, mp3 or ogg; checkpoints are upstream `.pth`
+files, the port's trainer checkpoints or the JAX package's `.msgpack`
+files. All run on the card unless `--device cpu` is given.
 """
 from __future__ import annotations
 
@@ -32,7 +42,8 @@ import sys
 
 
 def _add_restore(sub):
-    p = sub.add_parser("restore", help="restore one 78rpm recording (WAV)")
+    p = sub.add_parser("restore", help="restore a 78rpm recording (WAV, "
+                       "FLAC, mp3, ogg) or a directory of them")
     p.add_argument("input")
     p.add_argument("output")
     p.add_argument("--denoiser", default="models/checkpoints/best_model.pth")
@@ -59,6 +70,10 @@ def _add_restore(sub):
                    help="compute dtype")
     p.add_argument("--stereo-chunk-seconds", type=float, default=None,
                    help="internal stereo LSTM window in seconds")
+    p.add_argument("--no-packed-convs", action="store_true",
+                   help="accepted for the JAX package's command line; the "
+                        "port computes the plain layout, which the packed "
+                        "one equals up to float reassociation")
     p.add_argument("--stereo-mid-exact", action="store_true",
                    help="rebuild L/R around the true mid (out = mid +/- "
                         "the predicted side)")
@@ -91,6 +106,8 @@ def _cmd_restore(args):
         config.enable_super_resolution = False
     if args.whole_file:
         config.whole_file = True
+    if args.no_packed_convs:
+        config.packed_convs = False
     if args.stereo_mid_exact:
         config.stereo_mid_exact = True
     if args.stereo_source_rate:
@@ -116,7 +133,7 @@ def _add_stream(sub):
     p = sub.add_parser(
         "stream", help="block-fed (streaming) restore of recordings")
     p.add_argument("inputs", nargs="+",
-                   help="input WAVs, each one lockstep stream of the "
+                   help="input recordings, each one lockstep stream of the "
                         "batched restorer; or '-' for raw PCM on stdin")
     p.add_argument("--output-dir", default="restored_stream")
     p.add_argument("--denoiser", default="models/checkpoints/best_model.pth")
@@ -144,6 +161,10 @@ def _add_stream(sub):
                         "restore)")
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
                    default="float32", help="compute dtype")
+    p.add_argument("--lstm-impl", choices=["pallas", "scan"], default=None,
+                   help="accepted for the JAX package's command line; the "
+                        "port's recurrence is its CUDA kernel on the card "
+                        "and the plain loop on the CPU")
     p.add_argument("--pcm", choices=["f32le", "s16le"], default=None,
                    help="pipe mode (single '-' input): raw mono PCM in this "
                         "format on stdin, restored interleaved PCM on stdout "
@@ -219,7 +240,7 @@ def _cmd_stream(args):
         context=args.context, lookahead=args.lookahead,
         batch=len(args.inputs), mid_exact=args.stereo_mid_exact,
         source_rate=args.stereo_source_rate, compute_dtype=args.dtype,
-        device=args.device)
+        lstm_impl=args.lstm_impl, device=args.device)
     block = max(1, int(round(args.block_seconds * args.sample_rate)))
     if pipe:
         return _stream_pipe(args, restorer, block)
@@ -306,12 +327,119 @@ def _cmd_train(args):
     return 0
 
 
+def _add_analyze(sub):
+    p = sub.add_parser("analyze", help="impulse analytics for a recording")
+    p.add_argument("input")
+    p.add_argument("--sample-rate", type=int, default=22050)
+    p.add_argument("--plot", action="store_true")
+    return p
+
+
+def _cmd_analyze(args):
+    from .audio.analyze import analyze_78rpm_recording
+
+    analyze_78rpm_recording(args.input, sample_rate=args.sample_rate,
+                            plot=args.plot)
+    return 0
+
+
+def _add_evaluate(sub):
+    from . import evaluate
+
+    p = sub.add_parser(
+        "evaluate",
+        help="objective quality metrics (SNR/SI-SDR/LSD) for checkpoints")
+    return evaluate.add_arguments(p)
+
+
+def _cmd_evaluate(args):
+    from . import evaluate
+
+    return evaluate.run(args)
+
+
+def _add_export(sub):
+    p = sub.add_parser(
+        "export",
+        help="export a checkpoint to an upstream-format .pth (loadable by "
+             "the upstream PyTorch project)")
+    p.add_argument("checkpoint",
+                   help="a JAX .msgpack or the port's trainer .pth "
+                        "(self-describing), or an upstream .pth")
+    p.add_argument("output", help="output .pth path")
+    p.add_argument("--model",
+                   choices=["denoiser", "super_resolution",
+                            "stereo_separator"],
+                   default=None,
+                   help="model family (read from self-describing "
+                        "checkpoints; required for an upstream .pth)")
+    p.add_argument("--ema", action="store_true",
+                   help="export the EMA-averaged weights (checkpoint must "
+                        "have been trained with ema_decay > 0)")
+    return p
+
+
+def _fail(message: str) -> int:
+    print(f"error: {message}", file=sys.stderr)
+    return 2
+
+
+def _cmd_export(args):
+    """Write {"epoch", "model_state_dict"} in the upstream layout, from a
+    JAX .msgpack (self-describing), the port's trainer .pth (also
+    self-describing, with `model_state_dict` and `ema_params`) or an
+    upstream .pth (`--model` names its family)."""
+    from .compat import load_pth, save_pth, state_dict_from_jax
+    from .train.checkpoints import load_checkpoint, load_msgpack
+
+    src = str(args.checkpoint)
+    if src.endswith(".pth"):
+        ckpt = load_checkpoint(src)
+        if not (isinstance(ckpt, dict) and "model_name" in ckpt):
+            if args.model is None:
+                return _fail("--model is required for .pth input (.pth "
+                             "state_dicts are not self-describing)")
+            if args.ema:
+                return _fail("--ema needs a native .msgpack checkpoint "
+                             "(reference .pth files carry no EMA weights)")
+            ckpt = {"model_name": args.model, "model_state_dict":
+                    load_pth(src), "epoch": 0}
+        name = str(ckpt["model_name"])
+        sd = dict(ckpt["model_state_dict"])
+        ema = ckpt.get("ema_params")
+    else:
+        ckpt = load_msgpack(src)
+        name = ckpt.get("model_name", args.model)
+        if isinstance(name, bytes):
+            name = name.decode()
+        name = str(name) if name else args.model
+        ema = ckpt.get("ema_params")
+        sd = state_dict_from_jax(name, ckpt["params"], ckpt["model_state"])
+        if ema is not None:
+            ema = state_dict_from_jax(name, ema, ckpt["model_state"])
+    if args.model and name != args.model:
+        return _fail(f"checkpoint is for model {name!r}, not "
+                     f"{args.model!r}")
+    if args.ema:
+        if ema is None:
+            return _fail("checkpoint carries no ema_params (trained with "
+                         "ema_decay == 0)")
+        sd.update((k, v) for k, v in ema.items() if k in sd)
+    save_pth(args.output, name, sd, epoch=int(ckpt.get("epoch", 0)))
+    print(f"exported {name} -> {args.output}"
+          + (" (EMA weights)" if args.ema else ""))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="ml_audio_restoration_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_restore(sub).set_defaults(func=_cmd_restore)
     _add_stream(sub).set_defaults(func=_cmd_stream)
     _add_train(sub).set_defaults(func=_cmd_train)
+    _add_analyze(sub).set_defaults(func=_cmd_analyze)
+    _add_evaluate(sub).set_defaults(func=_cmd_evaluate)
+    _add_export(sub).set_defaults(func=_cmd_export)
     args = parser.parse_args(argv)
     return args.func(args)
 

@@ -1,6 +1,8 @@
-"""Checkpoint interop: JAX pytrees and upstream `.pth` files."""
+"""Checkpoint interop: JAX pytrees, flax msgpack files and upstream `.pth`
+files."""
 from .weights import (
-    MODELS, load_pth, model_from_state_dict, state_dict_from_jax)
+    MODELS, jax_from_state_dict, load_pth, model_from_state_dict, save_pth,
+    state_dict_from_jax)
 
-__all__ = ["MODELS", "load_pth", "model_from_state_dict",
-           "state_dict_from_jax"]
+__all__ = ["MODELS", "jax_from_state_dict", "load_pth",
+           "model_from_state_dict", "save_pth", "state_dict_from_jax"]

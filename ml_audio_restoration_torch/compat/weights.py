@@ -3,9 +3,12 @@
 `state_dict_from_jax` turns the JAX package's `(params, state)` pytrees,
 given as numpy arrays (or anything `np.asarray` takes), into the port's
 state dict, which carries the upstream key names. It is the port's own copy
-of the mapping in ml_audio_restoration_tpu/compat/torch_saver.py.
-`load_pth` reads an upstream `.pth` checkpoint, and `model_from_state_dict`
-builds the model whose shapes the state dict describes.
+of the mapping in ml_audio_restoration_tpu/compat/torch_saver.py, and
+`jax_from_state_dict`, the inverse, is its copy of the converters of
+ml_audio_restoration_tpu/compat/torch_loader.py (numpy arrays out).
+`load_pth` reads an upstream `.pth` checkpoint, `model_from_state_dict`
+builds the model whose shapes the state dict describes, and `save_pth`
+writes the upstream `{"epoch", "model_state_dict"}` file.
 
 Layouts: JAX conv kernels are [k, in, out] -> torch Conv1d [out, in, k];
 JAX transpose-conv kernels are [k, in, out] in torch's kernel order ->
@@ -119,6 +122,132 @@ def state_dict_from_jax(model: str, params, state) -> dict:
     sd = {}
     _FROM_JAX[model](params, state, sd)
     return sd
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _conv_in(sd, prefix):
+    return {"w": np.transpose(_np(sd[f"{prefix}.weight"]), (2, 1, 0)),
+            "b": _np(sd[f"{prefix}.bias"])}
+
+
+def _conv_t_in(sd, prefix):
+    return {"w": np.transpose(_np(sd[f"{prefix}.weight"]), (2, 0, 1)),
+            "b": _np(sd[f"{prefix}.bias"])}
+
+
+def _bn_in(sd, prefix):
+    return ({"scale": _np(sd[f"{prefix}.weight"]),
+             "bias": _np(sd[f"{prefix}.bias"])},
+            {"mean": _np(sd[f"{prefix}.running_mean"]),
+             "var": _np(sd[f"{prefix}.running_var"])})
+
+
+def _conv_bn_in(sd, conv_prefix, bn_prefix):
+    bn_p, bn_s = _bn_in(sd, bn_prefix)
+    return {"conv": _conv_in(sd, conv_prefix), "bn": bn_p}, {"bn": bn_s}
+
+
+def _double_block_in(sd, prefix):
+    c1_p, c1_s = _conv_bn_in(sd, f"{prefix}.0", f"{prefix}.1")
+    c2_p, c2_s = _conv_bn_in(sd, f"{prefix}.3", f"{prefix}.4")
+    return {"c1": c1_p, "c2": c2_p}, {"c1": c1_s, "c2": c2_s}
+
+
+def _denoiser_in(sd):
+    levels = _count(sd, "encoder.{}.0.weight")
+    enc = [_double_block_in(sd, f"encoder.{i}") for i in range(levels)]
+    dec = [_double_block_in(sd, f"decoder.{2 * i + 1}")
+           for i in range(levels)]
+    bott_p, bott_s = _double_block_in(sd, "bottleneck")
+    params = {
+        "encoder": [p for p, _ in enc], "bottleneck": bott_p,
+        "up": [_conv_t_in(sd, f"decoder.{2 * i}") for i in range(levels)],
+        "decoder": [p for p, _ in dec],
+        "transient_detector": [_conv_in(sd, f"transient_detector.{j}")
+                               for j in (0, 2, 4)],
+        "final_conv": _conv_in(sd, "final_conv")}
+    state = {"encoder": [s for _, s in enc], "bottleneck": bott_s,
+             "decoder": [s for _, s in dec]}
+    return params, state
+
+
+def _super_resolution_in(sd):
+    blocks_p, blocks_s = [], []
+    for i in range(_count(sd, "residual_blocks.{}.conv1.weight")):
+        bn1_p, bn1_s = _bn_in(sd, f"residual_blocks.{i}.bn1")
+        bn2_p, bn2_s = _bn_in(sd, f"residual_blocks.{i}.bn2")
+        blocks_p.append({"conv1": _conv_in(sd, f"residual_blocks.{i}.conv1"),
+                         "conv2": _conv_in(sd, f"residual_blocks.{i}.conv2"),
+                         "bn1": bn1_p, "bn2": bn2_p})
+        blocks_s.append({"bn1": bn1_s, "bn2": bn2_s})
+    mid_p, mid_s = _bn_in(sd, "middle.1")
+    params = {
+        "initial": _conv_in(sd, "initial.0"), "blocks": blocks_p,
+        "middle": {"conv": _conv_in(sd, "middle.0"), "bn": mid_p},
+        "upsample": [_conv_t_in(sd, f"upsample_blocks.{i}.0") for i in
+                     range(_count(sd, "upsample_blocks.{}.0.weight"))],
+        "hf": _conv_in(sd, "hf_emphasis.0"),
+        "recon": _conv_in(sd, "reconstruction")}
+    return params, {"blocks": blocks_s, "middle": {"bn": mid_s}}
+
+
+def _stereo_separator_in(sd):
+    params, state = {}, {}
+    params["stem"], state["stem"] = _conv_bn_in(sd, "encoder.0.0",
+                                                "encoder.0.1")
+    blocks = []
+    for i in range(1, _count(sd, "encoder.{}.0.weight")):
+        d_p, d_s = _conv_bn_in(sd, f"encoder.{i}.0", f"encoder.{i}.1")
+        p_p, p_s = _conv_bn_in(sd, f"encoder.{i}.3", f"encoder.{i}.4")
+        blocks.append(({"dilated": d_p, "pointwise": p_p},
+                       {"dilated": d_s, "pointwise": p_s}))
+    params["blocks"] = [p for p, _ in blocks]
+    state["blocks"] = [s for _, s in blocks]
+    params["lstm"] = [
+        {"w_ih": _np(sd[f"lstm.weight_ih_l{k}"]).T,
+         "w_hh": _np(sd[f"lstm.weight_hh_l{k}"]).T,
+         "b_ih": _np(sd[f"lstm.bias_ih_l{k}"]),
+         "b_hh": _np(sd[f"lstm.bias_hh_l{k}"])}
+        for k in range(_count(sd, "lstm.weight_ih_l{}"))]
+    for side in ("left", "right"):
+        prefix = f"{side}_decoder"
+        layers = [_conv_bn_in(sd, f"{prefix}.{a}", f"{prefix}.{a + 1}")
+                  for a in (0, 3, 6)]
+        params[side] = {"l1": layers[0][0], "l2": layers[1][0],
+                        "l3": layers[2][0],
+                        "final": _conv_in(sd, f"{prefix}.9")}
+        state[side] = {"l1": layers[0][1], "l2": layers[1][1],
+                       "l3": layers[2][1]}
+    return params, state
+
+
+_TO_JAX = {"denoiser": _denoiser_in, "super_resolution": _super_resolution_in,
+           "stereo_separator": _stereo_separator_in}
+
+
+def jax_from_state_dict(model: str, sd: dict):
+    """The port's (upstream) state dict of `model` -> the JAX package's
+    `(params, state)` pytrees of numpy arrays, the layout its `.msgpack`
+    checkpoints hold."""
+    if model not in _TO_JAX:
+        raise KeyError(f"unknown model {model!r}; expected {MODELS}")
+    return _TO_JAX[model](sd)
+
+
+def save_pth(path, model: str, sd: dict, epoch: int = 0):
+    """Write the upstream `{"epoch", "model_state_dict"}` checkpoint of
+    `model` from a state dict, through the JAX layout and back, so the file
+    holds the upstream keys in their order with `num_batches_tracked` 0,
+    as the JAX package's exporter writes them."""
+    out = state_dict_from_jax(model, *jax_from_state_dict(model, sd))
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"epoch": epoch, "model_state_dict": out}, str(path))
+    return path
 
 
 def load_pth(path) -> dict:

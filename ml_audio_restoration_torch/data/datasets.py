@@ -12,28 +12,16 @@ derives (input, target) from each batch on the device as the dataset's
 """
 from __future__ import annotations
 
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
 from ..audio import (
     detect_impulses_analytical, find_audio_files, load_audio,
-    load_audio_chunk, normalize_audio, read_wav, wav_info)
+    load_audio_chunk, native, normalize_audio)
 
 # what the degraded directories of the semi-supervised datasets list
 DEGRADED_EXTENSIONS = (".wav", ".mp3", ".flac")
-
-
-def _wav_only(files, directory):
-    """Raise on the files the port cannot read yet."""
-    other = [p for p in files if p.suffix.lower() != ".wav"]
-    if other:
-        raise NotImplementedError(
-            f"{len(other)} non-WAV file(s) in {directory}, e.g. "
-            f"{other[0]}: FLAC and mp3/ogg are not ported yet (ROADMAP "
-            f"item 4)")
-    return files
 
 
 class ChunkDataset:
@@ -56,7 +44,6 @@ class ChunkDataset:
             extensions=extensions or (".wav", ".mp3", ".flac", ".ogg"))
         if not self.files:
             raise ValueError(f"No audio files found in {data_dir}")
-        _wav_only(self.files, data_dir)
         self.rng = np.random.default_rng(seed)
 
     def __len__(self):
@@ -78,19 +65,19 @@ class ChunkDataset:
 
 
 class _MonoBatchReadMixin:
-    """The batch read route of the JAX package's mono datasets, whose
-    DataLoader takes it when the native reader loads: one start drawn for
-    every item, `rng.integers(0, max(frames - chunk, 0) + 1)` (for a file
-    no longer than the chunk that range is {0}, which numpy returns without
-    a draw, as the per-item route draws none), mono rows zero-padded to
-    the chunk, and the -20 dB RMS normalization and clip guard vectorized
-    over the batch with each row's RMS over its true length. Here the rows
-    are numpy seek reads. A batch with a non-WAV file, or a file at
-    another rate, falls back to per-item reads after the starts already
-    drawn, as there. `threads` (the loader passes its `num_workers`) read
-    the rows in parallel, as the JAX package spreads them over its native
-    reader's threads; the starts are drawn first, so the batch does not
-    depend on the count."""
+    """The batch read route of the JAX package's mono datasets, which the
+    DataLoader takes through `getitems`: one start drawn for every item,
+    `rng.integers(0, max(frames - chunk, 0) + 1)` (for a file no longer
+    than the chunk that range is {0}, which numpy returns without a draw,
+    as the per-item route draws none), then one call of the C++ codec's
+    batch reader (`native.read_batch_mono`) decodes every mono row, each
+    zero-padded to the chunk, over `threads` threads (the loader passes
+    its `num_workers`), and the -20 dB RMS normalization and clip guard
+    run vectorized over the batch with each row's RMS over its true
+    length. The starts are drawn before the read, so the batch does not
+    depend on the thread count. A batch with a file that is not WAV or
+    FLAC, at another rate, or that the codec cannot read falls back to
+    per-item reads after the starts already drawn, as there."""
 
     def getitems(self, indices, threads: int = 1):
         paths = [self.files[i] for i in indices]
@@ -98,24 +85,16 @@ class _MonoBatchReadMixin:
             return [self[i] for i in indices]
         starts, lengths = [], []
         for p in paths:
-            try:
-                meta = wav_info(p)
-            except (OSError, ValueError):
-                meta = None
-            if meta is None or meta.sample_rate != self.sample_rate:
+            meta = native.info(p)
+            if meta is None or meta["sample_rate"] != self.sample_rate:
                 return [self[i] for i in indices]
-            max_start = max(meta.frames - self.chunk_size, 0)
+            max_start = max(meta["frames"] - self.chunk_size, 0)
             starts.append(int(self.rng.integers(0, max_start + 1)))
-            lengths.append(min(meta.frames, self.chunk_size))
-        batch = np.zeros((len(paths), self.chunk_size), np.float32)
-
-        def read(row, p, start):
-            data, _ = read_wav(p, start=start, frames=self.chunk_size)
-            row[:data.shape[0]] = (data[:, 0] if data.shape[1] == 1
-                                   else data.mean(axis=1))
-
-        with ThreadPoolExecutor(max(1, min(threads, len(paths)))) as pool:
-            list(pool.map(read, batch, paths, starts))
+            lengths.append(min(meta["frames"], self.chunk_size))
+        batch = native.read_batch_mono(paths, starts, self.chunk_size,
+                                       threads=max(1, threads))
+        if batch is None:
+            return [self[i] for i in indices]
         lens = np.maximum(np.asarray(lengths, np.float32)[:, None], 1.0)
         rms = np.sqrt(np.sum(batch**2, axis=1, keepdims=True) / lens)
         gain = np.where(rms == 0, 1.0,
@@ -206,9 +185,8 @@ class MixedRestorationDataset(ChunkDataset):
                          mono=True, **kw)
         self.degraded_files = []
         if degraded_data_dir and Path(degraded_data_dir).is_dir():
-            self.degraded_files = _wav_only(find_audio_files(
-                degraded_data_dir, extensions=DEGRADED_EXTENSIONS),
-                degraded_data_dir)
+            self.degraded_files = find_audio_files(
+                degraded_data_dir, extensions=DEGRADED_EXTENSIONS)
         total = len(self.files)
         if self.degraded_files:
             self.num_synthetic = int(total * synthetic_ratio)
@@ -259,7 +237,6 @@ class AdaptiveArtifactDataset(ChunkDataset):
         if not self.degraded_files:
             raise ValueError(
                 f"No reference recordings in {reference_degraded_dir}")
-        _wav_only(self.degraded_files, reference_degraded_dir)
         self.analyze_every = analyze_every
         self._counter = 0
         self._epoch = 0

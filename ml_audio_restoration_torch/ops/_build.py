@@ -1,13 +1,14 @@
-"""Build and load the package's CUDA kernels.
+"""Build and load the package's native libraries.
 
-Each source under `csrc/` is compiled with nvcc for sm_90a into a shared
-library with a plain C interface and loaded with ctypes. The build runs at
-first use, into `build/kernels/` beside the package (listed in .gitignore),
-and the library name carries a hash of the source, of every header it
-includes with quotes (`csrc/*.cuh`, followed recursively) and of the nvcc
-flags, so an edited source or header is rebuilt and a stale library is
-never loaded. Nothing here runs at import time: the CPU tests import every
-module on a host with no nvcc.
+Each CUDA source under `csrc/` is compiled with nvcc for sm_90a into a
+shared library with a plain C interface and loaded with ctypes; the host
+libraries of HOST_LIBRARIES (the audio codec) are compiled the same way
+with g++. The build runs at first use, into `build/kernels/` beside the
+package (listed in .gitignore), and the library name carries a hash of the
+sources, of every header they include with quotes (followed recursively)
+and of the compiler flags, so an edited source or header is rebuilt and a
+stale library is never loaded. Nothing here runs at import time: the CPU
+tests import every module on a host with no nvcc.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -25,10 +27,15 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+GXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-pthread", "-shared"]
+#: libraries built with g++ for the host: name -> translation units in csrc/
+HOST_LIBRARIES = {"wavio": ("wavio.cpp", "flacio.cpp")}
 
 _INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# one load (and build) at a time: a build's temp name is per process
+_lock = threading.Lock()
 build_seconds: dict[str, float] = {}
 
 
@@ -60,37 +67,62 @@ def sources(src: Path) -> list[Path]:
     return found
 
 
+def _units(name: str) -> list[Path]:
+    """The translation units of library `name`: csrc/<name>.cu, or the
+    sources HOST_LIBRARIES lists."""
+    return [CSRC / u for u in HOST_LIBRARIES.get(name, (f"{name}.cu",))]
+
+
+def _flags(name: str) -> list[str]:
+    return GXX_FLAGS if name in HOST_LIBRARIES else NVCC_FLAGS
+
+
 def library_path(name: str) -> Path:
-    """Where the library of csrc/<name>.cu, as its sources and the flags
-    stand now, is built."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources(CSRC / f"{name}.cu"):
+    """Where library `name`, as its sources and the flags stand now, is
+    built."""
+    digest = hashlib.sha256(" ".join(_flags(name)).encode())
+    hashed: list[Path] = []
+    for unit in _units(name):
+        hashed += [p for p in sources(unit) if p not in hashed]
+    for path in hashed:
         digest.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the audio codec is built with g++")
+    return found
+
+
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless a library of these exact sources
+    """Compile library `name` unless a library of these exact sources
     exists. Returns the library path; records the compile time in
-    build_seconds."""
-    src = CSRC / f"{name}.cu"
+    build_seconds. A failed compile raises with the compiler's output."""
     lib = library_path(name)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    compiler = _gxx() if name in HOST_LIBRARIES else _nvcc()
+    cmd = [compiler, *_flags(name), "-o", str(tmp),
+           *(str(u) for u in _units(name))]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+        raise RuntimeError(f"{Path(compiler).name} failed for {name}:\n"
+                           f"{proc.stderr}")
     os.replace(tmp, lib)  # atomic: a loader never sees a partial file
     build_seconds[name] = time.perf_counter() - t0
     return lib
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu; cached per process."""
-    if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build(name)))
-    return _loaded[name]
+    """Build (if needed) and load library `name`; cached per process. The
+    CDLL is local to its handle (RTLD_LOCAL), so libraries exporting the
+    same symbols, like the JAX package's codec, do not interpose."""
+    with _lock:
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(str(build(name)))
+        return _loaded[name]

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..audio import find_audio_files, load_audio, normalize_audio, save_audio
-from ..compat import load_pth, model_from_state_dict
+from ..compat import load_pth, model_from_state_dict, state_dict_from_jax
 from ..config import PipelineConfig, check_pipeline_config
 from ..models import cast_model
 from ..ops import frame_structured, num_chunks, overlap_add, upsample_linear
@@ -54,17 +54,23 @@ def no_tf32():
 
 
 def load_stage(path, name: str, device="cpu") -> Optional[nn.Module]:
-    """Load one stage from an upstream `.pth`; None passes through."""
+    """Load one stage from an upstream `.pth` or a JAX package `.msgpack`
+    checkpoint (dispatch on the extension: anything but `.pth` is a
+    native checkpoint, as in the JAX package); None passes through."""
     if path is None:
         return None
     p = str(path)
     if not os.path.exists(p):
         raise FileNotFoundError(
             f"{name} checkpoint not found: {p!r} - pass an upstream .pth or "
-            f"disable the stage (--no-denoise/--no-super-res/--no-stereo)")
-    if not p.endswith(".pth"):
-        raise ValueError(f"{p!r}: the port loads .pth checkpoints only")
-    return model_from_state_dict(name, load_pth(p), device)
+            f"a JAX .msgpack checkpoint, or disable the stage (--no-denoise/"
+            f"--no-super-res/--no-stereo)")
+    if p.endswith(".pth"):
+        return model_from_state_dict(name, load_pth(p), device)
+    from ..train.checkpoints import load_native
+
+    sd = state_dict_from_jax(name, *load_native(p))
+    return model_from_state_dict(name, sd, device)
 
 
 def _bucket(n: int, granularity: int = 4) -> int:
@@ -147,7 +153,8 @@ class RestorationPipeline:
     @classmethod
     def from_checkpoints(cls, denoiser_path=None, super_res_path=None,
                          stereo_path=None, config=None, device="cuda"):
-        """Load the stages from upstream `.pth` checkpoints."""
+        """Load the stages from upstream `.pth` or JAX `.msgpack`
+        checkpoints (load_stage)."""
         dev = resolve_device(device)
         return cls(denoiser=load_stage(denoiser_path, "denoiser", dev),
                    super_resolution=load_stage(super_res_path,
@@ -389,8 +396,9 @@ class RestorationPipeline:
     def restore_file(self, input_path, output_path,
                      sample_rate: Optional[int] = None,
                      normalize: bool = True):
-        """WAV file to WAV file: load (mono, resampled), normalize, restore,
-        normalize the output, save PCM_16."""
+        """File to file: load (any of AUDIO_EXTENSIONS; mono, resampled),
+        normalize, restore, normalize the output and save it in the
+        container its extension names (16-bit WAV or FLAC, mp3, ogg)."""
         sr_in = sample_rate or self.config.sample_rate
         audio, _ = load_audio(input_path, sample_rate=sr_in, mono=True)
         if normalize:
@@ -405,8 +413,9 @@ class RestorationPipeline:
                           suffix: str = "_restored",
                           normalize: bool = True,
                           coalesce: int = 4):
-        """Restore every WAV in `input_dir` (not recursive) into
-        `output_dir` as `<stem><suffix>.wav`, files equal to restore_file's.
+        """Restore every audio file in `input_dir` (WAV, FLAC, mp3, ogg; not
+        recursive) into `output_dir` as `<stem><suffix>.wav`, as the JAX
+        package names them, files equal to restore_file's.
 
         `coalesce` files go to the card as one batch (`restore_many`; 1 =
         one `restore` a file). One thread decodes the next batch while the

@@ -136,8 +136,8 @@ class StreamingRestorer:
     @classmethod
     def from_checkpoints(cls, denoiser_path=None, super_res_path=None,
                          stereo_path=None, device="cuda", **kwargs):
-        """Load the stages from upstream `.pth` checkpoints; other kwargs
-        go to the constructor."""
+        """Load the stages from upstream `.pth` or JAX `.msgpack`
+        checkpoints (load_stage); other kwargs go to the constructor."""
         dev = resolve_device(device)
         return cls(denoiser=load_stage(denoiser_path, "denoiser", dev),
                    super_resolution=load_stage(super_res_path,

@@ -6,9 +6,11 @@ carries the model's state dict under the upstream key `model_state_dict`
 progress, history and the model family. Retention keeps the newest epoch
 checkpoint plus best_model; resume walks them newest first.
 
-The format is torch.save (`checkpoint_epoch_{n}.pth`, `best_model.pth`),
-since flax/msgpack is not on the card's machine; reading the JAX package's
-`.msgpack` checkpoints is not ported yet (ROADMAP item 4).
+The format is torch.save (`checkpoint_epoch_{n}.pth`, `best_model.pth`).
+The JAX package's checkpoints are flax msgpack files; `load_msgpack` and
+`load_native` read them through compat/msgpack.py (neither flax nor
+msgpack is on the card's machine), for their weights: the port's trainer
+resumes from its own `.pth` only.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ import warnings
 from pathlib import Path
 
 import torch
+
+from ..compat import msgpack
 
 
 def _to_cpu(obj):
@@ -63,6 +67,22 @@ def load_checkpoint(path) -> dict:
     """Read a checkpoint written by save_checkpoint, onto the CPU. Tensors
     and plain containers only (weights_only=True)."""
     return torch.load(str(path), map_location="cpu", weights_only=True)
+
+
+def load_msgpack(path) -> dict:
+    """Read a checkpoint the JAX package wrote (flax msgpack): a dict of
+    numpy arrays, lists and scalars, as `flax.serialization.
+    msgpack_restore` returns it."""
+    with open(path, "rb") as f:
+        return msgpack.loads(f.read())
+
+
+def load_native(path, model: str | None = None):
+    """`(params, model_state)` of a JAX package checkpoint. `model` is
+    accepted for symmetry with the `.pth` loaders; the checkpoint is
+    self-describing."""
+    ckpt = load_msgpack(path)
+    return ckpt["params"], ckpt["model_state"]
 
 
 class AsyncCheckpointer:

@@ -157,13 +157,29 @@ def test_super_resolution_loader_equals_jax(tmp_path):
 
 
 def test_dataset_options(tmp_path):
+    """The pairings, and a FLAC corpus (once refused): 16-bit FLAC twins of
+    16-bit WAVs give the denoiser's batch route and the SR set's per-item
+    route the WAV batches bit for bit."""
     root = _corpus(tmp_path / "wavs", n=2)
     assert RestorationDataset(root).pairing == "degrade"
     assert RestorationDataset(root, add_artifacts=False).pairing == "identity"
-    (root / "x.flac").write_bytes(b"fLaC")
-    for cls in (RestorationDataset, SuperResolutionDataset):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-            cls(root)
+    rng = np.random.default_rng(3)
+    for rate, name in ((SR, "mono"), (44100, "high")):
+        for i, length in enumerate((3000, 1000, 6000)):
+            x = (rng.standard_normal((1, length)) * 0.1).astype(np.float32)
+            for ext in ("wav", "flac"):
+                save_audio(tmp_path / f"{name}_{ext}" / f"f{i}.{ext}", x,
+                           rate)
+    for cls, name, key in ((RestorationDataset, "mono", "clean"),
+                           (SuperResolutionDataset, "high", "high")):
+        wav, flac = (cls(tmp_path / f"{name}_{ext}", chunk_duration=CHUNK_S,
+                         seed=3) for ext in ("wav", "flac"))
+        assert all(p.suffix == ".flac" for p in flac.files)
+        for _ in range(2):
+            got = _batches(DataLoader(flac, 2, seed=11))
+            want = _batches(DataLoader(wav, 2, seed=11))
+            _assert_batches_equal(got, want, key,
+                                  (2, 1, flac.chunk_size))
 
 
 # ------------------------------------------------------------ entry points

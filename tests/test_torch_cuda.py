@@ -20,6 +20,9 @@ seeded bf16 runs of each family equal bit for bit, and the f32 training LSTM
 (`LSTMTrain`) equal bit for bit to the fused-bias projection and
 `LSTMRecurrenceTrain`. The conv-net families: the 78rpm degradation 1e-5
 against the CPU on the same draws, and two seeded runs equal bit for bit.
+Files: a FLAC corpus through the C++ batch reader feeding a card step, equal
+to its WAV twin bit for bit, and a `.msgpack` pipeline on the card equal to
+its `.pth` twin bit for bit.
 """
 import contextlib
 
@@ -385,3 +388,71 @@ def test_convnet_runs_repeat_bit_for_bit(card, name, pairing, key):
         losses.append(float(tr._train_step(
             batch, torch.Generator().manual_seed(5))["loss"]))
     assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+
+
+# ------------------------------------------------- files: FLAC, .msgpack
+@pytest.mark.cuda
+def test_native_batch_reader_feeds_a_card_step(card, tmp_path):
+    """A FLAC corpus read by the C++ batch reader (RestorationDataset's
+    `getitems`, two threads) feeds a denoiser step on the card; the same
+    audio as 16-bit WAV gives the same batch and the same loss, bit for
+    bit."""
+    from ml_audio_restoration_torch.audio import save_audio
+    from ml_audio_restoration_torch.data import DataLoader, RestorationDataset
+
+    for i in range(4):
+        x = _mono(1, 6000 + 500 * i, i)[0]
+        for ext in ("wav", "flac"):
+            save_audio(tmp_path / ext / f"f{i}.{ext}", x, 22050)
+    config = TrainConfig(model="denoiser", spectral_weight=0.0)
+    batches, losses = [], []
+    for ext in ("wav", "flac"):
+        ds = RestorationDataset(tmp_path / ext, chunk_duration=0.2, seed=1)
+        batch = next(iter(DataLoader(ds, 4, seed=2, num_workers=2)))
+        tr = Trainer("denoiser", init_params(
+            AudioDenoiser(features=(8, 16)),
+            torch.Generator().manual_seed(0)), [], pairing="degrade",
+            config=config, device=card)
+        losses.append(float(tr._train_step(batch, tr._seeded(0, 0))["loss"]))
+        batches.append(batch["clean"])
+    assert np.array_equal(batches[0], batches[1])
+    assert losses[0] == losses[1] and np.isfinite(losses[0])
+
+
+@pytest.mark.cuda
+def test_msgpack_pipeline_equals_its_pth_twin_on_the_card(card, tmp_path):
+    """A pipeline from `.msgpack` files (the port's writer, the JAX
+    package's layout) restores on the card through K1 bit for bit like the
+    pipeline from the same weights' `.pth` files."""
+    from ml_audio_restoration_torch.compat import (
+        jax_from_state_dict, msgpack, save_pth)
+    from ml_audio_restoration_torch.config import PipelineConfig
+    from ml_audio_restoration_torch.pipeline import RestorationPipeline
+
+    models = {"denoiser": AudioDenoiser(features=(8, 16)),
+              "super_resolution": AudioSuperResolution(
+                  base_channels=8, num_residual_blocks=2),
+              "stereo_separator": StereoSeparator(base_channels=8,
+                                                  lstm_hidden=16)}
+    files = {"msgpack": [], "pth": []}
+    for i, (name, model) in enumerate(models.items()):
+        sd = init_params(model, torch.Generator().manual_seed(i)).state_dict()
+        params, state = jax_from_state_dict(name, sd)
+        path = tmp_path / f"{name}.msgpack"
+        path.write_bytes(msgpack.dumps({"params": params,
+                                        "model_state": state,
+                                        "model_name": name}))
+        files["msgpack"].append(path)
+        files["pth"].append(save_pth(tmp_path / f"{name}.pth", name, sd))
+    audio = _mono(1, 30000, 3)[0]
+    outs = []
+    for kind in ("msgpack", "pth"):
+        pipe = RestorationPipeline.from_checkpoints(
+            *files[kind], config=PipelineConfig(chunk_seconds=0.5),
+            device=card)
+        L.reset_launch_count()
+        out, rate = pipe.restore(audio, 22050)
+        assert L.launch_count == 1 and rate == 44100
+        outs.append(out)
+    assert outs[0].shape == (2, 60000) and torch.isfinite(outs[0]).all()
+    assert torch.equal(outs[0], outs[1])

@@ -1,13 +1,14 @@
 """The port, chip_smoke.py and the port's scripts on the card (the kernel
 ablation and the train-step A/B) import nothing of JAX or the JAX
-package."""
+package, nor flax or msgpack, which the card's machine lacks (the port
+reads flax's msgpack files with its own compat/msgpack.py)."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "ml_audio_restoration_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ml_audio_restoration_tpu", "flax", "msgpack")
 FILES = sorted((ROOT / "ml_audio_restoration_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_lstm_ablation.py",
     ROOT / "scripts" / "torch_train_ab.py"]

@@ -47,7 +47,7 @@ from ml_audio_restoration_tpu.train import trainer as JT
 from ml_audio_restoration_tpu.train.trainer import Trainer as JTrainer
 from ml_audio_restoration_torch import cli
 from ml_audio_restoration_torch.audio import (
-    detect_impulses_analytical, save_audio)
+    detect_impulses_analytical, load_audio, save_audio)
 from ml_audio_restoration_torch.compat import state_dict_from_jax
 from ml_audio_restoration_torch.config import ArtifactConfig, TrainConfig
 from ml_audio_restoration_torch.config import load_config
@@ -340,12 +340,29 @@ def test_adaptive_dataset_equals_jax(corpora):
         assert ds.artifact_params == jds.artifact_params
 
 
-def test_degraded_dirs_take_wav_only(corpora):
+def test_degraded_dirs_take_wav_only(corpora, tmp_path):
+    """(Named for the refusal it pinned before FLAC was ported.) Degraded
+    directories of FLACs are read: 16-bit FLAC twins of 16-bit WAVs give
+    the mixed and adaptive sets the same items and fitted statistics, equal
+    to the JAX package's over the FLACs."""
     clean, real = corpora
-    (real / "x.flac").write_bytes(b"fLaC")
-    for cls in (MixedRestorationDataset, AdaptiveArtifactDataset):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-            cls(clean, real)
+    for path in sorted(real.glob("*.wav")):
+        x, _ = load_audio(path, None, mono=False)
+        for ext in ("wav", "flac"):
+            save_audio(tmp_path / f"real_{ext}" / f"{path.stem}.{ext}", x, SR)
+    kw = dict(sample_rate=SR, chunk_duration=CHUNK_S, seed=9)
+    for cls, jcls, extra in ((MixedRestorationDataset, JMixed,
+                              dict(synthetic_ratio=0.5,
+                                   use_contrastive=True)),
+                             (AdaptiveArtifactDataset, JAdaptive, {})):
+        wav, flac, flac2 = (cls(clean, tmp_path / f"real_{ext}", **kw,
+                                **extra) for ext in ("wav", "flac", "flac"))
+        jflac = jcls(clean, tmp_path / "real_flac", **kw, **extra)
+        assert all(p.suffix == ".flac" for p in flac.degraded_files)
+        assert (getattr(flac, "artifact_params", None)
+                == getattr(wav, "artifact_params", None))
+        _items_equal(flac, wav, len(flac))
+        _items_equal(jflac, flac2, len(flac))
     with pytest.raises(ValueError, match="No reference recordings"):
         AdaptiveArtifactDataset(clean, clean / "missing")
 

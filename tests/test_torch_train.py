@@ -599,10 +599,26 @@ def test_native_rate_quirk_matches_jax(tmp_path):
 
 
 def test_flac_in_corpus_raises(tmp_path):
-    root = _write_corpus(tmp_path / "wavs", n=2)
-    (root / "x.flac").write_bytes(b"fLaC")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        StereoDataset(root, SR, 0.1)
+    """(Named for the refusal it pinned before FLAC was ported.) A FLAC
+    corpus is read: the same audio as 16-bit WAVs and as 16-bit FLACs (a
+    mono file, a short one, stereo ones) gives StereoDataset the same
+    items bit for bit, and the JAX package's StereoDataset reads the FLACs
+    to the same items."""
+    rng = np.random.default_rng(7)
+    for i, (ch, length) in enumerate([(2, 3000), (1, 3000), (2, 1000)]):
+        x = (rng.standard_normal((ch, length)) * 0.1).astype(np.float32)
+        for ext in ("wav", "flac"):
+            save_audio(tmp_path / ext / f"f{i}.{ext}", x, SR)
+    wav, flac = (StereoDataset(tmp_path / ext, SR, 0.1, seed=1)
+                 for ext in ("wav", "flac"))
+    jflac = JStereoDataset(tmp_path / "flac", SR, 0.1, seed=1)
+    assert [p.suffix for p in flac.files] == [".flac"] * 3
+    for _ in range(2):  # two epochs of draws
+        for i in range(3):
+            got = flac[i]["stereo"]
+            np.testing.assert_array_equal(got, wav[i]["stereo"])
+            np.testing.assert_array_equal(got, jflac[i]["stereo"])
+            assert got.shape == (2, int(SR * 0.1))
 
 
 def test_abandoned_loader_iterator_releases_worker():
