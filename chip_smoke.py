@@ -109,9 +109,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
                single streams, one feed against the plain recurrence, bf16
                against f32; per-feed ms, the slowest call (a feed or the
                flush) with any window length warmup did not run (none
-               may), and K1 launches a feed.
+               may), and K1 launches a feed;
+ 16. int8    - int8 serving (csrc/int8_conv.cu): the kernel against its
+               plain version bit for bit on 2 chunk rows of every distinct
+               int8 layer of the default program, the full-scope program
+               and config/fast_serve_int8.yaml's; each default layer timed
+               at the full batch (64 x 2 s) beside its bound, the plain
+               version, torch._int_mm over an im2col plus the epilogue
+               (where its shape rules allow) and cuDNN's f32 and bf16 conv
+               of the same packed layer; the 120 s clip through restore
+               with quantize_int8 (calibration s, xRT and stage split
+               beside the f32 default's and fast_serve's, K1 once, 35
+               int8-conv launches, vs f32, the same restore through the
+               plain int8 conv bit for bit), card vs CPU on 4 s with the
+               same scales, a scales file saved and reloaded (bit for bit,
+               no recalibration), the preset (K1 once at T=11,024 B=640
+               bf16, no int8 launch in its stereo stage), one full-scope
+               restore, and 16 lockstep int8 streams on one preloaded
+               scales dict against float streams and single int8 streams.
 Each phase's wall seconds follow it on a line {"phase_wall_s": ...}.
-Then one line {"kernels": [...]} and, last, the device line
+Then one line {"kernels": [...]} (K1, K2, K3 and the int8 conv, whose
+numbers sum its layers over one 64-chunk program) and, last, the device line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Imports nothing of JAX.
 """
@@ -183,7 +201,7 @@ def phase_build():
     from ml_audio_restoration_torch.audio import native
     from ml_audio_restoration_torch.ops import _build, _latency
 
-    sources = ("lstm_recurrence", "lstm_train", _latency.PROBE,
+    sources = ("lstm_recurrence", "lstm_train", "int8_conv", _latency.PROBE,
                native.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -3211,6 +3229,563 @@ def phase_stream(torch, k1_rows):
     return launches, vs_plain, PIPE_TOL
 
 
+# --------------------------------------------------------------- int8 phase
+H100_INT8_OPS = 1979e12  # int8 operands, dense, on the tensor cores (same)
+INT8_STREAM_SECONDS = 10.0
+INT8_REL = 0.05  # int8 vs f32, mean |difference| over mean |f32| (JAX
+#                  tests/test_quant.py's bar for its int8 pipeline)
+
+
+@contextlib.contextmanager
+def _int8_capture(calls):
+    """Record every int8 conv call as (layer, x, weight, kwargs): ops/
+    quant.py's executor names the layer, its int8_conv the call."""
+    from ml_audio_restoration_torch.ops import quant
+
+    make, conv, layer = quant.int8_exec, quant.int8_conv, [None]
+
+    def named_exec(x_scale, cache=None, key=None):
+        ex = make(x_scale, cache, key)
+
+        def _exec(xq, kernel, **kw):
+            layer[0] = key
+            return ex(xq, kernel, **kw)
+        return _exec
+
+    def recording(x, weight, **kw):
+        calls.append((layer[0], x, weight, kw))
+        return conv(x, weight, **kw)
+
+    quant.int8_exec, quant.int8_conv = named_exec, recording
+    try:
+        yield calls
+    finally:
+        quant.int8_exec, quant.int8_conv = make, conv
+
+
+def _int8_signature(x, weight, kw):
+    add = kw.get("add")
+    return (tuple(x.shape), weight.shape, kw["stride"], kw["lhs_dilation"],
+            tuple(kw["padding"]), None if add is None else str(add.dtype)[6:],
+            kw.get("act"), "s8" if kw.get("out_inv") is not None
+            else str(kw.get("out_dtype", "float32")).replace("torch.", ""))
+
+
+def _int8_check_rows(torch, calls, rows: int = 2):
+    """Kernel against plain version on the first `rows` batch rows of each
+    distinct layer call: (layers checked, all equal bit for bit)."""
+    from ml_audio_restoration_torch.ops import int8_conv as ic
+
+    seen, equal = {}, True
+    for layer, x, weight, kw in calls:
+        sig = _int8_signature(x, weight, kw)
+        if sig in seen:
+            continue
+        part = dict(kw)
+        if part.get("add") is not None:
+            part["add"] = part["add"][:rows]
+        got = ic.int8_conv(x[:rows], weight, **part)
+        want = ic.int8_conv_plain(x[:rows], weight, **part)
+        same = torch.equal(got.view(torch.int8) if got.dtype == torch.int8
+                           else got.float(),
+                           want.view(torch.int8) if want.dtype == torch.int8
+                           else want.float())
+        seen[sig] = layer
+        equal &= same
+        if not same:
+            emit({"phase": "int8_mismatch", "layer": layer,
+                  "signature": [str(s) for s in sig]})
+    return seen, equal
+
+
+def _int8_work(x, weight, kw, t_out):
+    """(bytes, operations) the layer must move and do: each input read
+    once, each output written once; the multiply-adds of the taps that land
+    on real input samples (lhs dilation and padding read zeros)."""
+    n, t_in, cin = x.shape
+    kp, _, cout = weight.shape
+    s, d, (lo, _) = kw["stride"], kw["lhs_dilation"], kw["padding"]
+    span = (t_in - 1) * d + 1
+    u = (np.arange(t_out)[:, None] * s + np.arange(kp)[None, :] - lo)
+    taps = int(((u >= 0) & (u < span) & (u % d == 0)).sum())
+    out_item = 1 if kw.get("out_inv") is not None else (
+        2 if kw.get("out_dtype") is not None
+        and "bfloat16" in str(kw["out_dtype"]) else 4)
+    add = kw.get("add")
+    n_bytes = (x.numel() + kp * cin * cout + 4 * 4 * cout
+               + n * t_out * cout * out_item
+               + (0 if add is None else add.numel() * add.element_size()))
+    return n_bytes, 2.0 * n * taps * cin * cout
+
+
+def _int8_dilated(torch, x, kw, kp, dtype):
+    """The packed layer's input as the float conv reads it: NCW in `dtype`,
+    zeros inserted and padded (a negative pad crops)."""
+    import torch.nn.functional as F
+
+    d, (lo, hi) = kw["lhs_dilation"], kw["padding"]
+    v = x.permute(0, 2, 1).to(dtype)
+    if d > 1:
+        z = v.new_zeros((v.shape[0], v.shape[1], (v.shape[2] - 1) * d + 1))
+        z[..., ::d] = v
+        v = z
+    return F.pad(v, (lo, hi))
+
+
+def _int8_library(torch, x, weight, kw, t_out):
+    """torch._int_mm over an im2col of the same input, then the epilogue in
+    torch ops: (median ms of 3 calls, max |difference| from the kernel's
+    output), or (None, why) where its shape rules or memory refuse."""
+    from ml_audio_restoration_torch.ops import int8_conv as ic
+
+    kp, cin, cout = weight.shape
+    n = x.shape[0]
+    k = kp * cin
+    if cout % 8 or k % 8 or n * t_out * k > 2 ** 32:
+        return None, "shape or memory"
+    w2 = weight.wq.reshape(k, cout).contiguous()
+    s = kw["stride"]
+
+    def run():
+        xd = _int8_dilated(torch, x, kw, kp, torch.int8)  # [N, Cin, T']
+        cols = xd.unfold(2, kp, s)[:, :, :t_out]          # [N, Cin, T, kp]
+        cols = cols.permute(0, 2, 3, 1).reshape(n * t_out, k)
+        acc = torch._int_mm(cols, w2).reshape(n, t_out, cout)
+        return ic._epilogue_plain(acc, weight, kw.get("add"),
+                                  kw.get("add_scale"), kw.get("act"),
+                                  kw.get("out_inv"),
+                                  kw.get("out_dtype", torch.float32))
+    try:
+        out = run()
+        return _cuda_ms(torch, run, 3), out
+    except RuntimeError as e:
+        return None, str(e)[:120]
+
+
+def _int8_layer_row(torch, names, x, weight, kw):
+    """One distinct layer at the full batch: the kernel timed beside its
+    bound, the plain version, the library route and cuDNN's f32 and bf16
+    conv of the same packed layer."""
+    import torch.nn.functional as F
+    from ml_audio_restoration_torch.ops import int8_conv as ic
+
+    kp, cin, cout = weight.shape
+    run = lambda: ic.int8_conv(x, weight, **kw)  # noqa: E731
+    out = run()
+    t_out = out.shape[1]
+    ms = _cuda_ms(torch, run, 5)
+    plain_ms, plain = _timed_once(torch, lambda: ic.int8_conv_plain(
+        x, weight, **kw))
+    err = float((out.float() - plain.float()).abs().max())
+    del plain
+    n_bytes, ops = _int8_work(x, weight, kw, t_out)
+    bound_ms, bound_by = _bound(n_bytes, ops, H100_INT8_OPS)
+    library_ms, lib = _int8_library(torch, x, weight, kw, t_out)
+    lib_equal = (bool(torch.equal(lib.float(), out.float()))
+                 if library_ms is not None else lib)
+    del lib, out
+    cudnn = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        xd = _int8_dilated(torch, x, kw, kp, dt)
+        w = weight.wq.permute(2, 1, 0).to(dt).contiguous()
+        conv = lambda: F.conv1d(xd, w, stride=kw["stride"])  # noqa: E731
+        conv()
+        cudnn[name] = _cuda_ms(torch, conv, 3)
+        del xd
+    torch.cuda.empty_cache()
+    return {"layer": names[0], "layers": names, "count": len(names),
+            "x": list(x.shape),
+            "kernel": list(weight.shape), "stride": kw["stride"],
+            "lhs_dilation": kw["lhs_dilation"],
+            "padding": list(kw["padding"]), "t_out": t_out,
+            "add": None if kw.get("add") is None else str(
+                kw["add"].dtype)[6:], "act": kw.get("act"),
+            "out": "s8" if kw.get("out_inv") is not None else str(
+                kw.get("out_dtype", torch.float32))[6:],
+            "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "bytes": n_bytes, "ops": ops, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library_equal": lib_equal, "cudnn_f32_ms": cudnn["f32"],
+            "cudnn_bf16_ms": cudnn["bf16"]}
+
+
+def _int8_stage_fns(torch, pipe, chunk, rate):
+    """The int8 program's three stages as callables on NWC chunks, with the
+    stereo stage as the pipeline runs it (int8 on whole windows, float on
+    sub-chunked ones)."""
+    from ml_audio_restoration_torch.models import denoiser as dmod
+    from ml_audio_restoration_torch.models import super_resolution as smod
+    from ml_audio_restoration_torch.pipeline.restore import (
+        apply_stereo, stereo_sub_cfg)
+
+    cfg = pipe.config
+    dn, sr, st = pipe._models()
+    scope = cfg.int8_scope
+    q_dn = pipe._int8_ctx("denoiser", scope, dmod.INT8_FLOAT_LAYERS)
+    q_sr = pipe._int8_ctx("super_resolution", scope)
+    sub = stereo_sub_cfg(cfg, chunk * 2, 2, sample_rate=rate)
+    q_st = pipe._int8_ctx("stereo", scope) if sub is None else None
+
+    def stereo(v):
+        v = v.float() if q_st is not None else v
+        return apply_stereo(st, v.permute(0, 2, 1), sub,
+                            q=q_st).permute(0, 2, 1)
+
+    return (("denoiser", lambda v: dmod.apply_packed(dn, v, q=q_dn)),
+            ("super_resolution", lambda v: smod.apply_packed(sr, v, q=q_sr)),
+            ("stereo", stereo))
+
+
+def _int8_stages(torch, pipe, clip, rate, capture: bool):
+    """Device ms of each stage over the clip's chunk batch (median of 3),
+    the int8 conv launches of each, and, with `capture`, every int8 conv
+    call of the program."""
+    from ml_audio_restoration_torch.ops import frame_structured, num_chunks
+    from ml_audio_restoration_torch.ops import int8_conv as ic
+    from ml_audio_restoration_torch.pipeline.restore import _bucket
+
+    chunk, hop, _ = pipe._framing(rate)
+    n = _bucket(num_chunks(clip.shape[1], chunk, hop))
+    total = (n - 1) * hop + chunk
+    audio = torch.nn.functional.pad(torch.from_numpy(clip).to(pipe.device),
+                                    (0, total - clip.shape[1]))
+    dtype = getattr(torch, pipe.config.compute_dtype)
+    stage_ms, launches, calls = {}, {}, []
+    with torch.inference_mode():
+        x = frame_structured(audio, n, chunk, hop).to(dtype)  # [n, chunk, 1]
+        for name, fn in _int8_stage_fns(torch, pipe, chunk, rate):
+            x_in = x
+            stage_ms[name] = _cuda_ms(torch, lambda: fn(x_in), 3)
+            ic.reset_launch_count()
+            if capture:
+                mine = []
+                with _int8_capture(mine):
+                    x = fn(x_in)
+                calls += [(f"{name}:{layer}", *rest) for layer, *rest in mine]
+            else:
+                x = fn(x_in)
+            torch.cuda.synchronize()
+            launches[name] = ic.launch_count
+    return stage_ms, launches, calls
+
+
+def _timed_int8_restore(torch, L, ic, pipe, clip, rate):
+    """(output, wall s, K1 launches, int8 conv launches) of one restore,
+    the counts set to 0 just before it and read just after."""
+    torch.cuda.synchronize()
+    L.reset_launch_count()
+    ic.reset_launch_count()
+    t0 = time.perf_counter()
+    y, _ = pipe.restore(clip, rate)
+    torch.cuda.synchronize()
+    return y, time.perf_counter() - t0, L.launch_count, ic.launch_count
+
+
+def _snr_db(ref, y) -> float:
+    err = float(((y.float() - ref.float()) ** 2).sum())
+    return 10.0 * np.log10(float((ref.float() ** 2).sum()) / max(err, 1e-30))
+
+
+def _int8_streams(torch, dn, sr, st, rate):
+    """16 lockstep int8 streams on one preloaded scales dict (from a
+    restorer that calibrated on stream 0's first window) against 16 float
+    streams, and two of them against single int8 streams."""
+    from ml_audio_restoration_torch.pipeline import StreamingRestorer
+
+    b = 16
+    block = int(0.5 * rate)
+    streams = np.concatenate([_clip(INT8_STREAM_SECONDS, rate, seed=400 + i)
+                              for i in range(b)])
+    blocks = [streams[:, o:o + block]
+              for o in range(0, streams.shape[1], block)]
+    calib = StreamingRestorer(dn, sr, st, quantize_int8=True)
+    calib.feed(blocks[0][0])
+    calib.feed(blocks[1][0])
+    scales = calib._int8_scales
+    runs = {}
+    for name, kw in (("int8", {"quantize_int8": True,
+                               "int8_scales": scales}), ("float", {})):
+        s = StreamingRestorer(dn, sr, st, batch=b, **kw)
+        s.warmup(block)
+        out, feed_ms, calls = _feed_all(s, blocks)
+        runs[name] = (out, statistics.median(feed_ms), _slowest(calls))
+    got, ref = runs["int8"][0], runs["float"][0]
+    vs_single = 0.0
+    for i in (0, b - 1):
+        one = _feed_all(StreamingRestorer(dn, sr, st, quantize_int8=True,
+                                          int8_scales=scales),
+                        [x[i] for x in blocks])[0]
+        vs_single = max(vs_single, float(np.abs(got[i] - one[0]).max()))
+    err = float(((got - ref) ** 2).sum())
+    return {"streams": b, "seconds": INT8_STREAM_SECONDS,
+            "block_s": block / rate, "shape": list(got.shape),
+            "finite": bool(np.isfinite(got).all()),
+            "calibrated_stages": sorted(scales),
+            "int8_feed_ms_median": runs["int8"][1],
+            "float_feed_ms_median": runs["float"][1],
+            "int8_slowest_call": runs["int8"][2][0],
+            "int8_new_windows_after_warmup": runs["int8"][2][1],
+            "int8_vs_float_max_abs": float(np.abs(got - ref).max()),
+            "int8_vs_float_snr_db": 10.0 * np.log10(
+                float((ref ** 2).sum()) / max(err, 1e-30)),
+            "batch_vs_single_max_abs": vs_single, "batch_tol": MANY_TOL}
+
+
+def phase_int8(torch):
+    """int8 serving at full width on the 120 s clip: the kernel against its
+    plain version at every distinct int8 layer (default and full scope, and
+    the bf16 preset's), each default layer timed at the full batch, the
+    int8 restore against f32 and fast_serve, the plain-conv restore, card
+    vs CPU, a scales file round trip, config/fast_serve_int8.yaml, one
+    full-scope restore and 16 int8 streams. Returns the kernels-line row's
+    numbers."""
+    import dataclasses
+
+    from ml_audio_restoration_torch.config import PipelineConfig, load_config
+    from ml_audio_restoration_torch.ops import int8_conv as ic
+    from ml_audio_restoration_torch.ops import lstm as L
+    from ml_audio_restoration_torch.pipeline import RestorationPipeline
+
+    dev = torch.device("cuda")
+    dn, sr, st = _models(torch, dev)
+    rate, seconds = 22050, 120.0
+    clip = _clip(seconds, rate, seed=3)
+    pipe = RestorationPipeline(dn, sr, st,
+                               config=PipelineConfig(quantize_int8=True))
+    t0 = time.perf_counter()
+    pipe.calibrate_int8(clip, rate)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    pipe.restore(clip, rate)  # the kernels built, cuDNN's algorithms picked
+    y8, wall8, k1, launches = _timed_int8_restore(torch, L, ic, pipe, clip,
+                                                  rate)
+    version = pipe._int8_version
+    with ic.plain_int8_conv():
+        t0 = time.perf_counter()
+        y_plain, _ = pipe.restore(clip, rate)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+    plain_equal = bool(torch.equal(y8, y_plain))
+    del y_plain
+    f32 = RestorationPipeline(dn, sr, st)
+    f32.restore(clip, rate)
+    y32, wall32, _, _ = _timed_int8_restore(torch, L, ic, f32, clip, rate)
+    fast_cfg = load_config(os.path.join(ROOT, "config",
+                                        "fast_serve.yaml")).pipeline
+    fast = RestorationPipeline(dn, sr, st, config=fast_cfg)
+    fast.restore(clip, rate)
+    _, wall_fast, _, _ = _timed_int8_restore(torch, L, ic, fast, clip, rate)
+
+    # stage split and every int8 layer of the 64-chunk program
+    stage_ms, stage_launches, calls = _int8_stages(torch, pipe, clip, rate,
+                                                   capture=True)
+    stage_ms32 = {}
+    from ml_audio_restoration_torch.ops import frame_structured, num_chunks
+    from ml_audio_restoration_torch.pipeline.restore import _bucket
+    chunk, hop, _ = pipe._framing(rate)
+    n = _bucket(num_chunks(clip.shape[1], chunk, hop))
+    audio = torch.nn.functional.pad(torch.from_numpy(clip).to(dev), (
+        0, (n - 1) * hop + chunk - clip.shape[1]))
+    with torch.inference_mode():
+        x = frame_structured(audio, n, chunk, hop).permute(0, 2, 1)
+        for name, fn in (("denoiser", dn), ("super_resolution", sr),
+                         ("stereo", st)):
+            x_in = x
+            stage_ms32[name] = _cuda_ms(torch, lambda: fn(x_in), 3)
+            x = fn(x_in)
+    del x, x_in, audio
+    distinct = {}  # signature -> [layer names, x, weight, kwargs]
+    for layer, x, weight, kw in calls:
+        distinct.setdefault(_int8_signature(x, weight, kw),
+                            [[], x, weight, kw])[0].append(layer)
+    checked, equal = _int8_check_rows(torch, calls)
+    layers = [_int8_layer_row(torch, names, x, weight, kw)
+              for names, x, weight, kw in distinct.values()]
+    del calls, distinct
+    torch.cuda.empty_cache()
+    for row in layers:
+        emit({"phase": "int8_layer", **row})
+    total = lambda key: sum(r[key] * r["count"] for r in layers)  # noqa
+    lib_rows = [r for r in layers if r["library_ms"] is not None]
+
+    # full scope on the same scales: its new layers checked, one restore
+    full = RestorationPipeline(dn, sr, st, config=PipelineConfig(
+        quantize_int8=True, int8_scope="full"))
+    full._int8_scales = pipe._int8_scales
+    full._int8_version += 1
+    small = _clip(4.0, rate, seed=2)
+    full_calls = []
+    with _int8_capture(full_calls):
+        full.restore(small, rate)
+    full_checked, full_equal = _int8_check_rows(torch, full_calls)
+    del full_calls
+    full.restore(clip, rate)
+    y_full, wall_full, k1_full, launches_full = _timed_int8_restore(
+        torch, L, ic, full, clip, rate)
+
+    # card vs CPU on a 4 s clip, the same scales
+    cpu = RestorationPipeline(*(m.to("cpu") for m in _models(torch, dev)),
+                              config=PipelineConfig(quantize_int8=True),
+                              device="cpu")
+    cpu._int8_scales = pipe._int8_scales
+    cpu._int8_version += 1
+    y_card, _ = pipe.restore(small, rate)
+    y_card32, _ = f32.restore(small, rate)
+    y_cpu, _ = cpu.restore(small, rate)
+    own_dev = _max_dev(y_card, y_card32)
+    card_cpu = _max_dev(y_card.cpu(), y_cpu)
+    rms = lambda d: float(d.float().square().mean().sqrt())  # noqa: E731
+    own_rms = rms(y_card - y_card32)
+    card_cpu_rms = rms(y_card.cpu() - y_cpu)
+    del cpu, y_cpu
+    # the same on the mono chain (denoiser + SR, no stereo stage)
+    mono = {}
+    for where, models in (("card", (dn, sr)), ("cpu", tuple(
+            m.to("cpu") for m in _models(torch, dev)[:2]))):
+        m_pipe = RestorationPipeline(*models, config=PipelineConfig(
+            quantize_int8=True), device=next(models[0].parameters()).device)
+        m_pipe._int8_scales = {k: v for k, v in pipe._int8_scales.items()
+                               if k != "stereo"}
+        m_pipe._int8_version += 1
+        mono[where] = m_pipe.restore(small, rate)[0]
+    mono_f32, _ = RestorationPipeline(dn, sr).restore(small, rate)
+    mono_ratio = (_max_dev(mono["card"].cpu(), mono["cpu"])
+                  / _max_dev(mono["card"], mono_f32))
+    del mono, mono_f32
+
+    # the scales file: save, a fresh pipeline loads it, equal bit for bit
+    path = os.path.join(ROOT, "profiles", "chip_smoke_int8_scales.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    try:
+        pipe.save_int8_scales(path)
+        fresh = RestorationPipeline(dn, sr, st, config=PipelineConfig(
+            quantize_int8=True))
+        fresh.load_int8_scales(path)
+        v_fresh = fresh._int8_version
+        y_fresh, _ = fresh.restore(clip, rate)
+        file_equal = bool(torch.equal(y_fresh, y8))
+        recalibrated = fresh._int8_version != v_fresh
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    del y_fresh, fresh
+
+    # the shipped preset: bf16, 0.25 s stereo windows (stereo stays float)
+    preset_cfg = load_config(os.path.join(
+        ROOT, "config", "fast_serve_int8.yaml")).pipeline
+    preset = RestorationPipeline(dn, sr, st, config=preset_cfg)
+    preset.restore(clip, rate)  # calibrates, then warm
+    k1_shapes = []
+    k1_run = L._lstm_recurrence_cuda
+
+    def k1_recording(gates, *a):
+        k1_shapes.append([*gates.shape, str(gates.dtype)[6:]])
+        return k1_run(gates, *a)
+
+    L._lstm_recurrence_cuda = k1_recording
+    try:
+        y_p, wall_preset, k1_preset, launches_preset = _timed_int8_restore(
+            torch, L, ic, preset, clip, rate)
+    finally:
+        L._lstm_recurrence_cuda = k1_run
+    preset_stage_ms, preset_launches, preset_calls = _int8_stages(
+        torch, preset, clip, rate, capture=True)
+    preset_checked, preset_equal = _int8_check_rows(torch, preset_calls)
+    del preset_calls
+    fast_y, _ = fast.restore(clip, rate)
+    preset_dev = _max_dev(y_p, fast_y)
+    del fast_y, y_p
+
+    streams = _int8_streams(torch, dn, sr, st, rate)
+    emit({"phase": "int8_stream", **streams})
+
+    ref_peak = float(y32.abs().max())
+    rel_mean = float((y8 - y32).abs().mean() / y32.abs().mean())
+    row = {"phase": "int8", "seconds": seconds, "shape": list(y8.shape),
+           "finite": bool(torch.isfinite(y8).all()),
+           "calibration_s": calib_s, "wall_s": wall8, "xrt": seconds / wall8,
+           "f32_xrt": seconds / wall32, "fast_serve_xrt": seconds / wall_fast,
+           "stage_ms": stage_ms, "f32_stage_ms": stage_ms32,
+           "int8_conv_launches_by_stage": stage_launches,
+           "int8_conv_ms_by_stage": {
+               s: sum(r["ms"] * r["count"] for r in layers
+                      if r["layer"].startswith(s + ":"))
+               for s in ("denoiser", "super_resolution", "stereo")},
+           "lstm_recurrence_launches": k1,
+           "int8_conv_launches": launches,
+           "vs_f32_max_abs": _max_dev(y8, y32),
+           "vs_f32_snr_db": _snr_db(y32, y8), "f32_peak": ref_peak,
+           "vs_f32_rel_mean": rel_mean, "rel_mean_tol": INT8_REL,
+           "plain_conv_restore_equal": plain_equal,
+           "plain_conv_restore_wall_s": plain_wall,
+           "no_recalibration": pipe._int8_version == version,
+           "layers_checked": len(checked), "layers_equal": equal,
+           "full_scope_layers_checked": len(full_checked),
+           "full_scope_layers_equal": full_equal,
+           "preset_layers_checked": len(preset_checked),
+           "preset_layers_equal": preset_equal,
+           "card_vs_cpu_4s_max_abs": card_cpu,
+           "int8_vs_f32_4s_max_abs": own_dev,
+           "card_vs_cpu_max_ratio": card_cpu / own_dev,
+           "card_vs_cpu_4s_rms": card_cpu_rms,
+           "int8_vs_f32_4s_rms": own_rms,
+           "card_vs_cpu_rms_tol": 0.25 * own_rms,
+           "mono_chain_card_vs_cpu_max_ratio": mono_ratio,
+           "scales_file_restore_equal": file_equal,
+           "scales_file_recalibrated": recalibrated,
+           "full_scope": {"xrt": seconds / wall_full,
+                          "lstm_recurrence_launches": k1_full,
+                          "int8_conv_launches": launches_full,
+                          "vs_f32_max_abs": _max_dev(y_full, y32),
+                          "vs_f32_snr_db": _snr_db(y32, y_full)},
+           "preset": {"config": "config/fast_serve_int8.yaml",
+                      "xrt": seconds / wall_preset,
+                      "fast_serve_xrt": seconds / wall_fast,
+                      "lstm_recurrence_launches": k1_preset,
+                      "k1_calls": k1_shapes,
+                      "int8_conv_launches": launches_preset,
+                      "int8_conv_launches_by_stage": preset_launches,
+                      "stage_ms": preset_stage_ms,
+                      "vs_fast_serve_max_abs": preset_dev},
+           "program_kernel_ms": total("ms"),
+           "program_plain_ms": total("plain_ms"),
+           "program_bound_ms": total("bound_ms"),
+           "program_cudnn_f32_ms": total("cudnn_f32_ms"),
+           "program_cudnn_bf16_ms": total("cudnn_bf16_ms"),
+           "library_layers": [r["layer"] for r in lib_rows],
+           "library_ms": sum(r["library_ms"] * r["count"] for r in lib_rows),
+           "kernel_ms_on_library_layers": sum(r["ms"] * r["count"]
+                                              for r in lib_rows)}
+    emit(row)
+    ok = (row["finite"] and tuple(y8.shape) == (2, 2 * clip.shape[1])
+          and k1 == 1 and launches == 35 and equal and full_equal
+          and preset_equal and plain_equal and row["no_recalibration"]
+          and all(r["max_abs_err"] == 0.0 for r in layers)
+          and card_cpu_rms <= 0.25 * own_rms and file_equal
+          and not recalibrated
+          and k1_preset == 1 and k1_shapes == [[11024, 640, 256, "bfloat16"]]
+          and preset_launches["stereo"] == 0
+          and preset_launches["denoiser"] > 0
+          and streams["finite"] and streams["batch_vs_single_max_abs"]
+          <= MANY_TOL and not streams["int8_new_windows_after_warmup"]
+          and rel_mean <= INT8_REL)
+    if not ok:
+        raise AssertionError(f"int8 serving failed: {row}")
+    bound_by = ("bytes" if sum(r["bound_ms"] * r["count"] for r in layers
+                               if r["bound_by"] == "bytes")
+                >= total("bound_ms") / 2 else "operations")
+    return {"launches": launches, "k1_launches": k1,
+            "k1_preset_launches": k1_preset,
+            "max_abs_err": max(r["max_abs_err"] for r in layers),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"), "bound_by": bound_by,
+            # torch._int_mm takes only some of the layers (each layer's
+            # figure is in `shapes`), so no one call covers the program
+            "library_ms": (row["library_ms"] if len(lib_rows) == len(layers)
+                           else None),
+            "layers": layers}
+
+
 def _timed_phase(fn, *args):
     """Run one phase and print its wall seconds on a line of its own."""
     t0 = time.perf_counter()
@@ -3255,6 +3830,9 @@ def main() -> int:
         "serve_many": _timed_phase(phase_serve_many, torch),
         "stream": _timed_phase(phase_stream, torch, k1)})
     paths.update(files["k1"])
+    int8 = _timed_phase(phase_int8, torch)
+    paths["int8"] = (int8["k1_launches"], None, None)
+    paths["int8_preset"] = (int8["k1_preset_launches"], None, None)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K1's new shapes, each with the launches of the run of the path that
@@ -3285,6 +3863,16 @@ def main() -> int:
                                    for p, v in paths.items()
                                    if v[1] is not None}
     extra = ("max_abs_err_bf16", "shapes", "path_launches", "path_max_abs_err")
+    rows.append({
+        "name": "int8_conv", "route": "cuda",
+        "source": "ml_audio_restoration_torch/csrc/int8_conv.cu",
+        "replaces": "ml_audio_restoration_tpu/ops/quant.py:103",
+        **{k: int8[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")},
+        "shapes": [{k: r[k] for k in (
+            "layer", "count", "x", "kernel", "stride", "lhs_dilation",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "cudnn_f32_ms", "cudnn_bf16_ms")} for r in int8["layers"]]})
     emit({"kernels": [{key: row[key] for key in keys + tuple(
         k for k in extra if k in row)} for row in rows]})
     emit({"ok": True, "device": {"platform": "gpu",

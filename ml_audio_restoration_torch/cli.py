@@ -4,6 +4,8 @@
         --denoiser d.pth --super-res sr.pth --stereo st.pth [--device cuda]
     python -m ml_audio_restoration_torch restore in_dir/ out_dir/ \
         --config config/fast_serve.yaml [--coalesce 4]
+    python -m ml_audio_restoration_torch restore in.wav out.wav \
+        --int8 --int8-scales scales.json
 
     python -m ml_audio_restoration_torch stream a.wav b.wav \
         --output-dir streamed/ [--block-seconds 0.5]
@@ -71,19 +73,51 @@ def _add_restore(sub):
     p.add_argument("--stereo-chunk-seconds", type=float, default=None,
                    help="internal stereo LSTM window in seconds")
     p.add_argument("--no-packed-convs", action="store_true",
-                   help="accepted for the JAX package's command line; the "
-                        "port computes the plain layout, which the packed "
-                        "one equals up to float reassociation")
+                   help="float serving computes the plain layout whatever "
+                        "this says (the packed one equals it up to float "
+                        "reassociation); with --int8 it disables int8, "
+                        "which rides the packed layout")
     p.add_argument("--stereo-mid-exact", action="store_true",
                    help="rebuild L/R around the true mid (out = mid +/- "
                         "the predicted side)")
     p.add_argument("--stereo-source-rate", action="store_true",
                    help="run the stereo stage on the pre-super-res signal "
                         "and upsample only its side (implies mid-exact)")
+    _add_int8(p, "int8 serving: the conv stacks in int8 (auto-calibrates "
+                 "on the first recording)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch path)")
     return p
+
+
+def _add_int8(p, what: str):
+    p.add_argument("--int8", action="store_true", help=what)
+    p.add_argument("--int8-scales", default=None,
+                   help="calibration JSON (the JAX package's format): "
+                        "loaded if it exists, else written after "
+                        "auto-calibration (and rewritten if its stages no "
+                        "longer cover the enabled ones)")
+
+
+def _persist_int8_scales(path, restorer):
+    """Write auto- or re-calibrated int8 scales to `path`, so later runs
+    skip the calibration pass. An existing file is rewritten only when its
+    stages no longer cover the restorer's."""
+    import os
+
+    from .ops.quant import load_scales_file
+
+    if not path or restorer._int8_scales is None:
+        return
+    if os.path.exists(path):
+        try:
+            have = set(load_scales_file(path))
+        except (OSError, ValueError):
+            have = set()
+        if set(restorer._int8_scales) <= have:
+            return
+    restorer.save_int8_scales(path)
 
 
 def _cmd_restore(args):
@@ -112,11 +146,15 @@ def _cmd_restore(args):
         config.stereo_mid_exact = True
     if args.stereo_source_rate:
         config.stereo_source_rate = True
+    if args.int8:
+        config.quantize_int8 = True
     pipe = RestorationPipeline.from_checkpoints(
         denoiser_path=None if args.no_denoise else args.denoiser,
         super_res_path=None if args.no_super_res else args.super_res,
         stereo_path=None if args.no_stereo else args.stereo,
         config=config, device=args.device)
+    if args.int8_scales and os.path.exists(args.int8_scales):
+        pipe.load_int8_scales(args.int8_scales)
     if os.path.isdir(args.input):
         results = pipe.restore_directory(args.input, args.output,
                                          coalesce=args.coalesce)
@@ -126,6 +164,7 @@ def _cmd_restore(args):
     else:
         out, rate = pipe.restore_file(args.input, args.output)
         print(f"restored -> {out} @ {rate} Hz")
+    _persist_int8_scales(args.int8_scales, pipe)
     return 0
 
 
@@ -161,6 +200,8 @@ def _add_stream(sub):
                         "restore)")
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
                    default="float32", help="compute dtype")
+    _add_int8(p, "int8 streaming: the denoiser and SR in int8 "
+                 "(auto-calibrates on the first window)")
     p.add_argument("--lstm-impl", choices=["pallas", "scan"], default=None,
                    help="accepted for the JAX package's command line; the "
                         "port's recurrence is its CUDA kernel on the card "
@@ -240,10 +281,15 @@ def _cmd_stream(args):
         context=args.context, lookahead=args.lookahead,
         batch=len(args.inputs), mid_exact=args.stereo_mid_exact,
         source_rate=args.stereo_source_rate, compute_dtype=args.dtype,
-        lstm_impl=args.lstm_impl, device=args.device)
+        lstm_impl=args.lstm_impl, quantize_int8=args.int8,
+        int8_scales=(args.int8_scales if args.int8_scales
+                     and os.path.exists(args.int8_scales) else None),
+        device=args.device)
     block = max(1, int(round(args.block_seconds * args.sample_rate)))
     if pipe:
-        return _stream_pipe(args, restorer, block)
+        rc = _stream_pipe(args, restorer, block)
+        _persist_int8_scales(args.int8_scales, restorer)
+        return rc
 
     # one lockstep stream per input: shorter recordings ride along
     # zero-padded and are trimmed back to their length on save
@@ -272,6 +318,7 @@ def _cmd_stream(args):
         dest = os.path.join(args.output_dir, f"{name}_restored.wav")
         save_audio(dest, out[i, :, :lengths[i] * restorer.f], out_rate)
         print(f"streamed -> {dest} @ {out_rate} Hz")
+    _persist_int8_scales(args.int8_scales, restorer)
     return 0
 
 

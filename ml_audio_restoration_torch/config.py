@@ -7,14 +7,21 @@ the other. PipelineConfig's fields fall in three kinds:
 - computed: `sample_rate`, `chunk_seconds`, `overlap_seconds`,
   `enable_super_resolution`, `whole_file`, `compute_dtype` ("float32" or
   "bfloat16"), `stereo_chunk_seconds`, `stereo_mid_exact`,
-  `stereo_source_rate`, `max_chunks_per_program`;
-- accepted and ignored, because they only pick TPU layouts or kernels:
-  `packed_convs` and `int8_scope` (the port computes the plain path, which
-  the packed TPU path equals up to float reassociation) and `lstm_impl`
-  (None, "scan" or "pallas"; the port routes the LSTM by device and grad
-  mode, and rejects any other value, as the JAX pipeline does);
-- not ported: `quantize_int8=True` raises NotImplementedError, since int8
-  serving changes the output (ROADMAP.md section 1, item 6).
+  `stereo_source_rate`, `max_chunks_per_program`, and `quantize_int8`
+  (int8 serving, ops/quant.py: the conv stacks run s8 x s8 -> s32 with
+  activation scales from a calibration pass; the output differs from f32
+  by quantization noise, so it is opt-in);
+- honoured under `quantize_int8` only: `packed_convs` and `int8_scope`.
+  The int8 result is defined on the packed layout, so int8 runs the
+  packed int8 forwards: `packed_convs=False` disables it (a warning, then
+  float serving, as in the JAX package), and `int8_scope` picks what
+  quantizes ("packed": the r>1 packed stages; "full": the C>=128
+  plain-layout stages too, as r=1 packed convs). On the float path both
+  are ignored: the port computes the plain layout, which the JAX
+  package's packed float path equals up to float reassociation;
+- accepted and ignored: `lstm_impl` (None, "scan" or "pallas"; the port
+  routes the LSTM by device and grad mode, and rejects any other value, as
+  the JAX pipeline does).
 
 TrainConfig's `lstm_impl` and `packed_convs` are accepted and ignored.
 """
@@ -135,12 +142,13 @@ class PipelineConfig:
     stereo_source_rate: bool = False
     # longer recordings run in slabs of this many chunks, then crossfade
     max_chunks_per_program: int = 64
-    # TPU-only switches, accepted and ignored
+    # int8 serving (opt-in): the conv stacks in int8 on the packed layout;
+    # packed_convs=False disables it, int8_scope is "packed" or "full"
     packed_convs: bool = True
     int8_scope: str = "packed"
-    lstm_impl: Optional[str] = None
-    # not ported: True raises (check_pipeline_config)
     quantize_int8: bool = False
+    # TPU-only switch, accepted and ignored
+    lstm_impl: Optional[str] = None
 
     def __post_init__(self):
         check_pipeline_config(self)
@@ -148,25 +156,19 @@ class PipelineConfig:
 
 SERVING_LSTM_IMPLS = (None, "scan", "pallas")
 COMPUTE_DTYPES = ("float32", "bfloat16")
-
-
-def check_int8(quantize_int8: bool, owner: str) -> None:
-    """int8 serving is not ported: it changes the output (quantization
-    noise of 1e-3 to 1e-2 at waveform scale), so a float result in its
-    place would be a different answer, not a faster one."""
-    if quantize_int8:
-        raise NotImplementedError(
-            f"{owner}: quantize_int8 (int8 serving, ops/quant.py) is not "
-            f"ported yet (ROADMAP.md section 1, item 6)")
+INT8_SCOPES = ("packed", "full")
 
 
 def check_pipeline_config(cfg: "PipelineConfig") -> None:
-    """Raise on what the port does not compute: int8, an LSTM route other
-    than None/"scan"/"pallas" (the JAX pipeline's rule: "pallas_train" is a
-    training kernel) and a compute dtype other than f32/bf16. Called when a
+    """Raise on what the port does not compute: an LSTM route other than
+    None/"scan"/"pallas" (the JAX pipeline's rule: "pallas_train" is a
+    training kernel), a compute dtype other than f32/bf16 and, under
+    quantize_int8, an int8 scope other than "packed"/"full". Called when a
     PipelineConfig is made and again by the pipeline, since load_config
     sets fields after construction."""
-    check_int8(cfg.quantize_int8, "PipelineConfig")
+    if cfg.quantize_int8 and cfg.int8_scope not in INT8_SCOPES:
+        raise ValueError(f"PipelineConfig.int8_scope must be one of "
+                         f"{INT8_SCOPES}, got {cfg.int8_scope!r}")
     if cfg.lstm_impl not in SERVING_LSTM_IMPLS:
         raise ValueError(
             f"PipelineConfig.lstm_impl={cfg.lstm_impl!r}: serving accepts "

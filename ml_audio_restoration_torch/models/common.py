@@ -21,17 +21,20 @@ from ..ops import batch_norm_train, conv1d, leaky_relu
 LRELU_SLOPE = 0.2
 
 
-def fold_conv_bn(conv: nn.Conv1d, bn: nn.BatchNorm1d):
+def fold_conv_bn(conv: nn.Conv1d, bn: nn.BatchNorm1d, *, host: bool = False):
     """Fold eval batch norm into the conv: conv(x, w, b) then BN ==
     conv(x, w*g, (b-mean)*g + beta) with g = scale*rsqrt(var+eps).
-    Computed in f32, cast to the conv weight's dtype."""
+    Computed in f32, cast to the conv weight's dtype. `host=True` computes
+    it on the CPU and returns it on the weights' device, so the result does
+    not depend on the device's rsqrt (the int8 path quantizes it)."""
     w_dtype = conv.weight.dtype
     f32 = torch.float32
-    g = bn.weight.to(f32) * torch.rsqrt(bn.running_var.to(f32) + bn.eps)
-    w = (conv.weight.to(f32) * g[:, None, None]).to(w_dtype)
-    b = ((conv.bias.to(f32) - bn.running_mean.to(f32)) * g
-         + bn.bias.to(f32)).to(w_dtype)
-    return w, b
+    dev = "cpu" if host else conv.weight.device
+    t = lambda a: a.to(dev, f32)  # noqa: E731
+    g = t(bn.weight) * torch.rsqrt(t(bn.running_var) + bn.eps)
+    w = (t(conv.weight) * g[:, None, None]).to(w_dtype)
+    b = ((t(conv.bias) - t(bn.running_mean)) * g + t(bn.bias)).to(w_dtype)
+    return w.to(conv.weight.device), b.to(conv.weight.device)
 
 
 def cast_model(model, dtype: torch.dtype):

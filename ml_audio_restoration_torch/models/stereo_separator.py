@@ -10,9 +10,11 @@ for L and R. Output channel order is (L, R). The default configuration has
 
 `model.eval()` gives the eval forward (BN folded); `model.train()` the
 train forward (BN by batch statistics, running buffers updated in place).
-Only the plain path is ported: the JAX package's `apply_train_packed` is
-TPU layout work that equals it up to float reassociation. Under grad the
-LSTM runs the training recurrence (K2 forward, K3 backward), in either mode.
+The float forwards compute the plain path only: the JAX package's packed
+float forwards are TPU layout work that equals it up to float
+reassociation. `apply_packed` is the int8 serving forward (and its
+calibration pass) in the packed layout. Under grad the LSTM runs the
+training recurrence (K2 forward, K3 backward), in either mode.
 """
 from __future__ import annotations
 
@@ -117,3 +119,104 @@ class StereoSeparator(nn.Module):
         h = self.encode(x)
         h = self.lstm(h.transpose(1, 2)).transpose(1, 2)  # [B, H, T]
         return self.decode(h)
+
+
+# ------------------------------------------------------- int8 serving path
+def encode_packed(model: StereoSeparator, x, q=None):
+    """The eval encoder with the C<=64 stages packed, under an int8 context
+    (ops/quant.py): the stem enters r=4 from the plain input, dilated block
+    0 runs at r=4, and block 1's dilated conv exits to plain. Blocks 1-3
+    (C>=128) run float in "packed" scope and as quantized r=1 packed convs
+    under "full". x: NWC [B, T, 1], T % 4 == 0 -> float [B, T, 4C]."""
+    from ..ops.packed import packed_conv, packed_conv_r
+    from ..ops.quant import ctx_or_null, lrelu, make_qops
+    from .denoiser import folded_wio
+
+    q = ctx_or_null(q)
+    qconv, _ = make_qops(q)
+    b, t, _ = x.shape
+    assert t % 4 == 0, t
+    enc = model.encoder
+    xq = q.quantize_in("in", x)
+    w, bb = folded_wio(q, "stem", enc[0][0], enc[0][1])
+    h = qconv("stem", xq, w, bb, op=packed_conv_r, act=lrelu,
+              r_in=1, r_out=4, padding=3, t_in=t)
+    w, bb = folded_wio(q, "b0.d", enc[1][0], enc[1][1])
+    h = qconv("b0.d", h, w, bb, op=packed_conv, act=lrelu, r=4, padding=1)
+    w, bb = folded_wio(q, "b0.p", enc[1][3], enc[1][4])
+    h = qconv("b0.p", h, w, bb, op=packed_conv, act=lrelu, r=4, padding=0)
+    w, bb = folded_wio(q, "b1.d", enc[2][0], enc[2][1])
+    full_tail = q.active and q.full
+    h = qconv("b1.d", h, w, bb, op=packed_conv_r, act=lrelu,
+              requant=full_tail, r_in=4, r_out=1, padding=2, dilation=2,
+              t_in=t)                               # -> plain [B, T, 4C]
+    if not full_tail:
+        # the float tail in the compute dtype, as the plain forward (NCW)
+        h = h.to(w.dtype).permute(0, 2, 1)
+        h = conv_bn(enc[2][3], enc[2][4], h)
+        for blk in enc[3:]:
+            h = conv_bn(blk[0], blk[1], h)
+            h = conv_bn(blk[3], blk[4], h)
+        return h.permute(0, 2, 1)
+    w, bb = folded_wio(q, "b1.p", enc[2][3], enc[2][4])
+    h = qconv("b1.p", h, w, bb, op=packed_conv, act=lrelu, r=1, padding=0)
+    for i, (blk, dil) in enumerate(zip(enc[3:], DILATIONS[2:]), start=2):
+        w, bb = folded_wio(q, f"b{i}.d", blk[0], blk[1])
+        h = qconv(f"b{i}.d", h, w, bb, op=packed_conv, act=lrelu,
+                  r=1, padding=dil, dilation=dil)
+        w, bb = folded_wio(q, f"b{i}.p", blk[3], blk[4])
+        last = i == len(enc) - 2
+        h = qconv(f"b{i}.p", h, w, bb, op=packed_conv, act=lrelu,
+                  r=1, padding=0, requant=not last)
+    return h  # float: the LSTM stays f32 / bf16
+
+
+def _decoder_apply_packed(dec: nn.Sequential, h, t: int, q=None,
+                          name: str = "dec"):
+    """One eval decoder r=2-packed: l1 raises the plain LSTM output into
+    packed space, l2/l3 run r=2, the final conv exits to plain [B, T, 1]."""
+    from ..ops.packed import packed_conv, packed_conv_r
+    from ..ops.quant import ctx_or_null, lrelu, make_qops
+    from .denoiser import _wio, folded_wio
+
+    q = ctx_or_null(q)
+    qconv, _ = make_qops(q)
+    w1, b1 = folded_wio(q, f"{name}.l1", dec[0], dec[1])
+    hp = qconv(f"{name}.l1", h, w1, b1, op=packed_conv_r, act=lrelu,
+               r_in=1, r_out=2, padding=3, t_in=t)
+    w2, b2 = folded_wio(q, f"{name}.l2", dec[3], dec[4])
+    hp = qconv(f"{name}.l2", hp, w2, b2, op=packed_conv, act=lrelu,
+               r=2, padding=3)
+    w3, b3 = folded_wio(q, f"{name}.l3", dec[6], dec[7])
+    hp = qconv(f"{name}.l3", hp, w3, b3, op=packed_conv, act=lrelu,
+               r=2, padding=3)
+    fin = dec[9]
+    return qconv(f"{name}.final", hp, _wio(fin), fin.bias, op=packed_conv_r,
+                 requant=False, r_in=2, r_out=1, padding=3, t_in=t)
+
+
+def apply_packed(model: StereoSeparator, x, q=None):
+    """The eval forward with the packed encoder and decoder stages under an
+    int8 context (ops/quant.py): the JAX package's `apply_packed` on its
+    ungrouped route, the one it takes for int8 and calibration. The LSTM
+    runs float in the parameters' dtype (K1 on the card); its output is
+    the `lstm_out` point. x: NWC [B, T, 1], T % 4 == 0 -> [B, T, 2]."""
+    from ..ops.quant import ctx_or_null
+
+    q = ctx_or_null(q)
+    t = x.shape[1]
+    h = encode_packed(model, x, q=q)
+    h = model.lstm(h.to(model.lstm.weight_hh_l0.dtype))
+    hq = q.quantize_in("lstm_out", h.float() if q.quantized else h)
+    left = _decoder_apply_packed(model.left_decoder, hq, t, q, "left")
+    right = _decoder_apply_packed(model.right_decoder, hq, t, q, "right")
+    return torch.cat([left, right], dim=-1)
+
+
+def packed_amax(model: StereoSeparator, x) -> dict:
+    """Calibration forward: {point: per-channel amax} of apply_packed."""
+    from ..ops.quant import QuantCtx
+
+    ctx = QuantCtx()
+    apply_packed(model, x, q=ctx)
+    return ctx.amax

@@ -28,6 +28,9 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 GXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-pthread", "-shared"]
+#: nvcc flags of one library beyond NVCC_FLAGS: the int8 conv's epilogue
+#: must round each f32 operation on its own, as its plain version does
+EXTRA_NVCC_FLAGS = {"int8_conv": ["-fmad=false"]}
 #: libraries built with g++ for the host: name -> translation units in csrc/
 HOST_LIBRARIES = {"wavio": ("wavio.cpp", "flacio.cpp")}
 
@@ -74,7 +77,9 @@ def _units(name: str) -> list[Path]:
 
 
 def _flags(name: str) -> list[str]:
-    return GXX_FLAGS if name in HOST_LIBRARIES else NVCC_FLAGS
+    if name in HOST_LIBRARIES:
+        return GXX_FLAGS
+    return NVCC_FLAGS + EXTRA_NVCC_FLAGS.get(name, [])
 
 
 def library_path(name: str) -> Path:

@@ -11,9 +11,19 @@ chunk spanning the recording.
 The serving options of PipelineConfig: `compute_dtype="bfloat16"` (a bf16
 copy of each model; K1 keeps its state in f32), `stereo_chunk_seconds` (the
 stereo stage over shorter internal windows, `stereo_sub_cfg` and
-`apply_stereo`), `stereo_mid_exact` and `stereo_source_rate`. All of them
-live in `_stage_stack`, which both `restore` and the coalesced
-`restore_many` run, so the two compute the same function.
+`apply_stereo`), `stereo_mid_exact`, `stereo_source_rate` and
+`quantize_int8`. All of them live in `_stage_stack`, which both `restore`
+and the coalesced `restore_many` run, so the two compute the same function.
+
+int8 serving (`quantize_int8`, ops/quant.py) runs the denoiser, SR and
+stereo conv stacks through the packed int8 forwards (`apply_packed` under a
+QuantCtx; csrc/int8_conv.cu on the card), with activation scales that
+`calibrate_int8` collects from one f32 pass, automatically on the first
+recording unless `load_int8_scales` ran. It rides the packed layout, so it
+shares the JAX package's gates, which warn and serve float:
+`packed_convs=False`, an unpackable checkpoint, a chunk length off the
+packing grid (whole_file), and, for the stereo stage only, sub-chunked
+stereo windows.
 """
 from __future__ import annotations
 
@@ -31,6 +41,9 @@ from ..audio import find_audio_files, load_audio, normalize_audio, save_audio
 from ..compat import load_pth, model_from_state_dict, state_dict_from_jax
 from ..config import PipelineConfig, check_pipeline_config
 from ..models import cast_model
+from ..models import denoiser as denoiser_mod
+from ..models import stereo_separator as stereo_mod
+from ..models import super_resolution as sr_mod
 from ..ops import frame_structured, num_chunks, overlap_add, upsample_linear
 
 
@@ -73,6 +86,22 @@ def load_stage(path, name: str, device="cpu") -> Optional[nn.Module]:
     return model_from_state_dict(name, sd, device)
 
 
+class Int8LengthGateError(ValueError):
+    """The one per-recording int8 gate: a whole_file length off the packing
+    grid. A later recording may align, so restore() retries after it (its
+    don't-retry flag keys on this type)."""
+
+
+def _denoiser_packable(dn) -> bool:
+    return (len(dn.encoder) == 3 and dn.encoder[0][0].in_channels == 1
+            and dn.final_conv.out_channels == 1)
+
+
+def _sr_packable(sr) -> bool:
+    return (len(sr.upsample_blocks) >= 1 and sr.initial[0].in_channels == 1
+            and sr.reconstruction.out_channels == 1)
+
+
 def _bucket(n: int, granularity: int = 4) -> int:
     """Round the chunk count up to a multiple of `granularity`."""
     return max(granularity, ((n + granularity - 1) // granularity) * granularity)
@@ -100,10 +129,17 @@ def stereo_sub_cfg(cfg: PipelineConfig, stage_len: int, f: int,
     return (sub, sub - sub_ov, sub_ov)
 
 
-def apply_stereo(st: nn.Module, x, sub_cfg):
+def apply_stereo(st: nn.Module, x, sub_cfg, q=None):
     """The stereo stage over [N, 1, T2] -> [N, 2, T2]. With `sub_cfg`
     (stereo_sub_cfg) each row is reframed into M windows, the model runs on
-    the [N*M, 1, sub] batch and each channel is crossfaded back."""
+    the [N*M, 1, sub] batch and each channel is crossfaded back. `q`, an
+    int8 context (ops/quant.py), runs the packed int8 forward (or its
+    calibration) where the window is a multiple of 4."""
+    stage_len = sub_cfg[0] if sub_cfg is not None else x.shape[-1]
+    if q is not None and stage_len % 4 == 0:
+        def st(v, model=st):
+            return stereo_mod.apply_packed(model, v.permute(0, 2, 1),
+                                           q=q).permute(0, 2, 1)
     if sub_cfg is None:
         return st(x)
     sub, sub_hop, sub_ov = sub_cfg
@@ -149,6 +185,13 @@ class RestorationPipeline:
             for m in (denoiser, super_resolution, stereo))
         self._cast: dict = {}  # compute dtype -> the stage models in it
         self._warmed: set = set()  # stack shapes warmup has run
+        # int8 serving: per-stage {point: scales}, a version that keys the
+        # int8 contexts (and so their cached kernels), and the don't-retry
+        # flag of a gate that can never pass
+        self._int8_scales = None
+        self._int8_version = 0
+        self._int8_failed = False
+        self._qctx: dict = {}
 
     @classmethod
     def from_checkpoints(cls, denoiser_path=None, super_res_path=None,
@@ -206,24 +249,58 @@ class RestorationPipeline:
         st_len, st_f = (chunk_size, 1) if src_rate else (chunk_size * f, f)
         sub_cfg = (stereo_sub_cfg(cfg, st_len, st_f, sample_rate=sample_rate)
                    if st is not None else None)
+        # int8 rides the packed forwards, so it takes their gate, and needs
+        # scales (restore() calibrates first); the stereo stage runs int8 on
+        # whole windows only, as in the JAX package
+        packed = (cfg.packed_convs and chunk_size % 4 == 0
+                  and (dn is None or _denoiser_packable(dn))
+                  and (sr is None or _sr_packable(sr)))
+        int8 = cfg.quantize_int8 and packed and self._int8_scales is not None
+        int8_stereo = int8 and sub_cfg is None
+        q_dn = q_sr = q_st = None
+        if int8:
+            scope = cfg.int8_scope
+            if dn is not None:
+                q_dn = self._int8_ctx("denoiser", scope,
+                                      denoiser_mod.INT8_FLOAT_LAYERS)
+            if sr is not None:
+                q_sr = self._int8_ctx("super_resolution", scope)
+            if st is not None and int8_stereo:
+                q_st = self._int8_ctx("stereo", scope)
+
+        def ncw(fn, model, q):
+            """The NWC int8 forward of `model` on an NCW [N, 1, T] tensor."""
+            return lambda v: fn(model, v.permute(0, 2, 1), q=q).permute(
+                0, 2, 1)
+
+        run_dn = dn if q_dn is None else ncw(denoiser_mod.apply_packed, dn,
+                                             q_dn)
+        run_sr = sr if q_sr is None else ncw(sr_mod.apply_packed, sr, q_sr)
+
+        def run_stereo(v):
+            # the int8 denoiser / SR exit in the compute dtype; the int8
+            # stereo stage takes f32, as the JAX package hands it
+            if int8:
+                v = v.float() if int8_stereo else v.to(dtype)
+            return apply_stereo(st, v, sub_cfg, q=q_st)
 
         def stack(chunks):
             x = chunks.permute(0, 2, 1).to(dtype)  # NCW
             if dn is not None:
-                x = dn(x)
+                x = run_dn(x)
             side = None
             if src_rate:
-                y = apply_stereo(st, x, sub_cfg)
+                y = run_stereo(x)
                 side = (y[:, 0:1] - y[:, 1:2]) * 0.5
             if sr is not None:
-                x = sr(x)
+                x = run_sr(x)
             if st is not None:
                 if src_rate:
                     if f > 1:
                         side = upsample_linear(side, f)
                     x = x + torch.cat([side, -side], dim=1).to(x.dtype)
                 else:
-                    y = apply_stereo(st, x, sub_cfg)
+                    y = run_stereo(x)
                     if cfg.stereo_mid_exact:
                         # out = mid +/- the predicted side: the mid is the
                         # stage's input exactly
@@ -233,6 +310,20 @@ class RestorationPipeline:
             return x.float()
 
         return stack
+
+    def _int8_ctx(self, stage: str, scope: str, skip=frozenset()):
+        """The int8 context of one stage for the current scales: built
+        once per scales version, compute dtype and scope, so its folded,
+        packed and quantized kernels are too."""
+        from ..ops.quant import QuantCtx
+
+        key = (stage, scope, self.config.compute_dtype, self._int8_version)
+        if key not in self._qctx:
+            self._qctx = {k: v for k, v in self._qctx.items()
+                          if k[3] == self._int8_version}
+            self._qctx[key] = QuantCtx(self._int8_scales[stage], scope,
+                                       skip=skip)
+        return self._qctx[key]
 
     def _process(self, stack, audio_padded, n_chunks: int, chunk_size: int,
                  hop: int, overlap: int, valid: int):
@@ -271,6 +362,7 @@ class RestorationPipeline:
         cfg = self.config
         sample_rate = sample_rate or cfg.sample_rate
         audio = self._mono(audio)
+        self._ensure_int8(audio, sample_rate)
         t = audio.shape[1]
         f = self.upscale_factor
         if cfg.whole_file:
@@ -335,6 +427,7 @@ class RestorationPipeline:
         f = self.upscale_factor
         chunk_size, hop, overlap = self._framing(sample_rate)
         prepped = [self._mono(a) for a in audios]
+        self._ensure_int8(prepped[0], sample_rate)
         max_n = max(cfg.max_chunks_per_program, 4)
         metas = []  # (n_real, n_bucket) per recording
         solo = []  # too long to coalesce: restore() with its slabs
@@ -473,6 +566,129 @@ class RestorationPipeline:
                 write_pending()
         return results
 
+    # ------------------------------------------------------- int8 serving
+    def calibrate_int8(self, audio, sample_rate: Optional[int] = None,
+                       max_chunks: int = 8):
+        """Collect the per-point activation scales of int8 serving from one
+        f32 pass of the f32 models over up to `max_chunks` chunks of
+        `audio`, framed as restore() frames it (source-rate stereo on the
+        pre-SR signal). Stores and returns {stage: {point: scales}}. Raises
+        ValueError on a gate int8 cannot pass (Int8LengthGateError for a
+        whole_file length off the packing grid)."""
+        from ..ops.quant import QuantCtx, amax_to_host, scales_from_amax
+
+        cfg = self.config
+        sample_rate = sample_rate or cfg.sample_rate
+        if not cfg.packed_convs:
+            raise ValueError("int8 serving rides the packed conv paths: "
+                             "config.packed_convs is off")
+        has_dn, has_sr = self.denoiser is not None, self._has_sr
+        has_st = self.stereo is not None
+        if has_dn and not _denoiser_packable(self.denoiser):
+            raise ValueError("denoiser checkpoint is not packable "
+                             "(non-default layout); int8 unavailable")
+        if has_sr and not _sr_packable(self.super_resolution):
+            raise ValueError("super-resolution checkpoint is not packable "
+                             "(non-default layout); int8 unavailable")
+        audio = self._mono(audio)
+        t = audio.shape[1]
+        chunk_size, hop, _ = self._framing(sample_rate)
+        if cfg.whole_file:
+            chunk_size = t
+            hop = t - int(round(cfg.overlap_seconds * sample_rate))
+        if chunk_size % 4 != 0:
+            raise Int8LengthGateError(
+                f"int8 serving rides the packed path: chunk length "
+                f"{chunk_size} must be a multiple of 4")
+        n = min(max(num_chunks(t, chunk_size, hop), 1), max_chunks)
+        total = (n - 1) * hop + chunk_size
+        audio = F.pad(audio, (0, max(total - t, 0)))[:, :total]
+        f = self.upscale_factor
+        src_rate = cfg.stereo_source_rate and has_st
+        st_len, st_f = (chunk_size, 1) if src_rate else (chunk_size * f, f)
+        sub_cfg = (stereo_sub_cfg(cfg, st_len, st_f, sample_rate=sample_rate)
+                   if has_st else None)
+
+        def stereo_amax(v):
+            ctx = QuantCtx()
+            apply_stereo(self.stereo, v.permute(0, 2, 1), sub_cfg, q=ctx)
+            return ctx.amax
+
+        amax = {}
+        with torch.inference_mode():
+            x = frame_structured(audio, n, chunk_size, hop)  # [n, chunk, 1]
+            if has_dn:
+                ctx = QuantCtx()
+                x = denoiser_mod.apply_packed(self.denoiser, x, q=ctx)
+                amax["denoiser"] = ctx.amax
+            if has_st and src_rate:
+                amax["stereo"] = stereo_amax(x)
+            if has_sr:
+                ctx = QuantCtx()
+                x = sr_mod.apply_packed(self.super_resolution, x, q=ctx)
+                amax["super_resolution"] = ctx.amax
+            if has_st and not src_rate:
+                amax["stereo"] = stereo_amax(x)
+        self._int8_scales = {stage: scales_from_amax(amax_to_host(d))
+                             for stage, d in amax.items()}
+        self._int8_version += 1
+        return self._int8_scales
+
+    def save_int8_scales(self, path):
+        """Write the scales (ops/quant.py::save_scales_file, the JAX
+        package's format) so later processes skip the calibration pass."""
+        from ..ops.quant import save_scales_file
+
+        assert self._int8_scales is not None, "calibrate_int8 first"
+        return save_scales_file(path, self._int8_scales)
+
+    def load_int8_scales(self, path):
+        from ..ops.quant import load_scales_file
+
+        self._int8_scales = load_scales_file(path)
+        self._int8_version += 1
+        self._int8_failed = False  # new scales: give int8 another try
+        return self._int8_scales
+
+    def _int8_discard_uncovered(self) -> bool:
+        """Discard loaded scales that lack an enabled stage (they would
+        raise KeyError inside the forward), with a warning; restore()
+        then recalibrates. An SR checkpoint under enable_super_resolution
+        =False is not enabled. Returns True when the scales went."""
+        if self._int8_scales is None:
+            return False
+        need = [name for name, on in (
+            ("denoiser", self.denoiser is not None),
+            ("super_resolution", self._has_sr),
+            ("stereo", self.stereo is not None)) if on]
+        missing = [k for k in need if k not in self._int8_scales]
+        if not missing:
+            return False
+        warnings.warn(
+            f"int8 scales lack stage(s) {missing} — calibrated "
+            f"with those stages disabled? Recalibrating on the next "
+            f"recording")
+        self._int8_scales = None
+        self._int8_version += 1
+        return True
+
+    def _ensure_int8(self, audio, sample_rate):
+        """Before a restore: discard scales lacking an enabled stage, then
+        calibrate on this recording if there are none. A gate failure
+        warns and serves float; only whole_file's length gate is retried
+        on the next recording."""
+        cfg = self.config
+        if not cfg.quantize_int8:
+            return
+        self._int8_discard_uncovered()
+        if self._int8_scales is None and not self._int8_failed:
+            try:
+                self.calibrate_int8(audio, sample_rate)
+            except ValueError as e:
+                warnings.warn(f"int8 serving disabled: {e}")
+                self._int8_failed = not (
+                    cfg.whole_file and isinstance(e, Int8LengthGateError))
+
     def warmup(self, coalesce: int = 1,
                sample_rate: Optional[int] = None) -> dict:
         """Run zero audio through every chunk-count bucket before traffic
@@ -483,18 +699,32 @@ class RestorationPipeline:
         shape); with `coalesce` > 1 the coalesced stack runs at each too.
 
         `whole_file` mode has one shape per recording length: a no-op with
-        a warning. Returns {"programs": shapes run for the first time,
+        a warning. So is `quantize_int8` with no scales loaded (the first
+        recording calibrates; warm after load_int8_scales or
+        calibrate_int8), after discarding scales that lack an enabled
+        stage. Returns {"programs": shapes run for the first time,
         "seconds": wall, "buckets": the chunk counts covered}."""
         cfg = self.config
         if cfg.whole_file:
             warnings.warn("warmup is a no-op in whole_file mode: programs "
                           "are compiled per recording length")
             return {"programs": 0, "seconds": 0.0, "buckets": []}
+        if cfg.quantize_int8:
+            self._int8_discard_uncovered()
+            if self._int8_scales is None and not self._int8_failed:
+                warnings.warn(
+                    "warmup skipped: quantize_int8 is set but no scales "
+                    "are loaded — the first recording calibrates. "
+                    "load_int8_scales() or calibrate_int8() on a "
+                    "representative recording first")
+                return {"programs": 0, "seconds": 0.0, "buckets": []}
         t0 = time.monotonic()
         if self.device.type == "cuda":
             from ..ops import _build
 
             _build.load("lstm_recurrence")
+            if cfg.quantize_int8 and self._int8_scales is not None:
+                _build.load("int8_conv")
         sample_rate = sample_rate or cfg.sample_rate
         chunk_size, hop, overlap = self._framing(sample_rate)
         max_n = max(cfg.max_chunks_per_program, 4)
@@ -507,11 +737,11 @@ class RestorationPipeline:
                 zeros = torch.zeros((1, total), device=self.device)
                 self._process(stack, zeros, n, chunk_size, hop, overlap, n)
                 self._warmed.add(("rec", n, chunk_size, hop, sample_rate,
-                                  cfg.compute_dtype))
+                                  cfg.compute_dtype, self._int8_version))
                 if coalesce > 1:
                     stack(torch.zeros((n, chunk_size, 1), device=self.device))
                     self._warmed.add(("chunks", n, chunk_size, sample_rate,
-                                      cfg.compute_dtype))
+                                      cfg.compute_dtype, self._int8_version))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return {"programs": len(self._warmed) - before,

@@ -20,20 +20,31 @@ single-shot forward everywhere but the first `context` samples:
 `batch=B` runs B lockstep streams as one batch (the LSTM batch dimension);
 outputs are then [B, ch, n*f], and each stream's output equals a
 single-stream restorer's fed the same samples.
+
+`quantize_int8=True` runs the denoiser and SR through their packed int8
+forwards (scope "packed"; the stereo stage stays float), with scales that
+calibrate on the first drained window unless `int8_scales` (a dict, or a
+path written by either serving object: one file format) gives them. A gate
+int8 cannot pass (packed=False, an unpackable checkpoint, a window off the
+packing grid) warns and serves float.
 """
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..config import COMPUTE_DTYPES, SERVING_LSTM_IMPLS, check_int8
+from ..config import COMPUTE_DTYPES, SERVING_LSTM_IMPLS
 from ..models import cast_model
+from ..models import denoiser as denoiser_mod
+from ..models import super_resolution as sr_mod
 from ..ops import upsample_linear
 from ..ops.lstm import stacked_lstm
-from .restore import load_stage, no_tf32, resolve_device
+from .restore import (_denoiser_packable, _sr_packable, load_stage, no_tf32,
+                      resolve_device)
 
 
 class StreamingRestorer:
@@ -54,16 +65,12 @@ class StreamingRestorer:
         the pre-SR signal, its side upsampled around the exact SR mid; it
         implies mid-exact). compute_dtype "bfloat16" runs bf16 copies of
         the models; K1 keeps its state in f32, the carries cross feeds in
-        bf16 and the emitted audio is f32. `packed` and `lstm_impl` (None,
-        "scan" or "pallas") pick TPU layouts and kernels: accepted and
-        ignored. int8 (`quantize_int8`, `int8_scales`) and a device mesh
-        are not ported and raise."""
-        check_int8(quantize_int8, "StreamingRestorer")
-        if int8_scales is not None:
-            raise NotImplementedError(
-                "StreamingRestorer: int8_scales (int8 serving, "
-                "ops/quant.py) is not ported yet (ROADMAP.md section 1, "
-                "item 6)")
+        bf16 and the emitted audio is f32. `quantize_int8` runs the
+        denoiser and SR int8 (module docstring), `int8_scales` preloads
+        their scales (a dict or a scales file); `packed=False` disables
+        int8 (a warning, then float) and is otherwise ignored, as is
+        `lstm_impl` (None, "scan" or "pallas"). A device mesh is not
+        ported and raises."""
         if mesh is not None:
             raise NotImplementedError(
                 "StreamingRestorer: a device mesh (multi-device streaming) "
@@ -86,6 +93,17 @@ class StreamingRestorer:
         self.batch = int(batch)
         self.mid_exact = bool(mid_exact)
         self.source_rate = bool(source_rate)
+        self.packed = bool(packed)
+        self.quantize_int8 = bool(quantize_int8)
+        self._int8_scales = None
+        self._int8_version = 0
+        self._int8_ready = False  # gates not yet run on a drained window
+        self._qctx = None  # (scales version, denoiser ctx, SR ctx)
+        if int8_scales is not None:
+            if isinstance(int8_scales, dict):
+                self._int8_scales = int8_scales
+            else:
+                self.load_int8_scales(int8_scales)
         # the U-Net pools by 8, so window starts stay on the pooling grid
         # (the model is shift-variant modulo 8): context and emission
         # lengths are kept multiples of the alignment
@@ -152,11 +170,14 @@ class StreamingRestorer:
         f, g = self.f, self._g
         self._shapes.add(window.shape[1])
         x = window[:, None, :].to(self.compute_dtype)  # NCW
+        q_dn, q_sr = self._int8_ctxs(window.shape[1])
         if self._dn is not None:
-            x = self._dn(x)
+            x = (self._dn(x) if q_dn is None else denoiser_mod.apply_packed(
+                self._dn, x.permute(0, 2, 1), q=q_dn).permute(0, 2, 1))
         x_src = x  # the pre-SR signal (source-rate stereo input)
         if self._sr is not None:
-            x = self._sr(x)
+            x = (self._sr(x) if q_sr is None else sr_mod.apply_packed(
+                self._sr, x.permute(0, 2, 1), q=q_sr).permute(0, 2, 1))
         emit = slice(ctx * f, (ctx + n) * f)
         if self._st is None:
             return x[:, :, emit].float()
@@ -199,6 +220,112 @@ class StreamingRestorer:
                                        dim=1)[:, -ctx * g:]
         return out.float()
 
+    # ------------------------------------------------------- int8 serving
+    def _int8_ctxs(self, window_len: int):
+        """(denoiser, SR) int8 contexts of a step over a window of
+        `window_len` samples, or None for a stage that runs float. Scope
+        "packed"; built once per scales version."""
+        if not (self.quantize_int8 and self._int8_scales is not None
+                and window_len % 4 == 0):
+            return None, None
+        from ..ops.quant import QuantCtx
+
+        if self._qctx is None or self._qctx[0] != self._int8_version:
+            sc = self._int8_scales
+            self._qctx = (
+                self._int8_version,
+                None if self._dn is None else QuantCtx(
+                    sc["denoiser"], "packed",
+                    skip=denoiser_mod.INT8_FLOAT_LAYERS),
+                None if self._sr is None else QuantCtx(
+                    sc["super_resolution"], "packed"))
+        return self._qctx[1:]
+
+    def _int8_gates(self, window_len: int):
+        """Raise ValueError on what int8 cannot run, for preloaded scales as
+        for calibration, so _drain can warn and serve float."""
+        dn, sr = self.denoiser, self.super_resolution
+        if not self.packed:
+            raise ValueError("int8 streaming rides the packed conv paths: "
+                             "packed=False")
+        if dn is not None and not _denoiser_packable(dn):
+            raise ValueError("denoiser checkpoint is not packable "
+                             "(non-default layout); int8 unavailable")
+        if sr is not None and not _sr_packable(sr):
+            raise ValueError("super-resolution checkpoint is not packable "
+                             "(non-default layout); int8 unavailable")
+        if window_len % 4 != 0:
+            raise ValueError(
+                f"int8 streaming rides the packed path: window length "
+                f"{window_len} must be a multiple of 4 (choose "
+                f"context/lookahead/block sizes accordingly)")
+
+    def _calibrate_int8(self, window: np.ndarray):
+        """Denoiser and SR scales from one f32 pass of the f32 models over
+        the first drained window (as RestorationPipeline.calibrate_int8)."""
+        from ..ops.quant import QuantCtx, amax_to_host, scales_from_amax
+
+        self._int8_gates(window.shape[1])
+        amax = {}
+        with torch.inference_mode():
+            x = torch.from_numpy(window).to(self.device)[:, :, None]
+            if self.denoiser is not None:
+                q = QuantCtx()
+                x = denoiser_mod.apply_packed(self.denoiser, x, q=q)
+                amax["denoiser"] = q.amax
+            if self.super_resolution is not None:
+                q = QuantCtx()
+                x = sr_mod.apply_packed(self.super_resolution, x, q=q)
+                amax["super_resolution"] = q.amax
+        self._int8_scales = {stage: scales_from_amax(amax_to_host(d))
+                             for stage, d in amax.items()}
+        self._int8_version += 1
+        return self._int8_scales
+
+    def save_int8_scales(self, path):
+        """Write the scales (ops/quant.py::save_scales_file, the file
+        RestorationPipeline writes too)."""
+        from ..ops.quant import save_scales_file
+
+        assert self._int8_scales is not None, "no scales calibrated yet"
+        return save_scales_file(path, self._int8_scales)
+
+    def load_int8_scales(self, path):
+        from ..ops.quant import load_scales_file
+
+        self._int8_scales = load_scales_file(path)
+        self._int8_version += 1
+        self._int8_ready = False  # the gates run again on the next drain
+        return self._int8_scales
+
+    def _ensure_int8(self, window: np.ndarray):
+        """On the first drained window: discard scales lacking an enabled
+        stage, then calibrate (or gate preloaded scales); a failure warns
+        and serves float."""
+        if self._int8_scales is not None:
+            need = [k for k, m in (("denoiser", self.denoiser),
+                                   ("super_resolution",
+                                    self.super_resolution))
+                    if m is not None]
+            missing = [k for k in need if k not in self._int8_scales]
+            if missing:
+                warnings.warn(
+                    f"int8 scales lack stage(s) {missing} — calibrated "
+                    f"with those stages disabled? Recalibrating on the "
+                    f"first window")
+                self._int8_scales = None
+                self._int8_version += 1
+        try:
+            if self._int8_scales is None:
+                self._calibrate_int8(window)
+            else:
+                self._int8_gates(window.shape[1])
+            self._int8_ready = True
+        except ValueError as e:
+            warnings.warn(f"int8 streaming unavailable — serving float "
+                          f"instead: {e}")
+            self.quantize_int8 = False
+
     def _dec_hist(self):
         """The last ctx*g LSTM outputs [B, ctx*g, H] (zeros at the start)."""
         if self._dec_hist_buf is None:
@@ -217,8 +344,16 @@ class StreamingRestorer:
         cycles through the remainders it leaves, with a window for each),
         then the windows a stream's `flush` can run, then the restorer is
         `reset()`: call it before serving, never with streams in flight. A
-        short last block runs a window of its own. Returns {"programs":
-        windows run for the first time, "seconds": wall}."""
+        short last block runs a window of its own. With `quantize_int8` and
+        no scales it is skipped with a warning: the first window would
+        calibrate on the warmup's silence. Returns {"programs": windows run
+        for the first time, "seconds": wall}."""
+        if self.quantize_int8 and self._int8_scales is None:
+            warnings.warn(
+                "streaming warmup skipped: quantize_int8 is set but no "
+                "scales are loaded — the first drained window would "
+                "calibrate on warmup silence. load_int8_scales() first")
+            return {"programs": 0, "seconds": 0.0}
         t0 = time.monotonic()
         if self.device.type == "cuda" and self.stereo is not None:
             from ..ops import _build
@@ -300,6 +435,8 @@ class StreamingRestorer:
             # covers the receptive field, so no emitted sample sees them
             pad = -(deficit + window.shape[1]) % 8
             window = np.pad(window, ((0, 0), (deficit, pad)))
+            if self.quantize_int8 and not self._int8_ready:
+                self._ensure_int8(window)
             out = self._step(torch.from_numpy(window).to(self.device), ctx, n)
             outs.append(out.cpu().numpy())  # [B, ch, n*f]
             self._warm += n

@@ -22,7 +22,10 @@ seeded bf16 runs of each family equal bit for bit, and the f32 training LSTM
 against the CPU on the same draws, and two seeded runs equal bit for bit.
 Files: a FLAC corpus through the C++ batch reader feeding a card step, equal
 to its WAV twin bit for bit, and a `.msgpack` pipeline on the card equal to
-its `.pth` twin bit for bit.
+its `.pth` twin bit for bit. int8: csrc/int8_conv.cu against its plain
+version bit for bit over the int8 layers' geometries and every epilogue,
+and an int8 restore on the card (bit for bit its plain-conv twin, within a
+quarter of its int8-vs-f32 deviation of the CPU on the same scales).
 """
 import contextlib
 
@@ -456,3 +459,109 @@ def test_msgpack_pipeline_equals_its_pth_twin_on_the_card(card, tmp_path):
         outs.append(out)
     assert outs[0].shape == (2, 60000) and torch.isfinite(outs[0]).all()
     assert torch.equal(outs[0], outs[1])
+
+
+# (n, t_in, cin, cout, kp, stride, lhs dilation, pad lo, pad hi): the int8
+# layers' geometries (raising stems, r=4 and r=8 convs, the exits under
+# lhs dilation 2/4/8 with Cout 1, the stereo decoders' stride 2, the
+# full-scope r=1 dilated taps) and edges (a negative pad, Cout 3 and 70,
+# Cin 12, several row tiles, lhs dilation 3, phases with no tap, a length
+# off the dilation's grid)
+INT8_GEOMETRIES = [
+    (2, 40, 1, 128, 7, 4, 1, 3, 0), (2, 10, 128, 128, 3, 1, 1, 1, 1),
+    (2, 10, 128, 1, 6, 1, 4, 3, 2), (1, 7, 256, 1, 14, 1, 8, 10, 14),
+    (2, 9, 64, 32, 3, 1, 1, 1, 1), (2, 13, 64, 256, 7, 2, 1, 3, 1),
+    (2, 11, 128, 1, 8, 1, 2, 4, 3), (2, 12, 128, 128, 17, 1, 1, 8, 8),
+    (2, 9, 128, 128, 3, 1, 2, 1, 1), (2, 21, 32, 64, 3, 1, 1, -1, 2),
+    (1, 5, 4, 3, 2, 1, 1, 0, -1), (3, 70, 12, 70, 5, 2, 1, 2, 2),
+    (1, 300, 16, 65, 3, 1, 1, 1, 1), (1, 600, 8, 1, 3, 1, 1, 1, 1),
+    (2, 9, 12, 64, 5, 1, 3, 2, 1), (2, 13, 32, 70, 2, 1, 4, 1, 3),
+    (1, 17, 16, 1, 7, 1, 3, -2, 5), (3, 30, 64, 128, 9, 1, 4, 5, 0)]
+# (add, activation, output): f32 / s8 residuals, leaky-ReLU, s8 / f32 / bf16
+INT8_EPILOGUES = [(None, None, "s8"), ("f32", "lrelu", "s8"),
+                  ("s8", "lrelu", "f32"), (None, "lrelu", "bf16"),
+                  ("s8", None, "s8"), ("f32", None, "f32")]
+
+
+def _int8_case(card, geo, epi, seed):
+    from ml_audio_restoration_torch.ops import int8_conv as ic
+
+    n, t_in, cin, cout, kp, stride, dil, lo, hi = geo
+    add, act, out = epi
+    g = torch.Generator(device=card).manual_seed(seed)
+    ints = lambda *s: torch.randint(-127, 128, s, generator=g,  # noqa: E731
+                                    device=card).to(torch.int8)
+    uni = lambda lo_, hi_, *s: lo_ + (hi_ - lo_) * torch.rand(  # noqa: E731
+        s, generator=g, device=card)
+    weight = ic.Int8Weight(ints(kp, cin, cout), uni(1e-5, 1e-3, cout),
+                           torch.randn(cout, generator=g, device=card))
+    t_out = ic.out_length(t_in, kp, stride, dil, (lo, hi))
+    kw = dict(stride=stride, lhs_dilation=dil, padding=(lo, hi), act=act)
+    if add == "f32":
+        kw["add"] = torch.randn((n, t_out, cout), generator=g, device=card)
+    elif add == "s8":
+        kw["add"], kw["add_scale"] = ints(n, t_out, cout), uni(1e-3, 1e-2,
+                                                               cout)
+    if out == "s8":
+        kw["out_inv"] = 1.0 / uni(1e-3, 3e-2, cout)
+    else:
+        kw["out_dtype"] = torch.bfloat16 if out == "bf16" else torch.float32
+    return ints(n, t_in, cin), weight, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geo", INT8_GEOMETRIES)
+def test_int8_conv_kernel_matches_plain(card, geo):
+    """csrc/int8_conv.cu against its plain version, bit for bit: the int32
+    accumulation is exact and the epilogue the same IEEE f32 operations."""
+    from ml_audio_restoration_torch.ops import int8_conv as ic
+
+    for i, epi in enumerate(INT8_EPILOGUES):
+        x, weight, kw = _int8_case(card, geo, epi, seed=i)
+        ic.reset_launch_count()
+        got = ic.int8_conv(x, weight, **kw)
+        assert ic.launch_count == 1
+        want = ic.int8_conv_plain(x, weight, **kw)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got.view(torch.int8) if got.dtype == torch.int8
+                           else got.float(), want.view(torch.int8)
+                           if want.dtype == torch.int8 else want.float()), \
+            (geo, epi)
+
+
+@pytest.mark.cuda
+def test_int8_restore_on_the_card(card):
+    """An int8 restore on the card: K1 once, the int8 kernel at every int8
+    layer, equal bit for bit to the same restore through the plain int8
+    conv, and within a quarter of its own int8-vs-f32 deviation of the CPU
+    on the same scales."""
+    from ml_audio_restoration_torch.config import PipelineConfig
+    from ml_audio_restoration_torch.ops import int8_conv as ic
+    from ml_audio_restoration_torch.pipeline import RestorationPipeline
+
+    def models():
+        gen = torch.Generator().manual_seed(7)
+        return [init_params(m, gen).eval() for m in (
+            AudioDenoiser(features=(8, 16, 32)),
+            AudioSuperResolution(base_channels=8, num_residual_blocks=2),
+            StereoSeparator(base_channels=8, lstm_hidden=16))]
+
+    cfg = PipelineConfig(chunk_seconds=4400 / 22050, quantize_int8=True)
+    audio = _mono(1, 22050, 5)[0]
+    pipe = RestorationPipeline(*models(), config=cfg, device=card)
+    pipe.calibrate_int8(audio)
+    L.reset_launch_count()
+    ic.reset_launch_count()
+    out, rate = pipe.restore(audio)
+    assert L.launch_count == 1 and ic.launch_count > 0 and rate == 44100
+    with ic.plain_int8_conv():
+        plain, _ = pipe.restore(audio)
+    assert torch.equal(out, plain)
+    f32, _ = RestorationPipeline(*models(), config=PipelineConfig(
+        chunk_seconds=cfg.chunk_seconds), device=card).restore(audio)
+    cpu = RestorationPipeline(*models(), config=cfg, device="cpu")
+    cpu._int8_scales = pipe._int8_scales
+    cpu_out, _ = cpu.restore(audio)
+    dev = float((out - f32).abs().max())
+    assert dev > 0
+    assert float((out.cpu() - cpu_out).abs().max()) <= 0.25 * dev

@@ -105,17 +105,11 @@ def test_cuda_default_raises_without_a_card(stages):
 def _int8_pipeline():
     cfg = PipelineConfig()
     cfg.quantize_int8 = True  # as a YAML overlay sets it
-    RestorationPipeline(config=cfg, device="cpu")
+    return RestorationPipeline(config=cfg, device="cpu")
 
 
 @pytest.mark.parametrize("make,error", [
-    (_int8_pipeline, NotImplementedError),
-    (lambda: PipelineConfig(quantize_int8=True), NotImplementedError),
-    (lambda: StreamingRestorer(quantize_int8=True, device="cpu"),
-     NotImplementedError),
     (lambda: StreamingRestorer(mesh=object(), device="cpu"),
-     NotImplementedError),
-    (lambda: StreamingRestorer(int8_scales={}, device="cpu"),
      NotImplementedError),
     (lambda: RestorationPipeline(config=dataclasses.replace(
         PipelineConfig(), lstm_impl="pallas_train"), device="cpu"),
@@ -123,11 +117,28 @@ def _int8_pipeline():
     (lambda: StreamingRestorer(lstm_impl="pallas_train", device="cpu"),
      ValueError)])
 def test_unported_options_raise(make, error):
-    """int8 serving and multi-device streaming are not ported and raise
-    (int8 changes the output, so a float result would be a different
-    answer); the training recurrence is no serving route."""
+    """Multi-device streaming is not ported and raises; the training
+    recurrence is no serving route."""
     with pytest.raises(error):
         make()
+
+
+@pytest.mark.parametrize("make,int8,scales", [
+    (_int8_pipeline, "config", False),
+    (lambda: RestorationPipeline(config=PipelineConfig(quantize_int8=True),
+                                 device="cpu"), "config", False),
+    (lambda: StreamingRestorer(quantize_int8=True, device="cpu"),
+     "quantize_int8", False),
+    (lambda: StreamingRestorer(int8_scales={}, quantize_int8=True,
+                               device="cpu"), "quantize_int8", True)])
+def test_int8_options_build(make, int8, scales):
+    """int8 serving is ported (ops/quant.py): the constructions that raised
+    before now build an int8 pipeline or restorer (scales preloaded where
+    given)."""
+    obj = make()
+    on = (obj.config.quantize_int8 if int8 == "config"
+          else obj.quantize_int8)
+    assert on and (obj._int8_scales is not None) == scales
 
 
 def test_cli_restore_on_cpu(stages, tmp_path):

@@ -366,10 +366,12 @@ def test_warmup_runs_every_bucket(stages):
 
 
 def test_config_validation():
-    """int8 raises (it changes the output); lstm_impl takes None, "scan"
-    and "pallas" and rejects the rest, as the JAX pipeline does."""
-    with pytest.raises(NotImplementedError, match="int8"):
-        PipelineConfig(quantize_int8=True)
+    """int8 builds (ops/quant.py) and fast_serve_int8.yaml restores int8 on
+    the CPU; lstm_impl takes None, "scan" and "pallas" and rejects the
+    rest, as the JAX pipeline does."""
+    assert PipelineConfig(quantize_int8=True).quantize_int8
+    with pytest.raises(ValueError, match="int8_scope"):
+        PipelineConfig(quantize_int8=True, int8_scope="some")
     for ok in (None, "scan", "pallas"):
         PipelineConfig(lstm_impl=ok)
     for bad in ("pallas_train", "palas", "cudnn"):
@@ -377,10 +379,25 @@ def test_config_validation():
             PipelineConfig(lstm_impl=bad)
     with pytest.raises(ValueError, match="compute_dtype"):
         PipelineConfig(compute_dtype="float16")
-    # a YAML overlay sets fields after construction: the pipeline checks
+    # a YAML overlay sets fields after construction
     cfg = load_config("config/fast_serve_int8.yaml").pipeline
-    with pytest.raises(NotImplementedError, match="int8"):
-        RestorationPipeline(config=cfg, device="cpu")
+    assert (cfg.quantize_int8, cfg.compute_dtype,
+            cfg.stereo_chunk_seconds) == (True, "bfloat16", 0.25)
+    cfg.chunk_seconds, cfg.overlap_seconds = 2000 / RATE, 200 / RATE
+    rng = np.random.default_rng(8)
+    packable = {"denoiser": {"features": (8, 16, 32)},
+                "super_resolution": {"base_channels": 8,
+                                     "num_residual_blocks": 2},
+                "stereo_separator": {"base_channels": 8, "lstm_hidden": 16}}
+    pipe = RestorationPipeline(
+        *(port_model(n, *jax_model(n, i, rng, **c)[1])
+          for i, (n, c) in enumerate(packable.items())),
+        config=cfg, device="cpu")
+    out, rate = pipe.restore(_audio(4000))
+    assert set(pipe._int8_scales) == {"denoiser", "super_resolution",
+                                      "stereo"}
+    assert out.shape == (2, 8000) and rate == 2 * RATE
+    assert bool(torch.isfinite(out).all())
     fast = load_config("config/fast_serve.yaml").pipeline
     assert (fast.compute_dtype, fast.stereo_chunk_seconds) == ("bfloat16",
                                                                 0.25)
