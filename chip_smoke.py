@@ -126,7 +126,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
                no recalibration), the preset (K1 once at T=11,024 B=640
                bf16, no int8 launch in its stereo stage), one full-scope
                restore, and 16 lockstep int8 streams on one preloaded
-               scales dict against float streams and single int8 streams.
+               scales dict against float streams and single int8 streams;
+ 17. serve   - the serving daemon (pipeline/server.py) over loopback: one
+               30 s request through RestorationServer equal bit for bit to
+               restore + normalize_audio with one K1 launch, its round trip
+               beside the in-process restore; 8 clients sending 24 requests
+               of 5-60 s (coalesced, each within MANY_TOL of its solo
+               restore; latency, xRT through the daemon, busy seconds, K1
+               launches); a hot reload of seeded .pth files in f32 and in
+               bf16, equal to a fresh pipeline on them; 16 TCP streams of
+               30 s through StreamServer against a direct restorer (feed ms
+               and stream-s/s beside it) and a WebSocket stream equal to its
+               TCP twin; an int8 daemon writing its scales file and a
+               second one serving from it bit for bit; `serve --warmup` as
+               a subprocess (healthz, a restore, a stream, SIGTERM -> 0).
 Each phase's wall seconds follow it on a line {"phase_wall_s": ...}.
 Then one line {"kernels": [...]} (K1, K2, K3 and the int8 conv, whose
 numbers sum its layers over one 64-chunk program) and, last, the device line
@@ -710,11 +723,11 @@ def _train_kernels_at(torch, L, randn, path, t, b, dtype):
                 "dw_tol": DW_TOL}}
 
 
-def _models(torch, dev):
+def _models(torch, dev, seed: int = 0):
     from ml_audio_restoration_torch.models import (
         AudioDenoiser, AudioSuperResolution, StereoSeparator, init_params)
 
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     models = []
     for m in (AudioDenoiser(), AudioSuperResolution(), StereoSeparator()):
         m = init_params(m.to(dev), gen)
@@ -3786,6 +3799,541 @@ def phase_int8(torch):
             "layers": layers}
 
 
+# -------------------------------------------------------------- serve phase
+SERVE_SECONDS = 30.0   # the solo request and each stream
+SERVE_CLIENTS = 8      # concurrent HTTP clients
+SERVE_REQUESTS = 24    # their requests, 5-60 s each (seeded)
+SERVE_STREAMS = 16     # lockstep TCP streams (the restorer's batch)
+
+
+def _serve_body(clip, rate):
+    from ml_audio_restoration_torch.audio import encode_wav
+
+    return encode_wav(clip[0][:, None], rate, subtype="FLOAT")
+
+
+def _serve_post(srv, body):
+    from ml_audio_restoration_torch.pipeline.server import restore_over_http
+
+    return restore_over_http(srv.host, srv.port, body, subtype="FLOAT",
+                             timeout=300)
+
+
+def _served_want(pipe, clip, rate):
+    """What the daemon must answer: restore_file's contract on the host
+    (input normalization, restore, output normalization)."""
+    from ml_audio_restoration_torch.audio import normalize_audio
+
+    y, _ = pipe.restore(np.asarray(normalize_audio(clip)), rate)
+    return np.asarray(normalize_audio(y.cpu().numpy()), np.float32)
+
+
+def _serve_host_split(body, restored):
+    """Host ms (median of 5) of the daemon's own work on one response:
+    the handler's decode and normalization of the body, normalization and
+    FLOAT WAV encoding of the output, and the client's decode of it."""
+    from ml_audio_restoration_torch.audio import (decode_wav, encode_wav,
+                                                  normalize_audio)
+
+    def ms(fn):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    data, rate = decode_wav(body)
+    out = normalize_audio(restored)
+    wav = encode_wav(out.T, 2 * rate, subtype="FLOAT")
+    return {"decode_body": ms(lambda: decode_wav(body)),
+            "normalize_in": ms(lambda: normalize_audio(data.T)),
+            "normalize_out": ms(lambda: normalize_audio(restored)),
+            "encode_out": ms(lambda: encode_wav(out.T, 2 * rate,
+                                                subtype="FLOAT")),
+            "client_decode": ms(lambda: decode_wav(wav))}
+
+
+def _serve_concurrent(torch, L, srv, pipe, rate):
+    """SERVE_CLIENTS threads send SERVE_REQUESTS requests of seeded lengths;
+    each response against its solo restore. Counts set to 0 just before."""
+    import json
+    import threading
+    import urllib.request
+
+    lengths = np.random.default_rng(410).uniform(5.0, 60.0, SERVE_REQUESTS)
+    clips = [_clip(float(s), rate, seed=420 + i)
+             for i, s in enumerate(lengths)]
+    bodies = [_serve_body(c, rate) for c in clips]
+    results, lat = [None] * len(clips), [None] * len(clips)
+    errors = []
+    todo = iter(range(len(clips)))
+    lock = threading.Lock()
+
+    def client():
+        while True:
+            with lock:
+                i = next(todo, None)
+            if i is None:
+                return
+            t0 = time.perf_counter()
+            try:
+                results[i] = _serve_post(srv, bodies[i])
+            except Exception as e:  # reported with the row, fails the run
+                errors.append(repr(e))
+                return
+            lat[i] = time.perf_counter() - t0
+
+    def stats():
+        return json.load(urllib.request.urlopen(
+            f"http://{srv.host}:{srv.port}/v1/stats", timeout=60))
+
+    before = stats()
+    torch.cuda.synchronize()
+    L.reset_launch_count()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client)
+               for _ in range(SERVE_CLIENTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    launches = L.launch_count
+    after = stats()
+    dev = max((float(np.abs(r[0] - _served_want(pipe, c, rate)).max())
+               if r is not None and r[0].shape == (2, 2 * c.shape[1])
+               else float("inf")) for r, c in zip(results, clips))
+    done = [x for x in lat if x is not None]
+    audio_s = float(sum(c.shape[1] for c in clips)) / rate
+    return {"requests": len(clips), "clients": SERVE_CLIENTS,
+            "audio_s": audio_s, "errors": errors,
+            "alive_threads": sum(th.is_alive() for th in threads),
+            "wall_s": wall, "xrt": audio_s / wall,
+            "latency_s_p50": float(np.percentile(done, 50)) if done else None,
+            "latency_s_p95": float(np.percentile(done, 95)) if done else None,
+            "coalesced": after["coalesced"] - before["coalesced"],
+            "busy_seconds": after["busy_seconds"] - before["busy_seconds"],
+            "lstm_recurrence_launches": launches,
+            "vs_solo_max_abs": dev, "tol": MANY_TOL}
+
+
+def _serve_reload(models, paths, clip, rate, dtype):
+    """A daemon over `models` in `dtype` serves `clip`, reloads `paths`
+    over HTTP and serves it again: the answer must equal a fresh pipeline
+    on the files and differ from the first."""
+    import json
+    import urllib.request
+
+    from ml_audio_restoration_torch.config import PipelineConfig
+    from ml_audio_restoration_torch.pipeline import (RestorationPipeline,
+                                                     RestorationServer)
+
+    cfg = PipelineConfig(compute_dtype=dtype)
+    pipe = RestorationPipeline(*models, config=cfg)
+    body = _serve_body(clip, rate)
+    with RestorationServer(pipe, request_timeout=300) as srv:
+        before, _ = _serve_post(srv, body)
+        req = urllib.request.Request(
+            f"http://{srv.host}:{srv.port}/v1/reload",
+            data=json.dumps(paths).encode(), method="POST")
+        reloaded = json.load(urllib.request.urlopen(req, timeout=300))
+        after, _ = _serve_post(srv, body)
+    fresh = RestorationPipeline.from_checkpoints(
+        denoiser_path=paths["denoiser"],
+        super_res_path=paths["super_resolution"],
+        stereo_path=paths["stereo"], config=cfg)
+    want = _served_want(fresh, clip, rate)
+    on_card = all(p.device.type == "cuda" for m in (
+        pipe.denoiser, pipe.super_resolution, pipe.stereo)
+        for p in m.parameters())
+    return {"dtype": dtype, "reloaded": reloaded["reloaded"],
+            "equal_to_fresh": bool(np.array_equal(after, want)),
+            "differs_from_old": not np.array_equal(before, after),
+            "stages_on_card": on_card}
+
+
+def _pcm_exchange(sock, samples, block: int, channels: int):
+    """stream_over_tcp's exchange on a connected socket: a writer thread
+    sends f32le blocks and half-closes while this thread reads the
+    restored interleaved PCM until EOF -> [channels, T_out]."""
+    import socket
+    import threading
+
+    payload = np.asarray(samples, "<f4").tobytes()
+
+    def write():
+        for off in range(0, len(payload), 4 * block):
+            sock.sendall(payload[off:off + 4 * block])
+        sock.shutdown(socket.SHUT_WR)
+
+    writer = threading.Thread(target=write, daemon=True)
+    writer.start()
+    chunks = []
+    while True:
+        buf = sock.recv(1 << 16)
+        if not buf:
+            break
+        chunks.append(buf)
+    writer.join(timeout=300)
+    sock.close()
+    return np.frombuffer(b"".join(chunks), "<f4").reshape(-1, channels).T
+
+
+def _serve_streams(torch, L, models, http, rate):
+    """SERVE_STREAMS TCP clients of SERVE_SECONDS each through StreamServer
+    (offline mode) against a direct restorer fed the same blocks; one
+    WebSocket stream through `http` against its TCP twin. Every client
+    connects before any sends, so all join on the first tick: a slot that
+    joins a running clock equals a fresh restorer fed the zero gap before
+    its samples (StreamingRestorer.reset_stream), which the stereo LSTM
+    does not forget at once."""
+    import socket
+    import threading
+
+    from ml_audio_restoration_torch.pipeline import (StreamingRestorer,
+                                                     StreamServer)
+    from ml_audio_restoration_torch.pipeline.server import stream_over_tcp
+    from ml_audio_restoration_torch.pipeline.ws import stream_over_ws
+
+    b = SERVE_STREAMS
+    client_block = int(0.5 * rate)
+    restorer = StreamingRestorer(*models, batch=b)
+    streams = np.concatenate([_clip(SERVE_SECONDS, rate, seed=500 + i)
+                              for i in range(b)])
+    feed_ms = []
+    with StreamServer(restorer, block=client_block) as srv:
+        block = srv.block  # the client's block on the pooling grid
+        warm = restorer.warmup(block)
+        feed = restorer.feed
+
+        def timed_feed(x):  # the clock thread's feeds, on the host clock
+            t0 = time.perf_counter()
+            out = feed(x)
+            feed_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        restorer.feed = timed_feed
+        outs = [None] * b
+        socks = [socket.create_connection((srv.host, srv.port), timeout=300)
+                 for _ in range(b)]
+        deadline = time.monotonic() + 60
+        while (srv.stats()["active_streams"] < b
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+
+        def client(i):
+            outs[i] = _pcm_exchange(socks[i], streams[i], client_block, 2)
+
+        torch.cuda.synchronize()
+        L.reset_launch_count()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(b)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = L.launch_count
+        ticks = srv.stats()["ticks"]
+        restorer.feed = feed
+        # one WebSocket stream through the HTTP daemon and its TCP twin
+        http.stream_addr = (srv.host, srv.port)
+        twin = streams[0][:int(10.0 * rate)]
+        got_ws = stream_over_ws(http.host, http.port, twin,
+                                block=client_block, channels=2, timeout=300)
+        got_tcp = stream_over_tcp(srv.host, srv.port, twin,
+                                  block=client_block, channels=2,
+                                  timeout=300)
+        http.stream_addr = None
+    direct = StreamingRestorer(*models, batch=b)
+    direct.warmup(block)
+    t_d = time.perf_counter()
+    want, direct_ms, _ = _feed_all(
+        direct, [streams[:, o:o + block]
+                 for o in range(0, streams.shape[1], block)])
+    direct_wall = time.perf_counter() - t_d
+    n = 2 * streams.shape[1]
+    dev = max((float(np.abs(o - want[i][:, :n]).max())
+               if o is not None and o.shape == (2, n) else float("inf"))
+              for i, o in enumerate(outs))
+    return {"streams": b, "seconds": SERVE_SECONDS, "block": block,
+            "warmup": warm, "alive_threads": sum(t.is_alive()
+                                                 for t in threads),
+            "wall_s": wall, "ticks": ticks,
+            "feed_ms_median": statistics.median(feed_ms),
+            "stream_audio_s_per_wall_s": b * SERVE_SECONDS / wall,
+            "direct_feed_ms_median": statistics.median(direct_ms),
+            "direct_stream_audio_s_per_wall_s": b * SERVE_SECONDS
+            / direct_wall,
+            "lstm_recurrence_launches": launches,
+            "vs_direct_max_abs": dev, "tol": MANY_TOL,
+            "ws_shape": list(got_ws.shape),
+            "ws_equal_to_tcp": bool(got_ws.shape == got_tcp.shape
+                                    == (2, 2 * twin.shape[0])
+                                    and np.array_equal(got_ws, got_tcp))}
+
+
+def _serve_int8(torch, L, models, root, rate):
+    """A daemon with quantize_int8 calibrates on its first request; at
+    shutdown `serve`'s persistence writes the scales file; a second daemon
+    loads it and serves without recalibrating, bit for bit the first."""
+    from ml_audio_restoration_torch.cli import _persist_int8_scales
+    from ml_audio_restoration_torch.config import PipelineConfig
+    from ml_audio_restoration_torch.ops import int8_conv as I8
+    from ml_audio_restoration_torch.pipeline import (RestorationPipeline,
+                                                     RestorationServer)
+
+    path = os.path.join(root, "int8_scales.json")
+    body = _serve_body(_clip(10.0, rate, seed=600), rate)
+    first = RestorationPipeline(*models, config=PipelineConfig(
+        quantize_int8=True))
+    with RestorationServer(first, request_timeout=300) as srv:
+        _serve_post(srv, body)  # calibrates on this recording
+        calibrated = first._int8_scales is not None
+        torch.cuda.synchronize()
+        L.reset_launch_count()
+        I8.reset_launch_count()
+        got, _ = _serve_post(srv, body)
+        launches = (I8.launch_count, L.launch_count)
+    _persist_int8_scales(path, first)  # what `serve` runs at shutdown
+    second = RestorationPipeline(*models, config=PipelineConfig(
+        quantize_int8=True))
+    second.load_int8_scales(path)
+    version = second._int8_version
+    with RestorationServer(second, request_timeout=300) as srv:
+        again, _ = _serve_post(srv, body)
+    return {"calibrated": calibrated, "scales_written": os.path.exists(path),
+            "recalibrated": second._int8_version != version,
+            "equal_to_first": bool(np.array_equal(got, again)),
+            "int8_conv_launches": launches[0],
+            "lstm_recurrence_launches": launches[1]}
+
+
+def _serve_cli(paths, rate):
+    """`python -m ml_audio_restoration_torch serve --warmup` as a
+    subprocess on the phase's .pth files: /healthz names a CUDA device, a
+    restore and a stream succeed, and SIGTERM ends it with exit code 0."""
+    import json
+    import queue
+    import re
+    import signal
+    import threading
+    import urllib.request
+
+    from ml_audio_restoration_torch.pipeline.server import (
+        restore_over_http, stream_over_tcp)
+
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "ml_audio_restoration_torch", "serve",
+         "--port", "0", "--stream-port", "0", "--stream-slots", "4",
+         "--warmup", "--denoiser", paths["denoiser"],
+         "--super-res", paths["super_resolution"],
+         "--stereo", paths["stereo"]],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines, log = queue.Queue(), []
+
+    def pump():
+        for line in proc.stdout:
+            log.append(line.rstrip())
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    row = {"started_s": None}
+    t0 = time.perf_counter()
+    try:
+        ports = {}
+        deadline = time.monotonic() + 180
+        while len(ports) < 2 and time.monotonic() < deadline:
+            try:
+                line = lines.get(timeout=max(0.1, deadline
+                                             - time.monotonic()))
+            except queue.Empty:
+                break
+            if line is None:
+                break
+            for kind in ("http", "tcp"):
+                m = re.search(kind + r"://[\d.]+:(\d+)", line)
+                if m:
+                    ports[kind] = int(m.group(1))
+        row["started_s"] = time.perf_counter() - t0
+        if len(ports) < 2:
+            raise AssertionError(f"serve did not start: {log[-20:]}")
+        health = json.load(urllib.request.urlopen(
+            f"http://127.0.0.1:{ports['http']}/healthz", timeout=60))
+        clip = _clip(4.0, rate, seed=700)
+        got, out_rate = restore_over_http(
+            "127.0.0.1", ports["http"], _serve_body(clip, rate),
+            subtype="FLOAT", timeout=300)
+        streamed = stream_over_tcp("127.0.0.1", ports["tcp"],
+                                   clip[0][:int(2.0 * rate)],
+                                   block=int(0.5 * rate), channels=2,
+                                   timeout=300)
+        row.update({
+            "devices": health["devices"],
+            "restore_shape": list(got.shape), "out_rate": out_rate,
+            "restore_finite": bool(np.isfinite(got).all()),
+            "stream_shape": list(streamed.shape),
+            "stream_finite": bool(np.isfinite(streamed).all())})
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            row["returncode"] = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+            row["returncode"] = None
+    row["ok"] = bool(
+        any("cuda" in d for d in row.get("devices", []))
+        and row.get("restore_shape") == [2, 2 * clip.shape[1]]
+        and row.get("out_rate") == 2 * rate and row.get("restore_finite")
+        and row.get("stream_shape") == [2, int(2.0 * rate) * 2]
+        and row.get("stream_finite") and row["returncode"] == 0)
+    if not row["ok"]:
+        row["log"] = log[-20:]
+    return row
+
+
+def phase_serve(torch):
+    """The serving daemon at full published width (seeded weights, the
+    default config unless a step says otherwise), over loopback: HTTP
+    solo and concurrent, hot reload in f32 and bf16, TCP and WebSocket
+    streams, int8 scales persistence, and `serve` as a subprocess."""
+    import shutil
+
+    from ml_audio_restoration_torch.audio import normalize_audio
+    from ml_audio_restoration_torch.compat import save_pth
+    from ml_audio_restoration_torch.ops import lstm as L
+    from ml_audio_restoration_torch.pipeline import (RestorationPipeline,
+                                                     RestorationServer)
+
+    dev = torch.device("cuda")
+    models = _models(torch, dev)
+    pipe = RestorationPipeline(*models)
+    rate = pipe.config.sample_rate
+    root = os.path.join(ROOT, "profiles", "chip_smoke_serve")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    row = {"phase": "serve"}
+    try:
+        http = RestorationServer(pipe, max_queue=2 * SERVE_CLIENTS,
+                                 request_timeout=300).start()
+        try:
+            row["warmup"] = pipe.warmup(coalesce=4)
+            # 1. one request alone
+            clip = _clip(SERVE_SECONDS, rate, seed=400)
+            body = _serve_body(clip, rate)
+            _serve_post(http, body)
+            torch.cuda.synchronize()
+            L.reset_launch_count()
+            got, out_rate = _serve_post(http, body)
+            solo_launches = L.launch_count
+            want = _served_want(pipe, clip, rate)
+            rtt, inproc = [], []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                _serve_post(http, body)
+                rtt.append(time.perf_counter() - t0)
+            for _ in range(5):
+                t0 = time.perf_counter()
+                y, _ = pipe.restore(np.asarray(normalize_audio(clip)), rate)
+                y.cpu()
+                inproc.append(time.perf_counter() - t0)
+            row["solo"] = {
+                "host_ms": _serve_host_split(body, y.cpu().numpy()),
+                "seconds": SERVE_SECONDS, "shape": list(got.shape),
+                "out_rate": out_rate,
+                "equal_to_restore": bool(np.array_equal(got, want)),
+                "lstm_recurrence_launches": solo_launches,
+                "round_trip_s_median": statistics.median(rtt),
+                "in_process_s_median": statistics.median(inproc),
+                "daemon_cost_s": statistics.median(rtt)
+                - statistics.median(inproc)}
+            emit({"phase": "serve_solo", **row["solo"]})
+            # 2. concurrent clients, coalesced
+            row["concurrent"] = _serve_concurrent(torch, L, http, pipe, rate)
+            emit({"phase": "serve_concurrent", **row["concurrent"]})
+            # 3. hot reload onto seeded files, in f32 and bf16
+            new = _models(torch, dev, seed=1)
+            paths = {}
+            for (attr, name), m in zip(
+                    (("denoiser", "denoiser"),
+                     ("super_resolution", "super_resolution"),
+                     ("stereo", "stereo_separator")), new):
+                paths[attr] = os.path.join(root, f"{attr}.pth")
+                save_pth(paths[attr], name, {k: v.cpu() for k, v in
+                                             m.state_dict().items()})
+            del new
+            reload_clip = _clip(10.0, rate, seed=401)
+            row["reload"] = [_serve_reload(models, paths, reload_clip, rate,
+                                           dtype)
+                             for dtype in ("float32", "bfloat16")]
+            emit({"phase": "serve_reload", "runs": row["reload"]})
+            # 4. lockstep streams over TCP, one over WebSocket
+            row["streams"] = _serve_streams(torch, L, models, http, rate)
+            emit({"phase": "serve_streams", **row["streams"]})
+        finally:
+            http.shutdown()
+        # 5. int8 scales persistence across two daemons
+        row["int8"] = _serve_int8(torch, L, models, root, rate)
+        emit({"phase": "serve_int8", **row["int8"]})
+        # 6. the CLI's daemon
+        row["cli"] = _serve_cli(paths, rate)
+        emit({"phase": "serve_cli", **row["cli"]})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    solo, conc = row["solo"], row["concurrent"]
+    streams, int8 = row["streams"], row["int8"]
+    checks = {
+        "solo": (solo["shape"] == [2, 2 * clip.shape[1]]
+                 and solo["equal_to_restore"]
+                 and solo["lstm_recurrence_launches"] == 1),
+        "concurrent": (not conc["errors"] and not conc["alive_threads"]
+                       and conc["coalesced"] > 0
+                       and conc["vs_solo_max_abs"] <= MANY_TOL
+                       and conc["lstm_recurrence_launches"] >= 1),
+        "reload": all(r["equal_to_fresh"] and r["differs_from_old"]
+                      and r["stages_on_card"]
+                      and r["reloaded"] == ["denoiser", "stereo",
+                                            "super_resolution"]
+                      for r in row["reload"]),
+        "streams": (not streams["alive_threads"]
+                    and streams["vs_direct_max_abs"] <= MANY_TOL
+                    and streams["ws_equal_to_tcp"]
+                    and streams["lstm_recurrence_launches"] >= 2),
+        "int8": (int8["calibrated"] and int8["scales_written"]
+                 and not int8["recalibrated"] and int8["equal_to_first"]
+                 and int8["int8_conv_launches"] > 0
+                 and int8["lstm_recurrence_launches"] == 1),
+        "cli": row["cli"]["ok"]}
+    emit({"phase": "serve", "checks": checks,
+          "solo_round_trip_s": solo["round_trip_s_median"],
+          "solo_in_process_s": solo["in_process_s_median"],
+          "concurrent_xrt": conc["xrt"],
+          "concurrent_latency_s_p50": conc["latency_s_p50"],
+          "concurrent_latency_s_p95": conc["latency_s_p95"],
+          "concurrent_coalesced": conc["coalesced"],
+          "concurrent_busy_seconds": conc["busy_seconds"],
+          "stream_feed_ms_median": streams["feed_ms_median"],
+          "stream_audio_s_per_wall_s": streams["stream_audio_s_per_wall_s"],
+          "direct_feed_ms_median": streams["direct_feed_ms_median"],
+          "direct_stream_audio_s_per_wall_s":
+              streams["direct_stream_audio_s_per_wall_s"],
+          "int8_conv_launches": int8["int8_conv_launches"]})
+    if not all(checks.values()):
+        raise AssertionError(f"serving daemon failed: {checks}")
+    return {"serve_http_solo": (solo["lstm_recurrence_launches"], None, None),
+            "serve_http_concurrent": (conc["lstm_recurrence_launches"],
+                                      None, None),
+            "serve_streams": (streams["lstm_recurrence_launches"], None,
+                              None),
+            "serve_int8": (int8["lstm_recurrence_launches"], None, None),
+            "int8_conv": int8["int8_conv_launches"]}
+
+
 def _timed_phase(fn, *args):
     """Run one phase and print its wall seconds on a line of its own."""
     t0 = time.perf_counter()
@@ -3833,6 +4381,9 @@ def main() -> int:
     int8 = _timed_phase(phase_int8, torch)
     paths["int8"] = (int8["k1_launches"], None, None)
     paths["int8_preset"] = (int8["k1_preset_launches"], None, None)
+    serve = _timed_phase(phase_serve, torch)
+    serve_int8 = serve.pop("int8_conv")
+    paths.update(serve)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K1's new shapes, each with the launches of the run of the path that
@@ -3872,7 +4423,9 @@ def main() -> int:
         "shapes": [{k: r[k] for k in (
             "layer", "count", "x", "kernel", "stride", "lhs_dilation",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "cudnn_f32_ms", "cudnn_bf16_ms")} for r in int8["layers"]]})
+            "cudnn_f32_ms", "cudnn_bf16_ms")} for r in int8["layers"]],
+        "path_launches": {"int8": int8["launches"],
+                          "serve_int8": serve_int8}})
     emit({"kernels": [{key: row[key] for key in keys + tuple(
         k for k in extra if k in row)} for row in rows]})
     emit({"ok": True, "device": {"platform": "gpu",

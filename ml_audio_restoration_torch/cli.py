@@ -13,6 +13,9 @@
         python -m ml_audio_restoration_torch stream - --pcm f32le | \
         ffmpeg -f f32le -ac 2 -ar 44100 -i - restored.flac
 
+    python -m ml_audio_restoration_torch serve --port 8000 \
+        --stream-port 8001 --warmup [--device cuda]
+
     python -m ml_audio_restoration_torch train denoiser \
         --data-dir wavs/ [--steps-per-epoch N] [--device cuda]
     python -m ml_audio_restoration_torch train super_resolution \
@@ -27,7 +30,9 @@
 `restore` restores one recording through the chain, or every recording of
 a directory (coalesced device batches); `stream` feeds recordings block by
 block through the streaming restorer, one lockstep stream per input, or
-raw mono PCM from stdin to stdout (`-`); `train` trains one model family
+raw mono PCM from stdin to stdout (`-`); `serve` runs the serving daemon
+(HTTP restore, hot reload and stats, TCP and WebSocket PCM streams,
+pipeline/server.py); `train` trains one model family
 on a directory of recordings: the denoiser on clean mono chunks degraded
 on the device, super-resolution on 44.1 kHz chunks downsampled on the
 device, the stereo separator on stereo chunks; `analyze` prints a
@@ -322,6 +327,201 @@ def _cmd_stream(args):
     return 0
 
 
+def _add_serve(sub):
+    p = sub.add_parser(
+        "serve",
+        help="serving daemon: HTTP restore endpoint + TCP PCM streaming")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000,
+                   help="HTTP port (POST /v1/restore, GET /healthz, "
+                        "GET /v1/stats); 0 picks a free port")
+    p.add_argument("--stream-port", type=int, default=None,
+                   help="also serve live PCM streams on this TCP port "
+                        "(one lockstep stream slot per connection; 0 "
+                        "picks a free port)")
+    p.add_argument("--stream-slots", type=int, default=16,
+                   help="concurrent stream connections (the batched "
+                        "restorer's lockstep batch size)")
+    p.add_argument("--lstm-impl", choices=["pallas", "scan"], default=None,
+                   help="accepted for the JAX package's command line; the "
+                        "port's recurrence is its CUDA kernel on the card "
+                        "and the plain loop on the CPU")
+    p.add_argument("--block-seconds", type=float, default=0.5,
+                   help="stream block clock (output latency ~ block + "
+                        "lookahead)")
+    p.add_argument("--tick-seconds", type=float, default=None,
+                   help="max wait for a full block before a starved live "
+                        "stream gets silence (default: wait indefinitely; "
+                        "offline/backpressure mode)")
+    p.add_argument("--pcm", choices=["f32le", "s16le"], default="f32le",
+                   help="stream sample format, both directions")
+    p.add_argument("--max-outbox-mb", type=float, default=32.0,
+                   help="per-stream output buffer bound; a client that "
+                        "falls further behind is dropped so it can't "
+                        "stall or bloat the server")
+    p.add_argument("--sndbuf-kb", type=int, default=None,
+                   help="cap SO_SNDBUF on stream sockets (default: OS "
+                        "autotuning, which may kernel-buffer several MB "
+                        "per slow client before --max-outbox-mb bites)")
+    p.add_argument("--drain-stall-seconds", type=float, default=30.0,
+                   help="offline mode only: drop a stream whose client "
+                        "makes zero read progress for this long while "
+                        "its outbox is above high water")
+    p.add_argument("--denoiser", default="models/checkpoints/best_model.pth")
+    p.add_argument("--super-res",
+                   default="models/checkpoints/super_resolution/best_model.pth")
+    p.add_argument("--stereo",
+                   default="models/checkpoints/stereo/best_model.pth")
+    p.add_argument("--no-super-res", action="store_true")
+    p.add_argument("--no-stereo", action="store_true")
+    p.add_argument("--no-denoise", action="store_true")
+    p.add_argument("--config", default=None,
+                   help="YAML overlay whose `pipeline:` section seeds the "
+                        "serving config (e.g. config/fast_serve.yaml)")
+    p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None)
+    p.add_argument("--stereo-chunk-seconds", type=float, default=None)
+    p.add_argument("--stereo-mid-exact", action="store_true")
+    p.add_argument("--stereo-source-rate", action="store_true")
+    _add_int8(p, "int8 serving: the conv stacks in int8 (auto-calibrates "
+                 "on the first request or stream window)")
+    p.add_argument("--max-queue", type=int, default=8,
+                   help="pending HTTP restores before 503 backpressure")
+    p.add_argument("--max-coalesce", type=int, default=4,
+                   help="queued HTTP restores coalesced into one device "
+                        "program (dynamic batching; 1 disables)")
+    p.add_argument("--max-body-mb", type=float, default=512.0,
+                   help="largest accepted HTTP request body")
+    p.add_argument("--request-timeout", type=float, default=600.0,
+                   help="504 for a queued restore not served within this")
+    p.add_argument("--socket-timeout", type=float, default=120.0,
+                   help="per-connection socket read/write window: bounds "
+                        "stalled uploads, slow response readers, and "
+                        "WebSocket sends to a peer that stopped reading")
+    p.add_argument("--warmup", action="store_true",
+                   help="run every serving shape before accepting traffic "
+                        "(the kernels load and cuDNN picks its algorithms; "
+                        "without it the first request of each chunk "
+                        "bucket pays that)")
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="shard over this many devices: not ported yet "
+                        "(raises)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain "
+                        "PyTorch path)")
+    return p
+
+
+def _cmd_serve(args):
+    import os
+    import signal
+    import threading
+
+    from .config import load_config
+    from .pipeline import (RestorationPipeline, RestorationServer,
+                           StreamingRestorer, StreamServer)
+
+    if args.data_parallel is not None:
+        raise NotImplementedError(
+            "serve --data-parallel: multi-device serving is not ported yet "
+            "(ROADMAP.md section 1, item 8)")
+    config = load_config(args.config).pipeline
+    if args.dtype is not None:
+        config.compute_dtype = args.dtype
+    if args.stereo_chunk_seconds is not None:
+        config.stereo_chunk_seconds = args.stereo_chunk_seconds
+    if args.no_super_res:
+        config.enable_super_resolution = False
+    if args.stereo_mid_exact:
+        config.stereo_mid_exact = True
+    if args.stereo_source_rate:
+        config.stereo_source_rate = True
+    if args.int8:
+        config.quantize_int8 = True
+    scales = (args.int8_scales if args.int8_scales
+              and os.path.exists(args.int8_scales) else None)
+
+    dn = None if args.no_denoise else args.denoiser
+    sr_ck = None if args.no_super_res else args.super_res
+    st = None if args.no_stereo else args.stereo
+    pipe = RestorationPipeline.from_checkpoints(
+        denoiser_path=dn, super_res_path=sr_ck, stereo_path=st,
+        config=config, device=args.device)
+    if scales:
+        pipe.load_int8_scales(scales)
+
+    if args.warmup:
+        print("warming up: running every serving shape...", flush=True)
+        info = pipe.warmup(coalesce=args.max_coalesce)
+        print(f"  pipeline: {info['programs']} programs "
+              f"(chunk buckets {info['buckets']}) in "
+              f"{info['seconds']:.1f}s", flush=True)
+
+    http_srv = RestorationServer(
+        pipe, host=args.host, port=args.port,
+        max_queue=args.max_queue, max_coalesce=args.max_coalesce,
+        max_body_bytes=int(args.max_body_mb * (1 << 20)),
+        request_timeout=args.request_timeout,
+        socket_timeout=args.socket_timeout, quiet=False)
+    http_srv.start()
+    print(f"HTTP serving on http://{http_srv.host}:{http_srv.port} "
+          f"(POST /v1/restore, GET /healthz, GET /v1/stats)", flush=True)
+
+    stream_srv = None
+    if args.stream_port is not None:
+        restorer = StreamingRestorer.from_checkpoints(
+            denoiser_path=dn, super_res_path=sr_ck, stereo_path=st,
+            batch=args.stream_slots,
+            mid_exact=args.stereo_mid_exact,
+            source_rate=args.stereo_source_rate,
+            quantize_int8=args.int8, int8_scales=scales,
+            lstm_impl=args.lstm_impl,
+            compute_dtype=args.dtype or "float32", device=args.device)
+        block = max(1, int(round(args.block_seconds * config.sample_rate)))
+        if args.warmup:
+            sinfo = restorer.warmup(block)
+            print(f"  streaming: {sinfo['programs']} programs in "
+                  f"{sinfo['seconds']:.1f}s", flush=True)
+        stream_srv = StreamServer(restorer, host=args.host,
+                                  port=args.stream_port, block=block,
+                                  fmt=args.pcm,
+                                  tick_seconds=args.tick_seconds,
+                                  max_outbox_bytes=int(
+                                      args.max_outbox_mb * (1 << 20)),
+                                  sndbuf=(args.sndbuf_kb * 1024
+                                          if args.sndbuf_kb else None),
+                                  drain_stall_seconds=
+                                  args.drain_stall_seconds)
+        stream_srv.start()
+        # one scrape covers both frontends: /v1/stats gains a "stream"
+        # block and /metrics flattens it to mlar_stream_*
+        http_srv.extra_stats = stream_srv.stats
+        # browsers reach the same lockstep engine over WS /v1/stream
+        http_srv.stream_addr = (stream_srv.host, stream_srv.port)
+        print(f"PCM streaming on tcp://{stream_srv.host}:{stream_srv.port} "
+              f"({args.stream_slots} slots, {args.pcm} @ "
+              f"{config.sample_rate} Hz in, block {stream_srv.block}) and "
+              f"ws://{http_srv.host}:{http_srv.port}/v1/stream", flush=True)
+
+    stop = threading.Event()
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    try:
+        stop.wait()
+    finally:
+        print("shutting down", flush=True)
+        if stream_srv is not None:
+            stream_srv.shutdown()
+        http_srv.shutdown()
+        _persist_int8_scales(args.int8_scales, pipe)
+        if stream_srv is not None:
+            # stream-only traffic calibrates the StreamingRestorer, not the
+            # HTTP pipeline: persist whichever calibrated, so the next
+            # start skips the f32 pass (the files are interchangeable;
+            # _persist_int8_scales rewrites only on wider coverage)
+            _persist_int8_scales(args.int8_scales, stream_srv.restorer)
+    return 0
+
+
 def _add_train(sub):
     p = sub.add_parser("train", help="train a model")
     p.add_argument("model", choices=["denoiser", "super_resolution",
@@ -483,6 +683,7 @@ def main(argv=None) -> int:
     sub = parser.add_subparsers(dest="command", required=True)
     _add_restore(sub).set_defaults(func=_cmd_restore)
     _add_stream(sub).set_defaults(func=_cmd_stream)
+    _add_serve(sub).set_defaults(func=_cmd_serve)
     _add_train(sub).set_defaults(func=_cmd_train)
     _add_analyze(sub).set_defaults(func=_cmd_analyze)
     _add_evaluate(sub).set_defaults(func=_cmd_evaluate)

@@ -86,6 +86,11 @@ def load_stage(path, name: str, device="cpu") -> Optional[nn.Module]:
     return model_from_state_dict(name, sd, device)
 
 
+# pipeline attribute -> the model name load_stage takes
+STAGE_MODELS = {"denoiser": "denoiser", "super_resolution": "super_resolution",
+                "stereo": "stereo_separator"}
+
+
 class Int8LengthGateError(ValueError):
     """The one per-recording int8 gate: a whole_file length off the packing
     grid. A later recording may align, so restore() retries after it (its
@@ -156,15 +161,26 @@ def apply_stereo(st: nn.Module, x, sub_cfg, q=None):
     return out.reshape(n, 2, t2)
 
 
-def _to_host(outs):
-    """Start the copies of [(tensor, rate)] to host memory; returns them
-    with an event to wait on (None on the CPU), so the host can write an
-    earlier batch while the card runs this one."""
-    host = [(o.to("cpu", non_blocking=True), r) for o, r in outs]
+def _to_host(outs, into=None):
+    """Start the copies of [(tensor, rate)] to host memory: into pinned
+    buffers (`into`, one per output, or new ones), so each copy queues
+    behind its program on the device's current stream without holding the
+    host. Returns them with an event recorded after the copies (None on the
+    CPU, where the outputs pass through), so the host can write an earlier
+    batch while the card runs this one."""
+    host, dev = [], None
+    for i, (o, r) in enumerate(outs):
+        if o.device.type == "cuda":
+            dev = o.device
+            buf = (into[i] if into is not None
+                   and into[i].shape == o.shape and into[i].dtype == o.dtype
+                   else torch.empty(o.shape, dtype=o.dtype, pin_memory=True))
+            o = buf.copy_(o, non_blocking=True)
+        host.append((o, r))
     event = None
-    if any(o.device.type == "cuda" for o, _ in outs):
+    if dev is not None:
         event = torch.cuda.Event()
-        event.record()
+        event.record(torch.cuda.current_stream(dev))
     return host, event
 
 
@@ -204,6 +220,26 @@ class RestorationPipeline:
                                                "super_resolution", dev),
                    stereo=load_stage(stereo_path, "stereo_separator", dev),
                    config=config, device=dev)
+
+    def reload_stages(self, paths: dict) -> list:
+        """Hot swap of stage checkpoints: {attribute: path}, the attributes
+        being `denoiser`, `super_resolution` and `stereo`. Every stage is
+        loaded (load_stage) onto the pipeline's device in eval mode before
+        any is swapped, so a bad path leaves the pipeline as it was. The
+        compute-dtype models (`_cast`: the f32 entry holds the old modules
+        themselves, a bf16 entry copies of them) and the int8 contexts go
+        with the old weights, and int8 calibration, which depends on the
+        weights, starts over. Returns the swapped attributes, sorted."""
+        loaded = {name: load_stage(path, STAGE_MODELS[name], self.device)
+                  for name, path in paths.items()}
+        for name, model in loaded.items():
+            setattr(self, name, model.eval())
+        self._cast = {}
+        self._qctx = {}
+        self._int8_scales = None
+        self._int8_version += 1
+        self._int8_failed = False
+        return sorted(loaded)
 
     @property
     def _has_sr(self) -> bool:
@@ -345,10 +381,13 @@ class RestorationPipeline:
     def _mono(self, audio):
         """[C, T] or [T], numpy or tensor -> [1, T] f32 on the pipeline's
         device, mixed down: the one mixdown of `restore` and
-        `restore_many`."""
+        `restore_many`. A pinned f32 host tensor uploads without holding
+        the host (a pageable one waits for the device's queued work); the
+        caller leaves it unchanged until the restore's output is ready."""
         if not torch.is_tensor(audio):
             audio = torch.from_numpy(np.asarray(audio, np.float32))
-        audio = audio.to(self.device, torch.float32)
+        audio = audio.to(self.device, torch.float32,
+                         non_blocking=audio.is_pinned())
         if audio.ndim == 1:
             audio = audio[None]
         if audio.shape[0] > 1:

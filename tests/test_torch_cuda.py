@@ -565,3 +565,77 @@ def test_int8_restore_on_the_card(card):
     dev = float((out - f32).abs().max())
     assert dev > 0
     assert float((out.cpu() - cpu_out).abs().max()) <= 0.25 * dev
+
+
+def _serving_models(seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return [init_params(m, gen).eval() for m in (
+        AudioDenoiser(), AudioSuperResolution(), StereoSeparator())]
+
+
+def _tone(seconds, f0=330.0, rate=22050):
+    t = np.arange(int(seconds * rate)) / rate
+    return (0.3 * np.sin(2 * np.pi * f0 * t)).astype(np.float32)[None]
+
+
+@pytest.mark.cuda
+def test_server_restore_on_the_card(card):
+    """A RestorationServer over a pipeline on the card answers a request
+    bit for bit equal to restore + normalize_audio, with one K1 launch."""
+    from ml_audio_restoration_torch.audio import encode_wav, normalize_audio
+    from ml_audio_restoration_torch.pipeline import (RestorationPipeline,
+                                                     RestorationServer)
+    from ml_audio_restoration_torch.pipeline.server import restore_over_http
+
+    pipe = RestorationPipeline(*_serving_models(), device=card)
+    x = _tone(4.0)
+    body = encode_wav(x[0][:, None], 22050, subtype="FLOAT")
+    with RestorationServer(pipe, request_timeout=120,
+                           socket_timeout=60) as srv:
+        restore_over_http(srv.host, srv.port, body, subtype="FLOAT",
+                          timeout=120)
+        torch.cuda.synchronize()
+        L.reset_launch_count()
+        got, rate = restore_over_http(srv.host, srv.port, body,
+                                      subtype="FLOAT", timeout=120)
+        assert L.launch_count == 1
+    want, _ = pipe.restore(np.asarray(normalize_audio(x)), 22050)
+    want = np.asarray(normalize_audio(want.cpu().numpy()), np.float32)
+    assert rate == 44100
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_server_copy_is_not_held_by_the_next_program(card):
+    """The worker launches request i, queues its copy to pinned host memory
+    with an event behind it, and launches request i+1 without waiting for
+    the device. A handler waiting on request i's event is released while
+    request i+1's program still runs; a copy started on the handler
+    thread after the worker moved on would queue behind that program."""
+    from ml_audio_restoration_torch.pipeline import (RestorationPipeline,
+                                                     RestorationServer)
+
+    pipe = RestorationPipeline(*_serving_models(), device=card)
+    x = _tone(60.0)
+    srv = RestorationServer(pipe)  # never started: the worker by hand
+    try:
+        warm = srv._job(x, 22050)  # as a handler makes it: pinned buffers
+        srv._run_jobs([warm])  # allocator and cuDNN at this shape
+        warm.copied.synchronize()
+        first, second = srv._job(x, 22050), srv._job(_tone(60.0, 440.0),
+                                                     22050)
+        srv._run_jobs([first])
+        srv._run_jobs([second])
+        launched = torch.cuda.Event()
+        launched.record()
+        # the worker returned from both without synchronizing: the first
+        # program is still running
+        assert not first.copied.query()
+        first.copied.synchronize()  # the handler's wait
+        assert not launched.query()  # the second program has not ended
+        assert first.out is first.host_out and first.out.is_pinned()
+        second.copied.synchronize()
+        want, _ = pipe.restore(x, 22050)
+        assert torch.equal(first.out, want.cpu())
+    finally:
+        srv._httpd.server_close()
