@@ -114,19 +114,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
                plain version bit for bit on 2 chunk rows of every distinct
                int8 layer of the default program, the full-scope program
                and config/fast_serve_int8.yaml's; each default layer timed
-               at the full batch (64 x 2 s) beside its bound, the plain
-               version, torch._int_mm over an im2col plus the epilogue
-               (where its shape rules allow) and cuDNN's f32 and bf16 conv
-               of the same packed layer; the 120 s clip through restore
-               with quantize_int8 (calibration s, xRT and stage split
-               beside the f32 default's and fast_serve's, K1 once, 35
-               int8-conv launches, vs f32, the same restore through the
+               at the full batch (64 x 2 s) with its path (wgmma, stem or
+               generic, ops/int8_conv.py::plan) beside its bound, the
+               plain version, torch._int_mm over an im2col plus the
+               epilogue (where its shape rules allow) and cuDNN's f32 and
+               bf16 conv of the same packed layer; the full-scope and
+               preset programs' layers timed too (program_kernel_ms_full,
+               program_kernel_ms_fast_serve_int8); the 120 s clip through
+               restore with quantize_int8 (calibration s, xRT and stage
+               split beside the f32 default's and fast_serve's, K1 once,
+               35 int8-conv launches, vs f32, the same restore through the
                plain int8 conv bit for bit), card vs CPU on 4 s with the
                same scales, a scales file saved and reloaded (bit for bit,
                no recalibration), the preset (K1 once at T=11,024 B=640
                bf16, no int8 launch in its stereo stage), one full-scope
                restore, and 16 lockstep int8 streams on one preloaded
-               scales dict against float streams and single int8 streams;
+               scales dict against float streams and single int8 streams.
+               The launches by path are asserted: every layer with
+               Cin % 16 == 0 on wgmma, the three Cin-1 stems on stem, none
+               generic (35 / 49 / 23 launches: 32 + 3, 46 + 3, 21 + 2);
  17. serve   - the serving daemon (pipeline/server.py) over loopback: one
                30 s request through RestorationServer equal bit for bit to
                restore + normalize_audio with one K1 launch, its round trip
@@ -138,11 +144,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
                30 s through StreamServer against a direct restorer (feed ms
                and stream-s/s beside it) and a WebSocket stream equal to its
                TCP twin; an int8 daemon writing its scales file and a
-               second one serving from it bit for bit; `serve --warmup` as
-               a subprocess (healthz, a restore, a stream, SIGTERM -> 0).
+               second one serving from it bit for bit (its 10 s request's
+               round trip and launches by path); `serve --warmup` as a
+               subprocess (healthz, a restore, a stream, SIGTERM -> 0).
 Each phase's wall seconds follow it on a line {"phase_wall_s": ...}.
 Then one line {"kernels": [...]} (K1, K2, K3 and the int8 conv, whose
-numbers sum its layers over one 64-chunk program) and, last, the device line
+numbers sum its layers over one 64-chunk program, each layer with its path
+in `shapes`, and whose `launches_by_path` splits its launches on the main
+path among wgmma, stem and generic) and, last, the device line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Imports nothing of JAX.
 """
@@ -3311,6 +3320,46 @@ def _int8_check_rows(torch, calls, rows: int = 2):
     return seen, equal
 
 
+def _int8_path(x, weight, kw):
+    """The kernel's path for one int8 conv call (ops/int8_conv.py::plan)."""
+    from ml_audio_restoration_torch.ops import int8_conv as ic
+
+    return ic.plan(x.shape, weight.shape, kw["stride"], kw["lhs_dilation"],
+                   kw["padding"]).path
+
+
+def _int8_paths_ok(calls):
+    """Every call with Cin % 16 == 0 plans wgmma, every Cin-1 stem plans
+    stem, none generic: (all so, {path: calls})."""
+    by_path = dict.fromkeys(("wgmma", "stem", "generic"), 0)
+    ok = True
+    for _, x, weight, kw in calls:
+        path = _int8_path(x, weight, kw)
+        by_path[path] += 1
+        cin = x.shape[2]
+        ok &= path == ("wgmma" if cin % 16 == 0 else "stem" if cin == 1
+                       else "generic") and path != "generic"
+    return ok, by_path
+
+
+def _int8_program_ms(torch, calls):
+    """The kernel's device ms over a program's int8 conv calls (each
+    distinct layer timed once at its batch, times its count) and each
+    layer's (name, count, path, ms)."""
+    from ml_audio_restoration_torch.ops import int8_conv as ic
+
+    distinct = {}
+    for layer, x, weight, kw in calls:
+        distinct.setdefault(_int8_signature(x, weight, kw),
+                            [[], x, weight, kw])[0].append(layer)
+    rows = []
+    for names, x, weight, kw in distinct.values():
+        ms = _cuda_ms(torch, lambda: ic.int8_conv(x, weight, **kw), 5)
+        rows.append({"layer": names[0], "count": len(names),
+                     "path": _int8_path(x, weight, kw), "ms": ms})
+    return sum(r["ms"] * r["count"] for r in rows), rows
+
+
 def _int8_work(x, weight, kw, t_out):
     """(bytes, operations) the layer must move and do: each input read
     once, each output written once; the multiply-adds of the taps that land
@@ -3387,6 +3436,7 @@ def _int8_layer_row(torch, names, x, weight, kw):
     out = run()
     t_out = out.shape[1]
     ms = _cuda_ms(torch, run, 5)
+    path = _int8_path(x, weight, kw)
     plain_ms, plain = _timed_once(torch, lambda: ic.int8_conv_plain(
         x, weight, **kw))
     err = float((out.float() - plain.float()).abs().max())
@@ -3407,7 +3457,7 @@ def _int8_layer_row(torch, names, x, weight, kw):
         del xd
     torch.cuda.empty_cache()
     return {"layer": names[0], "layers": names, "count": len(names),
-            "x": list(x.shape),
+            "path": path, "x": list(x.shape),
             "kernel": list(weight.shape), "stride": kw["stride"],
             "lhs_dilation": kw["lhs_dilation"],
             "padding": list(kw["padding"]), "t_out": t_out,
@@ -3503,6 +3553,7 @@ def _int8_streams(torch, dn, sr, st, rate):
     """16 lockstep int8 streams on one preloaded scales dict (from a
     restorer that calibrated on stream 0's first window) against 16 float
     streams, and two of them against single int8 streams."""
+    from ml_audio_restoration_torch.ops import int8_conv as ic
     from ml_audio_restoration_torch.pipeline import StreamingRestorer
 
     b = 16
@@ -3520,8 +3571,10 @@ def _int8_streams(torch, dn, sr, st, rate):
                                "int8_scales": scales}), ("float", {})):
         s = StreamingRestorer(dn, sr, st, batch=b, **kw)
         s.warmup(block)
+        ic.reset_launch_count()
         out, feed_ms, calls = _feed_all(s, blocks)
-        runs[name] = (out, statistics.median(feed_ms), _slowest(calls))
+        runs[name] = (out, statistics.median(feed_ms), _slowest(calls),
+                      dict(ic.launch_count_by_path))
     got, ref = runs["int8"][0], runs["float"][0]
     vs_single = 0.0
     for i in (0, b - 1):
@@ -3535,6 +3588,7 @@ def _int8_streams(torch, dn, sr, st, rate):
             "finite": bool(np.isfinite(got).all()),
             "calibrated_stages": sorted(scales),
             "int8_feed_ms_median": runs["int8"][1],
+            "int8_conv_launches_by_path": runs["int8"][3],
             "float_feed_ms_median": runs["float"][1],
             "int8_slowest_call": runs["int8"][2][0],
             "int8_new_windows_after_warmup": runs["int8"][2][1],
@@ -3572,6 +3626,7 @@ def phase_int8(torch):
     pipe.restore(clip, rate)  # the kernels built, cuDNN's algorithms picked
     y8, wall8, k1, launches = _timed_int8_restore(torch, L, ic, pipe, clip,
                                                   rate)
+    by_path = dict(ic.launch_count_by_path)
     version = pipe._int8_version
     with ic.plain_int8_conv():
         t0 = time.perf_counter()
@@ -3612,6 +3667,7 @@ def phase_int8(torch):
         distinct.setdefault(_int8_signature(x, weight, kw),
                             [[], x, weight, kw])[0].append(layer)
     checked, equal = _int8_check_rows(torch, calls)
+    paths_ok, plan_paths = _int8_paths_ok(calls)
     layers = [_int8_layer_row(torch, names, x, weight, kw)
               for names, x, weight, kw in distinct.values()]
     del calls, distinct
@@ -3635,6 +3691,12 @@ def phase_int8(torch):
     full.restore(clip, rate)
     y_full, wall_full, k1_full, launches_full = _timed_int8_restore(
         torch, L, ic, full, clip, rate)
+    full_by_path = dict(ic.launch_count_by_path)
+    _, _, full_calls = _int8_stages(torch, full, clip, rate, capture=True)
+    full_paths_ok, full_plan_paths = _int8_paths_ok(full_calls)
+    full_ms, full_layers = _int8_program_ms(torch, full_calls)
+    del full_calls
+    torch.cuda.empty_cache()
 
     # card vs CPU on a 4 s clip, the same scales
     cpu = RestorationPipeline(*(m.to("cpu") for m in _models(torch, dev)),
@@ -3701,10 +3763,14 @@ def phase_int8(torch):
             torch, L, ic, preset, clip, rate)
     finally:
         L._lstm_recurrence_cuda = k1_run
+    preset_by_path = dict(ic.launch_count_by_path)
     preset_stage_ms, preset_launches, preset_calls = _int8_stages(
         torch, preset, clip, rate, capture=True)
     preset_checked, preset_equal = _int8_check_rows(torch, preset_calls)
+    preset_paths_ok, preset_plan_paths = _int8_paths_ok(preset_calls)
+    preset_ms, preset_layers = _int8_program_ms(torch, preset_calls)
     del preset_calls
+    torch.cuda.empty_cache()
     fast_y, _ = fast.restore(clip, rate)
     preset_dev = _max_dev(y_p, fast_y)
     del fast_y, y_p
@@ -3726,6 +3792,8 @@ def phase_int8(torch):
                for s in ("denoiser", "super_resolution", "stereo")},
            "lstm_recurrence_launches": k1,
            "int8_conv_launches": launches,
+           "int8_conv_launches_by_path": by_path,
+           "planned_paths": plan_paths,
            "vs_f32_max_abs": _max_dev(y8, y32),
            "vs_f32_snr_db": _snr_db(y32, y8), "f32_peak": ref_peak,
            "vs_f32_rel_mean": rel_mean, "rel_mean_tol": INT8_REL,
@@ -3749,6 +3817,9 @@ def phase_int8(torch):
            "full_scope": {"xrt": seconds / wall_full,
                           "lstm_recurrence_launches": k1_full,
                           "int8_conv_launches": launches_full,
+                          "int8_conv_launches_by_path": full_by_path,
+                          "planned_paths": full_plan_paths,
+                          "layers": full_layers,
                           "vs_f32_max_abs": _max_dev(y_full, y32),
                           "vs_f32_snr_db": _snr_db(y32, y_full)},
            "preset": {"config": "config/fast_serve_int8.yaml",
@@ -3757,10 +3828,15 @@ def phase_int8(torch):
                       "lstm_recurrence_launches": k1_preset,
                       "k1_calls": k1_shapes,
                       "int8_conv_launches": launches_preset,
+                      "int8_conv_launches_by_path": preset_by_path,
+                      "planned_paths": preset_plan_paths,
+                      "layers": preset_layers,
                       "int8_conv_launches_by_stage": preset_launches,
                       "stage_ms": preset_stage_ms,
                       "vs_fast_serve_max_abs": preset_dev},
            "program_kernel_ms": total("ms"),
+           "program_kernel_ms_full": full_ms,
+           "program_kernel_ms_fast_serve_int8": preset_ms,
            "program_plain_ms": total("plain_ms"),
            "program_bound_ms": total("bound_ms"),
            "program_cudnn_f32_ms": total("cudnn_f32_ms"),
@@ -3770,8 +3846,18 @@ def phase_int8(torch):
            "kernel_ms_on_library_layers": sum(r["ms"] * r["count"]
                                               for r in lib_rows)}
     emit(row)
+    # every Cin % 16 == 0 layer on wgmma, the three stems on stem
+    paths = (paths_ok and full_paths_ok and preset_paths_ok
+             and by_path == {"wgmma": 32, "stem": 3, "generic": 0}
+             and full_by_path == {"wgmma": 46, "stem": 3, "generic": 0}
+             and preset_by_path == {"wgmma": 21, "stem": 2, "generic": 0}
+             and by_path == plan_paths and full_by_path == full_plan_paths
+             and preset_by_path == preset_plan_paths
+             and all(r["path"] == "wgmma" for r in layers
+                     if r["x"][2] % 16 == 0))
     ok = (row["finite"] and tuple(y8.shape) == (2, 2 * clip.shape[1])
           and k1 == 1 and launches == 35 and equal and full_equal
+          and launches_full == 49 and launches_preset == 23 and paths
           and preset_equal and plain_equal and row["no_recalibration"]
           and all(r["max_abs_err"] == 0.0 for r in layers)
           and card_cpu_rms <= 0.25 * own_rms and file_equal
@@ -3787,7 +3873,8 @@ def phase_int8(torch):
     bound_by = ("bytes" if sum(r["bound_ms"] * r["count"] for r in layers
                                if r["bound_by"] == "bytes")
                 >= total("bound_ms") / 2 else "operations")
-    return {"launches": launches, "k1_launches": k1,
+    return {"launches": launches, "launches_by_path": by_path,
+            "k1_launches": k1,
             "k1_preset_launches": k1_preset,
             "max_abs_err": max(r["max_abs_err"] for r in layers),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
@@ -3804,6 +3891,7 @@ SERVE_SECONDS = 30.0   # the solo request and each stream
 SERVE_CLIENTS = 8      # concurrent HTTP clients
 SERVE_REQUESTS = 24    # their requests, 5-60 s each (seeded)
 SERVE_STREAMS = 16     # lockstep TCP streams (the restorer's batch)
+INT8_SERVE_SECONDS = 10.0  # the int8 daemon's request
 
 
 def _serve_body(clip, rate):
@@ -4086,7 +4174,7 @@ def _serve_int8(torch, L, models, root, rate):
                                                      RestorationServer)
 
     path = os.path.join(root, "int8_scales.json")
-    body = _serve_body(_clip(10.0, rate, seed=600), rate)
+    body = _serve_body(_clip(INT8_SERVE_SECONDS, rate, seed=600), rate)
     first = RestorationPipeline(*models, config=PipelineConfig(
         quantize_int8=True))
     with RestorationServer(first, request_timeout=300) as srv:
@@ -4097,6 +4185,12 @@ def _serve_int8(torch, L, models, root, rate):
         I8.reset_launch_count()
         got, _ = _serve_post(srv, body)
         launches = (I8.launch_count, L.launch_count)
+        by_path = dict(I8.launch_count_by_path)
+        rtt = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            _serve_post(srv, body)
+            rtt.append(time.perf_counter() - t0)
     _persist_int8_scales(path, first)  # what `serve` runs at shutdown
     second = RestorationPipeline(*models, config=PipelineConfig(
         quantize_int8=True))
@@ -4108,6 +4202,9 @@ def _serve_int8(torch, L, models, root, rate):
             "recalibrated": second._int8_version != version,
             "equal_to_first": bool(np.array_equal(got, again)),
             "int8_conv_launches": launches[0],
+            "int8_conv_launches_by_path": by_path,
+            "seconds": INT8_SERVE_SECONDS,
+            "round_trip_s_median": statistics.median(rtt),
             "lstm_recurrence_launches": launches[1]}
 
 
@@ -4307,6 +4404,8 @@ def phase_serve(torch):
         "int8": (int8["calibrated"] and int8["scales_written"]
                  and not int8["recalibrated"] and int8["equal_to_first"]
                  and int8["int8_conv_launches"] > 0
+                 and int8["int8_conv_launches_by_path"]
+                 == {"wgmma": 32, "stem": 3, "generic": 0}
                  and int8["lstm_recurrence_launches"] == 1),
         "cli": row["cli"]["ok"]}
     emit({"phase": "serve", "checks": checks,
@@ -4322,7 +4421,8 @@ def phase_serve(torch):
           "direct_feed_ms_median": streams["direct_feed_ms_median"],
           "direct_stream_audio_s_per_wall_s":
               streams["direct_stream_audio_s_per_wall_s"],
-          "int8_conv_launches": int8["int8_conv_launches"]})
+          "int8_conv_launches": int8["int8_conv_launches"],
+          "int8_round_trip_s_median": int8["round_trip_s_median"]})
     if not all(checks.values()):
         raise AssertionError(f"serving daemon failed: {checks}")
     return {"serve_http_solo": (solo["lstm_recurrence_launches"], None, None),
@@ -4413,15 +4513,17 @@ def main() -> int:
     rows[0]["path_max_abs_err"] = {p: {"max_abs_err": v[1], "tol": v[2]}
                                    for p, v in paths.items()
                                    if v[1] is not None}
-    extra = ("max_abs_err_bf16", "shapes", "path_launches", "path_max_abs_err")
+    extra = ("max_abs_err_bf16", "shapes", "path_launches", "path_max_abs_err",
+             "launches_by_path")
     rows.append({
         "name": "int8_conv", "route": "cuda",
         "source": "ml_audio_restoration_torch/csrc/int8_conv.cu",
         "replaces": "ml_audio_restoration_tpu/ops/quant.py:103",
         **{k: int8[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                 "bound_ms", "bound_by", "library_ms")},
+        "launches_by_path": int8["launches_by_path"],
         "shapes": [{k: r[k] for k in (
-            "layer", "count", "x", "kernel", "stride", "lhs_dilation",
+            "layer", "count", "path", "x", "kernel", "stride", "lhs_dilation",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "cudnn_f32_ms", "cudnn_bf16_ms")} for r in int8["layers"]],
         "path_launches": {"int8": int8["launches"],

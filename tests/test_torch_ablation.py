@@ -76,3 +76,17 @@ def test_latency_probe_is_a_package_source():
     whose gate_act it times."""
     assert _build.sources(CSRC / f"{_latency.PROBE}.cu") == [
         CSRC / f"{_latency.PROBE}.cu", CSRC / "lstm_common.cuh"]
+
+
+def test_int8_patches_find_their_targets(monkeypatch):
+    """scripts/torch_int8_ablation.py: each int8 conv variant is the
+    shipped source with its one patch applied, so each differs from it."""
+    monkeypatch.syspath_prepend(str(ROOT / "scripts"))
+    import torch_int8_ablation as ab
+
+    texts = ab.sources(CSRC)
+    shipped = (CSRC / "int8_conv.cu").read_text()
+    assert texts["shipped"] == shipped
+    assert set(texts) == set(ab.VARIANTS)
+    for name, text in texts.items():
+        assert (text == shipped) == (name == "shipped"), name

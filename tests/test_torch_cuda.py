@@ -466,7 +466,12 @@ def test_msgpack_pipeline_equals_its_pth_twin_on_the_card(card, tmp_path):
 # lhs dilation 2/4/8 with Cout 1, the stereo decoders' stride 2, the
 # full-scope r=1 dilated taps) and edges (a negative pad, Cout 3 and 70,
 # Cin 12, several row tiles, lhs dilation 3, phases with no tap, a length
-# off the dilation's grid)
+# off the dilation's grid); then the edges of the wgmma and stem paths:
+# Cout 256 and 200 (an N tile not a power of two), Cin 256 and 64 (the
+# 128- and 64-byte swizzles), T_out one past and one short of a 128-row
+# tile, stride 2 with an odd T_in, stems with kp 6 and 10 and T_in off the
+# stride, rows for more than one wave of CTAs, and a stream feed's length
+# at B = 16
 INT8_GEOMETRIES = [
     (2, 40, 1, 128, 7, 4, 1, 3, 0), (2, 10, 128, 128, 3, 1, 1, 1, 1),
     (2, 10, 128, 1, 6, 1, 4, 3, 2), (1, 7, 256, 1, 14, 1, 8, 10, 14),
@@ -476,7 +481,13 @@ INT8_GEOMETRIES = [
     (1, 5, 4, 3, 2, 1, 1, 0, -1), (3, 70, 12, 70, 5, 2, 1, 2, 2),
     (1, 300, 16, 65, 3, 1, 1, 1, 1), (1, 600, 8, 1, 3, 1, 1, 1, 1),
     (2, 9, 12, 64, 5, 1, 3, 2, 1), (2, 13, 32, 70, 2, 1, 4, 1, 3),
-    (1, 17, 16, 1, 7, 1, 3, -2, 5), (3, 30, 64, 128, 9, 1, 4, 5, 0)]
+    (1, 17, 16, 1, 7, 1, 3, -2, 5), (3, 30, 64, 128, 9, 1, 4, 5, 0),
+    (2, 300, 128, 256, 3, 1, 1, 1, 1), (2, 140, 64, 200, 3, 1, 1, 1, 1),
+    (2, 50, 256, 128, 5, 1, 1, 2, 2), (2, 50, 64, 64, 5, 1, 1, 2, 2),
+    (1, 129, 128, 64, 3, 1, 1, 1, 1), (1, 127, 128, 64, 3, 1, 1, 1, 1),
+    (2, 301, 64, 256, 8, 2, 1, 3, 3), (2, 1001, 1, 128, 6, 4, 1, 1, 1),
+    (2, 1003, 1, 128, 10, 4, 1, 3, 3), (8, 11025, 128, 128, 3, 1, 1, 1, 1),
+    (16, 12568, 1, 128, 6, 4, 1, 1, 1), (16, 3142, 128, 128, 3, 1, 1, 1, 1)]
 # (add, activation, output): f32 / s8 residuals, leaky-ReLU, s8 / f32 / bf16
 INT8_EPILOGUES = [(None, None, "s8"), ("f32", "lrelu", "s8"),
                   ("s8", "lrelu", "f32"), (None, "lrelu", "bf16"),
@@ -516,11 +527,18 @@ def test_int8_conv_kernel_matches_plain(card, geo):
     accumulation is exact and the epilogue the same IEEE f32 operations."""
     from ml_audio_restoration_torch.ops import int8_conv as ic
 
+    n, t_in, cin, cout, kp, stride, dil, lo, hi = geo
+    path = ic.plan((n, t_in, cin), (kp, cin, cout), stride, dil,
+                   (lo, hi)).path
+    assert path == ("wgmma" if cin % 16 == 0 else "stem" if cin == 1
+                    else "generic")
     for i, epi in enumerate(INT8_EPILOGUES):
         x, weight, kw = _int8_case(card, geo, epi, seed=i)
         ic.reset_launch_count()
         got = ic.int8_conv(x, weight, **kw)
         assert ic.launch_count == 1
+        assert ic.launch_count_by_path == {**dict.fromkeys(ic.PATHS, 0),
+                                           path: 1}
         want = ic.int8_conv_plain(x, weight, **kw)
         assert got.dtype == want.dtype and got.shape == want.shape
         assert torch.equal(got.view(torch.int8) if got.dtype == torch.int8
@@ -554,6 +572,9 @@ def test_int8_restore_on_the_card(card):
     ic.reset_launch_count()
     out, rate = pipe.restore(audio)
     assert L.launch_count == 1 and ic.launch_count > 0 and rate == 44100
+    # at these widths the three stems take the stem path, td2 (Cin 8) the
+    # generic one and the 27 other layers (Cin 16-64) wgmma
+    assert ic.launch_count_by_path == {"wgmma": 27, "stem": 3, "generic": 1}
     with ic.plain_int8_conv():
         plain, _ = pipe.restore(audio)
     assert torch.equal(out, plain)
