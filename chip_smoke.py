@@ -20,8 +20,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                its latency floor (counted from step latencies the probe
                measures), the plain version and cuDNN's nn.LSTM (the
                dW_hh pass also alone): K2 and K3 at the f32 training shape
-               (T=44,100 B=16) and at the bf16 fast-train preset's
-               (T=11,025 B=64, bf16 gates);
+               (T=44,100 B=16), at the bf16 fast-train preset's
+               (T=11,025 B=64, bf16 gates) and at a data-parallel rank's
+               share of the global batch 16 (T=44,100 B=8);
   4. main    - the offline restore chain at full published widths with
                seeded random weights: kernel vs plain recurrence on a 4 s
                clip, card vs CPU on the same clip, a 120 s clip (64 bucketed
@@ -66,7 +67,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
                card vs CPU (in f32 the gradient of each loss term too; in
                bf16 within twice the CPU's bf16-vs-f32 distance), two
                seeded runs equal, 10 timed steps; no kernel runs there;
- 10. files   - the files slice at full width with seeded weights, one
+ 10. train_dp - data-parallel training: the stereo net at full width as
+               two processes (fresh interpreters, this file's
+               --train-dp-worker mode) sharing cuda:0 through gloo,
+               train_from_config over seeded stereo WAVs (global batch 16
+               of 2 s, 8 a rank; 6 steps + validation; K2/K3 launches
+               counted a rank), each step and each collective timed, then
+               a resume of rank 0's checkpoint in a new group; the ranks'
+               histories and weights equal bit for bit, rank 0 the only
+               writer; one step of each rank against the one-process step
+               on the concatenated batch (the stereo net's smooth terms
+               in f32, the denoiser's `mixed` pairing with 6 and 3
+               synthetic items in f32 and f64): loss 1e-4, gradients 1e-4
+               of their largest entry, BN statistics 1e-5, parameters
+               2e-3; a one-rank NCCL group's stereo step bit for bit the
+               step without a group; the one-process batch-16 step timed
+               beside the ranks' ("two ranks time-sharing one H100: not a
+               scaling figure");
+ 11. files   - the files slice at full width with seeded weights, one
                line a part: the 120 s clip through the port's FLAC writer
                and the C++ and numpy decoders (bit for bit, equal to its
                16-bit WAV; host ms of each codec beside the host CPU's
@@ -86,7 +104,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                K2/K3 counted) and the C++ batch reader's rows/s against
                the numpy route; analyze on a FLAC and the simulator on the
                card against the CPU on the same draws;
- 11. k1_shapes - K1 at the serving paths' shapes (sub-chunked stereo
+ 12. k1_shapes - K1 at the serving paths' shapes (sub-chunked stereo
                T=11,024 B=640 in bf16 and f32, source-rate T=44,100 B=64,
                a streaming feed's committed T=22,048 and lookahead T=1,040
                runs at B=16 with a carry in), at the bf16 preset's
@@ -94,23 +112,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
                shape (T=44,100 B=8): against its plain version,
                timed beside its bound, its latency floor (waves x steps),
                its registers, CTAs an SM and waves, and cuDNN's nn.LSTM;
- 12. serve_fast - a 120 s clip through config/fast_serve.yaml (bf16, 0.25 s
+ 13. serve_fast - a 120 s clip through config/fast_serve.yaml (bf16, 0.25 s
                stereo windows): kernel vs plain recurrence, bf16 vs f32,
                xRT, the stage split, K1 launches, peak memory, and
                `warmup`;
- 13. serve_options - the clip in f32 with 0.25 s stereo windows, mid-exact
+ 14. serve_options - the clip in f32 with 0.25 s stereo windows, mid-exact
                (the mean of L and R is the SR output) and source-rate, each
                against its plain-recurrence run, timed;
- 14. serve_many - eight 10 s recordings and one of 150 s: restore_many vs
+ 15. serve_many - eight 10 s recordings and one of 150 s: restore_many vs
                single restores, then restore_directory (coalesce 4) vs
                restore_file over WAVs in profiles/;
- 15. stream  - 16 lockstep streams of 30 s in 0.5 s blocks: each against
+ 16. stream  - 16 lockstep streams of 30 s in 0.5 s blocks: each against
                the single-shot whole_file restore, the batch against 16
                single streams, one feed against the plain recurrence, bf16
                against f32; per-feed ms, the slowest call (a feed or the
                flush) with any window length warmup did not run (none
                may), and K1 launches a feed;
- 16. int8    - int8 serving (csrc/int8_conv.cu): the kernel against its
+ 17. int8    - int8 serving (csrc/int8_conv.cu): the kernel against its
                plain version bit for bit on 2 chunk rows of every distinct
                int8 layer of the default program, the full-scope program
                and config/fast_serve_int8.yaml's; each default layer timed
@@ -133,7 +151,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                The launches by path are asserted: every layer with
                Cin % 16 == 0 on wgmma, the three Cin-1 stems on stem, none
                generic (35 / 49 / 23 launches: 32 + 3, 46 + 3, 21 + 2);
- 17. serve   - the serving daemon (pipeline/server.py) over loopback: one
+ 18. serve   - the serving daemon (pipeline/server.py) over loopback: one
                30 s request through RestorationServer equal bit for bit to
                restore + normalize_audio with one K1 launch, its round trip
                beside the in-process restore; 8 clients sending 24 requests
@@ -200,12 +218,17 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def phase_device(torch):
+def _nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else (
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else (
         "nvidia-smi unavailable")
+
+
+def phase_device(torch):
+    line = _nvidia_smi()
     print(line, flush=True)
     emit({"phase": "device", "nvidia_smi": line,
           "torch_name": torch.cuda.get_device_name(0),
@@ -480,10 +503,10 @@ def _k3_cases(torch, L, randn):
 
 
 def phase_train_kernels(torch):
-    """K2 and K3 against their plain versions, then at the two training
+    """K2 and K3 against their plain versions, then at the three training
     shapes (the f32 step's 2 s chunks at 22.05 kHz, batch 16; the bf16
-    fast-train preset's 0.5 s chunks, batch 64, bf16 gates) held against
-    them again and timed beside their latency floors, counted from the
+    fast-train preset's 0.5 s chunks, batch 64, bf16 gates; a data-parallel
+    rank's 8 of the global 16) held against them again and timed beside their latency floors, counted from the
     step latencies the probe of ops/_latency.py measures."""
     from ml_audio_restoration_torch.ops import lstm as L
 
@@ -566,6 +589,9 @@ def phase_train_kernels(torch):
                              torch.float32)
     fast = _train_kernels_at(torch, L, randn, "train_bf16", 11025, 64,
                              torch.bfloat16)
+    # a rank's share of the data-parallel run's global batch 16
+    dp = _train_kernels_at(torch, L, randn, "train_dp", 44100, 8,
+                           torch.float32)
     src = "ml_audio_restoration_torch/csrc/lstm_train.cu"
     rows = []
     for name, line, err, replaces in (
@@ -573,8 +599,8 @@ def phase_train_kernels(torch):
                                           cases["f32"], cases["saturated"]),
              ":223"),
             ("lstm_train_bwd", "bwd", bwd_err, ":260")):
-        # the f32 training shape first; the shapes list holds both
-        shapes = [dict(r[line]) for r in (main, fast)]
+        # the f32 training shape first; the shapes list holds all three
+        shapes = [dict(r[line]) for r in (main, fast, dp)]
         first = shapes[0]
         rows.append({
             "name": name, "route": "cuda", "source": src,
@@ -2229,6 +2255,378 @@ def phase_train_semi(torch):
                                      f"{row}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# --------------------------------------------------------------- train_dp
+DP_RANKS = 2        # processes, both on cuda:0 through gloo
+DP_BATCH = 16       # the global batch: 8 a rank
+DP_STEPS = 6        # steps of the counted epoch (and of the resumed one)
+DP_FILES = 110      # 99 train (96 used: 6 steps of 16) + 11 validation
+DP_WAIT_S = 150     # each rank's wait; a hung rank fails the phase
+DP_PARAM_TOL = 2e-3  # parameters after Adam (JAX tests/test_trainer.py:163)
+DP_STATS_TOL = 1e-5  # BN running statistics
+DP_LABEL = "two ranks time-sharing one H100: not a scaling figure"
+
+
+def _dp_batch(name: str, dtype=np.float32) -> dict:
+    """The global batch of a step check, [16, C, 44,100] at 22.05 kHz:
+    stereo tones for the stereo net; mono for the denoiser's `mixed`
+    pairing with 6 synthetic items on rank 0 and 3 on rank 1, so a local
+    masked mean differs from the global one."""
+    if name == "stereo_separator":
+        return {"stereo": _stereo_batch(DP_BATCH, 44100, 51)["stereo"]
+                .astype(dtype)}
+    return {"audio": _mono_batch(DP_BATCH, 44100, 22050, 52).astype(dtype),
+            "is_synthetic": np.float32([1, 1, 1, 1, 1, 1, 0, 0,
+                                        1, 0, 0, 1, 0, 1, 0, 0])}
+
+
+def _dp_step(torch, name, rows, dtype, **cfg):
+    """One train step at full width (seeded weights, in `dtype`) on rows of
+    a step check's global batch, with the step seed of epoch 1, step 0, on
+    cuda:0 under whatever process group is up: the loss and metrics, the
+    gradients Adam was handed, the parameters and buffers after, as
+    numpy."""
+    from ml_audio_restoration_torch.config import TrainConfig
+    from ml_audio_restoration_torch.models import (
+        AudioDenoiser, StereoSeparator, init_params)
+    from ml_audio_restoration_torch.parallel import distributed as dist
+    from ml_audio_restoration_torch.train.trainer import Trainer
+
+    net = StereoSeparator() if name == "stereo_separator" else AudioDenoiser()
+    model = init_params(net, torch.Generator().manual_seed(5)).to(dtype)
+    pairing = "mono_target_stereo" if name == "stereo_separator" else "mixed"
+    tr = Trainer(name, model, [], pairing=pairing, device="cuda",
+                 config=TrainConfig(model=name, learning_rate=1e-4,
+                                    data_parallel=dist.process_count(),
+                                    **cfg))
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    batch = {k: v[rows] for k, v in _dp_batch(name, np_dtype).items()}
+    metrics = tr._train_step(batch, tr._seeded(2, 0))
+    out = {f"metric.{k}": v for k, v in metrics.items()}
+    out.update((f"grad.{n}", p.grad) for n, p in model.named_parameters())
+    out.update((f"param.{n}", p) for n, p in model.named_parameters())
+    out.update((f"buffer.{n}", b) for n, b in model.named_buffers())
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
+DP_STEP_CHECKS = {  # name -> (family, dtype, TrainConfig fields)
+    # K2 and K3 at T=44,100 B=8 run here too
+    "stereo_smooth_f32": ("stereo_separator", "float32", SMOOTH_TERMS),
+    "mixed_f32": ("denoiser", "float32", {}),
+    "mixed_f64": ("denoiser", "float64", {}),
+}
+
+
+def _dp_config(root, ckpt_dir, epochs: int, ranks: int = DP_RANKS):
+    """The stereo net over the phase's WAVs: batch 16 of 2 s over `ranks`
+    processes, `epochs` epochs."""
+    cfg = _train_config("stereo_separator", root, ckpt_dir, DP_BATCH, 2.0)
+    cfg.train.num_epochs = epochs
+    cfg.train.data_parallel = ranks
+    return cfg
+
+
+def _train_dp_worker(spec_path: str, rank: int) -> int:
+    """One rank of the train_dp phase (a fresh interpreter that
+    phase_train_dp starts): the step checks in a group of two, then the
+    main path, train_from_config of the stereo net over the phase's WAVs
+    (the K2/K3 launches counted; each step and each collective timed by
+    host clocks around a synchronize), then a resume of it in a new
+    group. Writes rank<r>.json and .npz files into the spec's root."""
+    import torch
+
+    from ml_audio_restoration_torch.ops import lstm as L
+    from ml_audio_restoration_torch.parallel import distributed as dist
+    from ml_audio_restoration_torch.train import trainer as T
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    root = spec["root"]
+    coord = [f"127.0.0.1:{p}" for p in spec["ports"]]
+    rows = slice(rank * DP_BATCH // DP_RANKS,
+                 (rank + 1) * DP_BATCH // DP_RANKS)
+    out = {"rank": rank}
+
+    dist.initialize(coord[0], DP_RANKS, rank, device="cuda")
+    out["backend"] = dist.tdist.get_backend()
+    out["device"] = str(dist.device_for_rank("cuda"))
+    L.reset_launch_count()
+    for check, (name, dtype, cfg) in DP_STEP_CHECKS.items():
+        np.savez(os.path.join(root, f"{check}_rank{rank}.npz"),
+                 **_dp_step(torch, name, rows, getattr(torch, dtype), **cfg))
+    out["step_check_launches"] = {"lstm_train_fwd": L.train_fwd_launch_count,
+                                  "lstm_train_bwd": L.train_bwd_launch_count}
+
+    # the main path, instrumented: every collective and every step timed
+    built, steps, colls = [], [], []
+    real_build, real_reduce = T.build_trainer, dist._all_reduce
+
+    def timed_reduce(t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_reduce(t)
+        torch.cuda.synchronize()
+        colls.append((t.numel(), (time.perf_counter() - t0) * 1e3))
+        return t
+
+    def build(*a, **kw):
+        tr = real_build(*a, **kw)
+        built.append(tr)
+        real_step = tr._train_step
+
+        def step(batch, generator=None):
+            torch.cuda.synchronize()
+            n0, t0 = len(colls), time.perf_counter()
+            metrics = real_step(batch, generator)
+            torch.cuda.synchronize()
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                          "collectives": colls[n0:]})
+            return metrics
+
+        tr._train_step = step
+        return tr
+
+    T.build_trainer = build
+    dist._all_reduce = timed_reduce
+    try:
+        L.reset_launch_count()
+        history = T.train_from_config(_dp_config(root, "ck", 1),
+                                      steps_per_epoch=DP_STEPS)
+        out["launches"] = {"lstm_train_fwd": L.train_fwd_launch_count,
+                           "lstm_train_bwd": L.train_bwd_launch_count,
+                           "lstm_recurrence_validation": L.launch_count}
+        dist._all_reduce = real_reduce
+        out["history"] = history
+        out["logger"] = built[0].logger is not None
+        out["steps"] = list(steps)
+        np.savez(os.path.join(root, f"final_rank{rank}.npz"),
+                 **{k: v.cpu().numpy()
+                    for k, v in built[0].model.state_dict().items()})
+        # resume from rank 0's checkpoint in a new group: one more epoch
+        steps.clear()
+        dist.initialize(coord[1], DP_RANKS, rank, device="cuda")
+        out["resumed_history"] = T.train_from_config(
+            _dp_config(root, "ck", 2), steps_per_epoch=DP_STEPS)
+        out["resumed_from_epoch"] = len(out["resumed_history"]["train_loss"])
+        out["resumed_steps_ms"] = [s["ms"] for s in steps]
+        np.savez(os.path.join(root, f"resumed_rank{rank}.npz"),
+                 **{k: v.cpu().numpy()
+                    for k, v in built[1].model.state_dict().items()})
+    finally:
+        T.build_trainer, dist._all_reduce = real_build, real_reduce
+        dist.shutdown()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    print(f"RANK{rank}_DONE", flush=True)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_dp_ranks(root):
+    """Start the two ranks (fresh interpreters; never a fork of this
+    process, which holds a CUDA context), wait DP_WAIT_S for each, kill
+    any left. A gloo connect that timed out on a loaded host is retried
+    once on fresh ports. -> their outputs."""
+    def once():
+        spec = os.path.join(root, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"root": root,
+                       "ports": [_free_port(), _free_port()]}, f)
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--train-dp-worker",
+             spec, str(r)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(DP_RANKS)]
+        try:
+            outs = [p.communicate(timeout=DP_WAIT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        return procs, outs
+
+    procs, outs = once()
+    if any("Connect timeout" in o or "connectFullMesh" in o for o in outs):
+        procs, outs = once()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or f"RANK{r}_DONE" not in o:
+            raise AssertionError(f"train_dp rank {r} failed "
+                                 f"(rc {p.returncode}):\n{o[-6000:]}")
+    return outs
+
+
+def _dp_held(check, got, want):
+    """A step check's rank against the one-process step: the deviations
+    and whether each is within its bar. Gradients: the largest deviation
+    over every parameter, of the largest entry (train_small's STEP_TOL);
+    held in f32 for the stereo net's smooth terms and in f64 for the mixed
+    step, whose f32 gradient reads through the consistency term's
+    log-magnitude spectrum and the leaky ReLUs' kinks (PERF.md, PR 12)."""
+    grads = [k for k in want if k.startswith("grad.")]
+    grad_dev = (max(float(np.abs(got[k] - want[k]).max()) for k in grads)
+                / max(float(np.abs(want[k]).max()) for k in grads))
+    stats = [k for k in want if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in want if k.startswith("param.")]
+    row = {"loss_rel": abs(float(got["metric.loss"] - want["metric.loss"]))
+           / abs(float(want["metric.loss"])),
+           "grad_of_largest": grad_dev,
+           "bn_stats_max_abs": max(float(np.abs(got[k] - want[k]).max())
+                                   for k in stats),
+           "params_max_abs": max(float(np.abs(got[k] - want[k]).max())
+                                 for k in params)}
+    row["ok"] = (row["loss_rel"] <= STEP_TOL
+                 and row["bn_stats_max_abs"] <= DP_STATS_TOL
+                 and row["params_max_abs"] <= DP_PARAM_TOL
+                 and (check == "mixed_f32" or grad_dev <= STEP_TOL))
+    return row
+
+
+def phase_train_dp(torch):
+    """Data-parallel training of the stereo net at full width as two
+    processes sharing cuda:0 through gloo (the card host has one H100), a
+    one-rank NCCL group, and the one-process twins they are held to.
+    Returns rank 0's K2/K3 launches on the main path."""
+    import shutil
+
+    from ml_audio_restoration_torch.parallel import distributed as dist
+
+    root = os.path.join(ROOT, "profiles", "chip_smoke_train_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        _write_corpus(os.path.join(root, "wavs"), files=DP_FILES,
+                      seconds=2.5)
+        corpus_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs = _spawn_dp_ranks(root)
+        ranks_s = time.perf_counter() - t0
+        info = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                info.append(json.load(f))
+
+        def arrays(stem, r):
+            return dict(np.load(os.path.join(root, f"{stem}_rank{r}.npz")))
+
+        def equal(stem):
+            a, b = arrays(stem, 0), arrays(stem, 1)
+            return a.keys() == b.keys() and all(
+                np.array_equal(a[k], b[k]) for k in a)
+
+        ranks_equal = {stem: equal(stem) for stem in
+                       ("final", "resumed", *DP_STEP_CHECKS)}
+        ranks_equal["history"] = info[0]["history"] == info[1]["history"]
+        ranks_equal["resumed_history"] = (info[0]["resumed_history"]
+                                          == info[1]["resumed_history"])
+
+        # the one-process twins on the concatenated batch, here
+        held = {}
+        for check, (name, dtype, cfg) in DP_STEP_CHECKS.items():
+            want = _dp_step(torch, name, slice(None), getattr(torch, dtype),
+                            **cfg)
+            held[check] = _dp_held(check, arrays(check, 0), want)
+
+        # a one-rank NCCL group: the distributed route of a stereo step
+        plain = _dp_step(torch, "stereo_separator", slice(0, 8),
+                         torch.float32)
+        dist.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda")
+        try:
+            backend = dist.tdist.get_backend()
+            grouped = _dp_step(torch, "stereo_separator", slice(0, 8),
+                               torch.float32)
+        finally:
+            dist.shutdown()
+        nccl = {"backend": backend, "bit_for_bit": plain.keys()
+                == grouped.keys() and all(np.array_equal(plain[k], grouped[k])
+                                          for k in plain)}
+
+        # the one-process step at the global batch 16, beside the ranks'
+        from ml_audio_restoration_torch.train.trainer import build_trainer
+
+        tr = build_trainer(_dp_config(root, "ck_one", 1, ranks=1),
+                           steps_per_epoch=DP_STEPS)
+        batches = _loader_batches(tr, 4)
+        tr._train_step(batches[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            tr._train_step(b)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3 / 3
+        del tr
+
+        ckpts = sorted(os.listdir(os.path.join(root, "ck",
+                                               "stereo_separator")))
+        metrics_files = sorted(
+            os.path.relpath(os.path.join(d, f), root)
+            for d, _, fs in os.walk(os.path.join(root, "runs"))
+            for f in fs if f.endswith(".jsonl"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def split(r):
+        # the first step builds cuDNN's plans: the median of the rest
+        rest = info[r]["steps"][1:]
+        # the gradient all-reduce: the step's largest collective
+        grad = [max(s["collectives"])[1] for s in rest]
+        every = [sum(ms for _, ms in s["collectives"]) for s in rest]
+        return {"step_ms": statistics.median(s["ms"] for s in rest),
+                "step_ms_uninstrumented": statistics.median(
+                    info[r]["resumed_steps_ms"][1:]),
+                "gradient_allreduce_ms": statistics.median(grad),
+                "all_collectives_ms": statistics.median(every),
+                "collectives_per_step": len(rest[0]["collectives"])}
+
+    launches = info[0]["launches"]
+    row = {"phase": "train_dp", "label": DP_LABEL,
+           "nvidia_smi": _nvidia_smi(), "ranks": DP_RANKS,
+           "backend": info[0]["backend"],
+           "devices": [i["device"] for i in info],
+           "global_batch": DP_BATCH, "local_batch": DP_BATCH // DP_RANKS,
+           "chunk_seconds": 2.0, "steps": DP_STEPS,
+           "corpus_write_s": corpus_s, "ranks_wall_s": ranks_s,
+           "history": info[0]["history"],
+           "resumed_history": info[0]["resumed_history"],
+           "ranks_equal": ranks_equal,
+           "writers": {"rank0_saved": "checkpoint saved" in outs[0],
+                       "rank1_saved": "checkpoint saved" in outs[1],
+                       "loggers": [i["logger"] for i in info],
+                       "checkpoints": ckpts, "metrics_files": metrics_files},
+           "per_rank": [split(r) for r in range(DP_RANKS)],
+           "one_process_b16_step_ms": one_ms,
+           "vs_one_process": held, "nccl_one_rank": nccl,
+           "launches": launches,
+           "step_check_launches": info[0]["step_check_launches"]}
+    emit(row)
+    ok = (all(ranks_equal.values())
+          and all(np.isfinite(row["history"]["train_loss"]
+                              + row["history"]["val_loss"]))
+          and row["backend"] == "gloo" and row["devices"] == ["cuda:0"] * 2
+          and row["writers"]["rank0_saved"]
+          and not row["writers"]["rank1_saved"]
+          and row["writers"]["loggers"] == [True, False]
+          and "best_model.pth" in ckpts and len(metrics_files) == 1
+          and len(row["resumed_history"]["train_loss"]) == 2
+          and row["resumed_history"]["train_loss"][0]
+          == row["history"]["train_loss"][0]
+          and all(h["ok"] for h in held.values())
+          and nccl == {"backend": "nccl", "bit_for_bit": True}
+          and launches["lstm_train_fwd"] == DP_STEPS
+          and launches["lstm_train_bwd"] == DP_STEPS
+          and launches["lstm_recurrence_validation"] >= 1)
+    if not ok:
+        raise AssertionError(f"data-parallel training failed: {row}")
+    return {k: launches[k] for k in ("lstm_train_fwd", "lstm_train_bwd")}
 
 
 # ------------------------------------------------------------------ files
@@ -4443,6 +4841,8 @@ def _timed_phase(fn, *args):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--train-dp-worker"]:
+        return _train_dp_worker(sys.argv[2], int(sys.argv[3]))
     import torch
 
     if not torch.cuda.is_available():
@@ -4461,14 +4861,17 @@ def main() -> int:
     _timed_phase(phase_train_convnets, torch)
     bf16 = _timed_phase(phase_train_bf16, torch)
     _timed_phase(phase_train_semi, torch)
+    dp = _timed_phase(phase_train_dp, torch)
     files = _timed_phase(phase_files, torch)
     for row in rows[1:]:
-        # the f32 training step's run, then the bf16 preset's (its shape)
+        # the f32 training step's run, the bf16 preset's, then a rank's of
+        # the data-parallel run (each its shape)
         row["launches"] = launches[row["name"]]
-        for shape, n in zip(row["shapes"], (launches, bf16)):
+        for shape, n in zip(row["shapes"], (launches, bf16, dp)):
             shape["launches"] = n[row["name"]]
         row["path_launches"] = {"train_full": launches[row["name"]],
                                 "train_bf16": bf16[row["name"]],
+                                "train_dp_rank0": dp[row["name"]],
                                 "files_train_flac": files["k2k3"][row["name"]]}
     k1 = _timed_phase(phase_k1_shapes, torch, files["evaluate_shape"])
     paths = {"serve_fast": _timed_phase(phase_serve_fast, torch, k1)}

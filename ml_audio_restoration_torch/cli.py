@@ -535,7 +535,9 @@ def _add_train(sub):
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--test-audio-dir", default=None)
     p.add_argument("--data-parallel", type=int, default=None,
-                   help="size of the data-parallel axis (1 only so far)")
+                   help="size of the data-parallel axis; the port trains on "
+                        "one device a process, so it must equal "
+                        "--num-processes")
     p.add_argument("--steps-per-epoch", type=int, default=None)
     p.add_argument("--mixed", action="store_true",
                    help="semi-supervised training on synthetic + real "
@@ -547,13 +549,27 @@ def _add_train(sub):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch path)")
+    # multi-process launch: run the same command once a rank; under
+    # torchrun the three values come from its environment
+    p.add_argument("--coordinator", default=None,
+                   help="multi-host coordinator address host:port "
+                        "(auto-detected under torchrun)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multi-host world size")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this host's rank in the multi-host job")
     return p
 
 
 def _cmd_train(args):
     from .config import load_config
+    from .parallel import distributed as dist
     from .train.trainer import train_from_config
 
+    # before any model or CUDA work; a no-op for one process
+    dist.initialize(coordinator_address=args.coordinator,
+                    num_processes=args.num_processes,
+                    process_id=args.process_id, device=args.device)
     overrides = {"train": {"model": args.model}, "data": {}}
     for field, section in [
         ("batch_size", "train"), ("num_epochs", "train"),

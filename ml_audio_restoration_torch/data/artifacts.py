@@ -252,7 +252,8 @@ def apply_artifacts(audio, draws: dict, sample_rate: int,
         return draws[noise] * draws[level][:, None, None]
 
     def kernel(*design):
-        return torch.as_tensor(zero_phase_fir(*design), device=audio.device)
+        return torch.as_tensor(zero_phase_fir(*design), device=audio.device,
+                               dtype=audio.dtype)
 
     out = audio + scaled("surface", "surface_level")
     out = out + _make_pops(draws, t, sample_rate, cfg)[:, None]
@@ -265,7 +266,7 @@ def apply_artifacts(audio, draws: dict, sample_rate: int,
         f_lo, f_hi = cfg.rolloff_freq
         bank = torch.as_tensor(zero_phase_fir_bank(
             3, f_lo, f_hi, sample_rate, "low", 129, num=ROLLOFF_BANK),
-            device=audio.device)
+            device=audio.device, dtype=audio.dtype)
         idx = bank_index(ROLLOFF_BANK, draws["rolloff_freq"], f_lo, f_hi)
         out = _fir_same(out, bank[idx.long()])
     return out

@@ -16,6 +16,7 @@ from .stereo import (
     spectral_clustering_loss,
     stereo_balance_loss,
     stereo_metrics,
+    stereo_moments,
     stereo_stats_match_loss,
     temporal_consistency_loss,
 )
@@ -86,6 +87,6 @@ __all__ = [
     "low_frequency_centering_loss", "lsd", "multiscale_spectral_loss",
     "restoration_loss", "semi_supervised_loss", "si_sdr", "snr",
     "spectral_clustering_loss", "stereo_balance_loss", "stereo_metrics",
-    "stereo_stats_match_loss", "supervised_loss",
+    "stereo_moments", "stereo_stats_match_loss", "supervised_loss",
     "temporal_consistency_loss",
 ]

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import distributed as dist
+
 
 def impulse_loss(output, target):
     """output/target: [B, T, C] -> scalar."""
@@ -18,6 +20,9 @@ def impulse_loss(output, target):
     l1_d2 = torch.mean(torch.abs(out_d2 - tgt_d2))
 
     transient_error = torch.abs(out_d1 - tgt_d1)
-    high_energy = (tgt_d1 > torch.mean(tgt_d1) * 2.0).to(output.dtype)
+    level = torch.mean(tgt_d1)
+    if dist.in_global_batch():  # the global batch's mean, as under JAX
+        level = dist.mean_over_ranks(level)
+    high_energy = (tgt_d1 > level * 2.0).to(output.dtype)
     weighted = torch.mean(transient_error * high_energy)
     return l1_d2 + weighted * 0.5

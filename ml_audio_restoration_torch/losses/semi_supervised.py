@@ -12,13 +12,24 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import distributed as dist
+
 _EPS = 1e-8
 
 
 def _masked_mean(x, mask):
     """Mean of x over the items whose mask entry is 1: x [B, ...], mask
-    [B] in {0, 1}; `x[mask].mean()` for equal-size items."""
+    [B] in {0, 1}; `x[mask].mean()` for equal-size items. Inside a
+    data-parallel train step (parallel.distributed.global_batch) the mean
+    is over every rank's masked items: the numerator and the count are
+    summed over the ranks, since the ranks may hold different numbers of
+    them."""
     per_item = x.reshape(x.shape[0], -1).mean(dim=-1)
+    if dist.in_global_batch():
+        total, count = dist.all_reduce_sum(
+            torch.stack([(per_item * mask).sum(),
+                         mask.sum().to(per_item.dtype)])).unbind(0)
+        return total / torch.clamp(count, min=1.0)
     denom = torch.clamp(mask.sum(), min=1.0)
     return (per_item * mask).sum() / denom
 

@@ -105,12 +105,21 @@ def stereo_stats_match_loss(output, target):
             + torch.mean(torch.square(width_out - width_tgt)))
 
 
-def stereo_metrics(output):
-    """Monitoring metrics: |L/R correlation| and width = side/(mid+side)."""
+def stereo_moments(output):
+    """The batch means stereo_metrics reads: [mean L/R correlation, mid
+    energy, side energy]. A data-parallel step averages them over the
+    ranks before the metrics are formed."""
     left = output[:, :, 0]
     right = output[:, :, 1]
-    correlation = torch.abs(torch.mean(_lr_correlation(output)))
-    mid_e = torch.mean(((left + right) / 2.0) ** 2)
-    side_e = torch.mean(((left - right) / 2.0) ** 2)
-    return {"correlation": correlation,
+    return torch.stack([torch.mean(_lr_correlation(output)),
+                        torch.mean(((left + right) / 2.0) ** 2),
+                        torch.mean(((left - right) / 2.0) ** 2)])
+
+
+def stereo_metrics(output=None, moments=None):
+    """Monitoring metrics: |L/R correlation| and width = side/(mid+side),
+    of `output` or of its stereo_moments."""
+    corr, mid_e, side_e = (stereo_moments(output) if moments is None
+                           else moments)
+    return {"correlation": torch.abs(corr),
             "width": side_e / (mid_e + side_e + _EPS)}

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel import distributed as dist
+
 
 def conv1d(x, w, b=None, *, stride: int = 1, padding: int = 0,
            dilation: int = 1, groups: int = 1):
@@ -57,11 +59,19 @@ def batch_norm_train(x, scale, bias, running_mean, running_var, *,
     statistics are computed in at least f32 (a bf16 x in f32, an f64 x in
     f64), as E[x^2] - E[x]^2 clamped at 0 (in bf16 that difference can go
     negative and turn the forward NaN), and y comes back in x's dtype. The
-    new running statistics carry no gradient."""
+    new running statistics carry no gradient.
+
+    Inside a data-parallel train step (parallel.distributed.global_batch)
+    the statistics are the global batch's: every rank holds B items of
+    the same T, so E[x] and E[x^2] are the means over the ranks of the
+    local ones (one differentiable all-reduce) and n = B*T*ranks."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     n = x.shape[0] * x.shape[2]
     m = xf.mean(dim=(0, 2))
     sq = xf.square().mean(dim=(0, 2))
+    if dist.in_global_batch():
+        m, sq = dist.mean_over_ranks(torch.stack([m, sq])).unbind(0)
+        n *= dist.process_count()
     v = torch.clamp(sq - m.square(), min=0.0)
     k = torch.rsqrt(v + eps) * scale.to(xf.dtype)
     y = torch.addcmul(bias.to(xf.dtype)[:, None], xf - m[:, None],

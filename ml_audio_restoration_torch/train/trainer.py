@@ -34,11 +34,24 @@ backward, csrc/lstm_train.cu; bf16 gates in bf16); validation and
 rendering run the eval forward under no grad, which takes the inference
 kernel K1. The denoiser and SR are convolutions only.
 
-Not ported yet: data parallelism or multi-host (ROADMAP item 8). Asking
-for it raises NotImplementedError.
+Data parallelism runs one process a device (parallel/distributed.py),
+where the JAX package shards one step over a mesh: `data_parallel` must
+equal the number of processes. Each process loads a disjoint stride of
+the train files and feeds its share of the global batch; inside the train
+step (`dist.global_batch()`) the degradation draws for the global batch
+and keeps this rank's rows, train-mode BN normalizes by the global batch's
+statistics, the masked means and the impulse threshold are the global
+batch's, and one flattened all-reduce averages the gradients and the
+logged values before clipping and Adam. So a step of W ranks is the step
+of one process fed the ranks' batches in rank order, and every rank holds
+the same weights, optimizer state and history. Validation is not sharded:
+every rank evaluates the whole set with no collective, so the plateau
+scheduler moves in lockstep. Only the primary writes checkpoints, metrics
+and renders; an interrupt is agreed every 50 steps.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import signal
@@ -53,13 +66,15 @@ import torch
 from torch import nn
 
 from ..config import ArtifactConfig, Config, PipelineConfig, TrainConfig
-from ..data.artifacts import simulate_batch
+from ..data import artifacts
 from ..losses import (
-    contrastive_loss, restoration_loss, semi_supervised_loss, stereo_metrics)
+    contrastive_loss, restoration_loss, semi_supervised_loss, stereo_metrics,
+    stereo_moments)
 from ..models import (
     AudioDenoiser, AudioSuperResolution, StereoSeparator, cast_params,
     count_params, init_params)
 from ..ops import interp_linear
+from ..parallel import distributed as dist
 from ..pipeline.restore import resolve_device
 from . import checkpoints as ckpt
 from .metrics import MetricsLogger
@@ -95,10 +110,14 @@ def _check_supported(model_name: str, cfg: TrainConfig, pairing: str):
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of "
                          f"{tuple(COMPUTE_DTYPES)}, got {cfg.compute_dtype!r}")
-    if cfg.data_parallel > 1:
-        raise NotImplementedError(
-            f"data_parallel={cfg.data_parallel}: data-parallel training is "
-            f"not ported yet (ROADMAP item 8)")
+    if cfg.data_parallel != dist.process_count():
+        # the JAX package shards a step over the local devices too; the
+        # port runs one device a process
+        raise ValueError(
+            f"data_parallel={cfg.data_parallel} with "
+            f"{dist.process_count()} process(es): the port trains on one "
+            f"device a process, so data_parallel must equal "
+            f"--num-processes")
 
 
 class Trainer:
@@ -180,6 +199,28 @@ class Trainer:
         """batch[key] as a tensor on the device."""
         return torch.as_tensor(batch[key]).to(self.device)
 
+    def _simulate(self, gen, clean, overrides=None):
+        """simulate_batch of [b, C, T] on the trainer's simulator. Inside a
+        data-parallel train step the draws are the global batch's [W*b, C,
+        T] (every rank's per-item overrides gathered first) and this rank
+        keeps its rows [r*b, (r+1)*b): the draws of one process fed the
+        ranks' batches in rank order."""
+        if not dist.in_global_batch():
+            return artifacts.simulate_batch(gen, clean, self.sample_rate,
+                                            self.artifact_cfg,
+                                            overrides=overrides)
+        b, r = clean.shape[0], dist.process_index()
+        if overrides is not None:
+            overrides = {k: dist.gather_rows(v) for k, v in overrides.items()}
+        draws = artifacts.draw_artifacts(
+            gen, (dist.process_count() * b, *clean.shape[1:]),
+            self.sample_rate, self.artifact_cfg, dtype=clean.dtype,
+            overrides=overrides)
+        draws = {k: v[r * b:(r + 1) * b].to(clean.device)
+                 for k, v in draws.items()}
+        return artifacts.apply_artifacts(clean, draws, self.sample_rate,
+                                         self.artifact_cfg)
+
     def _derive(self, batch, generator: Optional[torch.Generator] = None):
         """(inputs, targets) [B, T, C] on the device from a host batch.
         The degradations draw from `generator` (default: the trainer's,
@@ -189,21 +230,17 @@ class Trainer:
         gen = generator or self._gen
         if p == "degrade":
             clean = host("clean")
-            degraded = simulate_batch(gen, clean, self.sample_rate,
-                                      self.artifact_cfg)
-            return _nwc(degraded), _nwc(clean)
+            return _nwc(self._simulate(gen, clean)), _nwc(clean)
         if p == "degrade_adaptive":
             clean = host("clean")
-            degraded = simulate_batch(
-                gen, clean, self.sample_rate, self.artifact_cfg,
-                overrides={k: host(k) for k in ADAPTIVE_KEYS})
+            degraded = self._simulate(
+                gen, clean, {k: host(k) for k in ADAPTIVE_KEYS})
             return _nwc(degraded), _nwc(clean)
         if p == "mixed":
             # synthetic items arrive clean and are degraded here; real ones
             # are degraded recordings, their own (unused) target
             audio = host("audio")
-            degraded = simulate_batch(gen, audio, self.sample_rate,
-                                      self.artifact_cfg)
+            degraded = self._simulate(gen, audio)
             syn = host("is_synthetic")[:, None, None]
             return (_nwc(torch.where(syn > 0, degraded, audio)),
                     _nwc(audio))
@@ -304,8 +341,7 @@ class Trainer:
                 self.model.train(was_training)
 
         def redegrade(x):
-            return _nwc(simulate_batch(gen, x.transpose(1, 2),
-                                       self.sample_rate, self.artifact_cfg))
+            return _nwc(self._simulate(gen, x.transpose(1, 2)))
 
         total, parts = semi_supervised_loss(
             out, inputs, targets, host("is_synthetic"),
@@ -315,8 +351,7 @@ class Trainer:
             # and is degraded here, as the main input was
             pair = host("contrastive_pair")
             pair_syn = host("contrastive_pair_is_synthetic")[:, None, None]
-            degraded = simulate_batch(gen, pair, self.sample_rate,
-                                      self.artifact_cfg)
+            degraded = self._simulate(gen, pair)
             pair_in = _nwc(torch.where(pair_syn > 0, degraded, pair))
             # the time-pooled bottleneck features of both inputs
             emb_a, emb_b = (eval_forward(x, self._encoder).mean(dim=1)
@@ -351,26 +386,45 @@ class Trainer:
                     self.ema_params[name].mul_(float(d)).add_(p, alpha=rest)
 
     def _step(self, batch, train: bool, generator=None):
-        inputs, targets = self._derive(batch, generator)
+        # a train step under a process group spans the global batch
+        with dist.global_batch() if train else contextlib.nullcontext():
+            inputs, targets = self._derive(batch, generator)
+            if train:
+                self.model.train()
+                self.optimizer.zero_grad(set_to_none=True)
+                loss, (parts, out) = self._loss(inputs, targets, None,
+                                                batch, generator)
+                loss.backward()
+            else:
+                self.model.eval()
+                with torch.no_grad():
+                    loss, (parts, out) = self._loss(inputs, targets,
+                                                    self.ema_params, batch,
+                                                    generator)
+            metrics = {k: v.detach() for k, v in parts.items()}
+            metrics["loss"] = loss.detach()
+            moments = (stereo_moments(out.detach()) if out.shape[-1] == 2
+                       else None)
+            if dist.in_global_batch():
+                metrics, moments = self._average_over_ranks(metrics, moments)
         if train:
-            self.model.train()
-            self.optimizer.zero_grad(set_to_none=True)
-            loss, (parts, out) = self._loss(inputs, targets, None, batch,
-                                            generator)
-            loss.backward()
             self._update()
-        else:
-            self.model.eval()
-            with torch.no_grad():
-                loss, (parts, out) = self._loss(inputs, targets,
-                                                self.ema_params, batch,
-                                                generator)
-        metrics = {k: v.detach() for k, v in parts.items()}
-        metrics["loss"] = loss.detach()
-        if out.shape[-1] == 2:
-            with torch.no_grad():
-                metrics.update(stereo_metrics(out.detach()))
+        if moments is not None:
+            metrics.update(stereo_metrics(moments=moments))
         return metrics
+
+    def _average_over_ranks(self, metrics, moments):
+        """Average the gradients over the ranks, and with them the step's
+        logged values and stereo moments (one all-reduce): the loss of the
+        global batch is the mean of the ranks' losses, each rank's being
+        the mean over an equal share."""
+        keys = sorted(metrics)
+        local = torch.stack([metrics[k] for k in keys])
+        if moments is not None:
+            local = torch.cat([local, moments])
+        avg = dist.average_gradients(self.model.parameters(), local)
+        return (dict(zip(keys, avg[:len(keys)].unbind(0))),
+                None if moments is None else avg[len(keys):])
 
     def _train_step(self, batch, generator=None):
         return self._step(batch, True, generator)
@@ -384,8 +438,19 @@ class Trainer:
         # cadence and at the end, so the host runs ahead of the card
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         n = 0
+        # several processes: a rank-local break would leave the others in
+        # the next step's all-reduce, so the stop is agreed every 50 steps
+        # (one small collective); one process checks every step
+        multi = dist.process_count() > 1
+        agreed_stop = False
         for i, batch in enumerate(self.train_loader):
-            if self.interrupted:
+            if multi:
+                if i % 50 == 0:
+                    agreed_stop = dist.agree_flag(self.interrupted)
+                if agreed_stop:
+                    self.interrupted = True
+                    break
+            elif self.interrupted:
                 break
             metrics = self._train_step(batch,
                                        self._seeded(2 * self.epoch, i))
@@ -471,7 +536,7 @@ class Trainer:
             self.epoch = epoch + 1
             start = time.time()
             train_loss = self.train_epoch()
-            if self.interrupted:
+            if self._interrupted_all():
                 # checkpoint the partial epoch before anything else can fail
                 self.save_checkpoint(ckpt.epoch_checkpoint_name(self.epoch))
                 break
@@ -495,7 +560,11 @@ class Trainer:
                                            self.epoch)
                 self.logger.add_scalar("Time/epoch_duration", took,
                                        self.epoch)
-            if self.epoch % 10 == 0 and self.val_loader is not None:
+            # the render calls no collective here (the JAX package's is a
+            # program over the global mesh that every rank enters), so
+            # only the primary, the one writer, renders
+            if (self.epoch % 10 == 0 and self.val_loader is not None
+                    and dist.is_primary()):
                 self.log_audio_samples()
             val_txt = (f"val {val_loss:.6f}"
                        if self.val_loader is not None else "val -")
@@ -511,10 +580,18 @@ class Trainer:
                 self.save_checkpoint(ckpt.BEST)
                 if test_audio_fn:
                     test_audio_fn(self, "best")
-            if self.interrupted:  # SIGINT during validation or logging
+            if self._interrupted_all():  # SIGINT in validation, logging
                 self.save_checkpoint(ckpt.epoch_checkpoint_name(self.epoch))
                 break
         return self.history
+
+    def _interrupted_all(self) -> bool:
+        """The interrupt state agreed over the ranks (the local one in one
+        process). Every rank must reach each call site equally often: the
+        agreement is a collective."""
+        if dist.process_count() > 1:
+            self.interrupted = dist.agree_flag(self.interrupted)
+        return self.interrupted
 
     def _render(self, batch, generator=None):
         """(inputs, targets, restored) [B, T, C] of the eval forward on
@@ -546,6 +623,10 @@ class Trainer:
 
     # --------------------------------------------------------- checkpoints
     def save_checkpoint(self, filename: str, async_: bool = False):
+        # the ranks hold the same state: only the primary writes (every
+        # rank writing one path on shared storage would race)
+        if not dist.is_primary():
+            return
         path = self.checkpoint_dir / filename
         payload = {
             "model_state_dict": self.model.state_dict(),
@@ -630,14 +711,34 @@ class Trainer:
         """Resume from the newest readable checkpoint. Saves are atomic, but
         a file corrupted at rest must not kill the restart: fall back
         through older epoch checkpoints, then best_model, warning for each
-        skipped file."""
+        skipped file.
+
+        Several processes: the primary walks the list and broadcasts its
+        choice, and every other rank loads exactly that file and raises if
+        it cannot (a rank that fell back on its own would train other
+        weights from another step)."""
+        if dist.process_count() > 1:
+            chosen = ""
+            if dist.is_primary():
+                chosen = self._resume_from_first_readable() or ""
+            chosen = dist.broadcast_from_primary(chosen)
+            if not chosen:
+                return False
+            if not dist.is_primary():
+                self.load_checkpoint(self.checkpoint_dir / chosen)
+            return True
+        return self._resume_from_first_readable() is not None
+
+    def _resume_from_first_readable(self):
+        """Load the first readable checkpoint of the retention list; its
+        file name, or None."""
         for path in ckpt.all_checkpoints(self.checkpoint_dir):
             try:
                 self.load_checkpoint(path)
-                return True
+                return path.name
             except Exception as e:  # unreadable or foreign: try the next
                 warnings.warn(f"skipping unreadable checkpoint {path}: {e}")
-        return False
+        return None
 
 
 class _Encoder(nn.Module):
@@ -751,23 +852,44 @@ def build_trainer(cfg: Config, steps_per_epoch: Optional[int] = None,
     tr_idx, va_idx = train_val_split(dataset, d.val_split, cfg.train.seed)
     if steps_per_epoch:
         tr_idx = tr_idx[:steps_per_epoch * cfg.train.batch_size]
-    batch_size = cfg.train.batch_size
+    # several processes: each loads a disjoint stride of the train indices
+    # and feeds its share of the global batch (the config's batch size).
+    # Validation is not sharded: every process evaluates the same whole
+    # set, so val_loss, which drives the plateau scheduler, is the same
+    # on every rank
+    tr_idx = dist.shard_indices_by_process(tr_idx)
+    batch_size = dist.local_batch_size(cfg.train.batch_size)
     train_loader = DataLoader(dataset, batch_size, indices=tr_idx,
-                              seed=cfg.train.seed)
+                              seed=cfg.train.seed + dist.process_index())
+    if dist.process_count() > 1:
+        shown = ", ".join(str(int(i)) for i in tr_idx[:8])
+        print(f"process {dist.process_index()} of {dist.process_count()}: "
+              f"{len(tr_idx)} train items ({shown}"
+              f"{', ...' if len(tr_idx) > 8 else ''}), local batch "
+              f"{batch_size}", flush=True)
     # the validation batch is clamped to the split, so a small split still
-    # validates (and drives best-model tracking and the plateau scheduler)
-    val_bs = min(batch_size, len(va_idx))
+    # validates (and drives best-model tracking and the plateau scheduler),
+    # and rounded down to a multiple of this process's share of the data
+    # axis, as in the JAX package; one device a process makes that share 1
+    share = max(1, cfg.train.data_parallel // dist.process_count())
+    val_bs = (min(batch_size, len(va_idx)) // share) * share
+    if val_bs == 0 and len(va_idx) > 0:
+        print(f"validation disabled: split of {len(va_idx)} items cannot "
+              f"fill one {share}-way sharded batch")
     val_loader = (DataLoader(dataset, val_bs, indices=va_idx,
                              shuffle=False, seed=cfg.train.seed)
                   if val_bs > 0 else None)
 
     model = init_params(MODELS[name](**model_kwargs),
                         torch.Generator().manual_seed(cfg.train.seed))
-    logger = MetricsLogger(Path(cfg.train.log_dir) / name, name)
+    # the primary is the one writer of metrics (checkpoints are gated in
+    # Trainer.save_checkpoint, test renders in train_from_config)
+    logger = (MetricsLogger(Path(cfg.train.log_dir) / name, name)
+              if dist.is_primary() else None)
     trainer = Trainer(name, model, train_loader, val_loader,
                       config=cfg.train, artifact_config=d.artifacts,
                       sample_rate=d.sample_rate, logger=logger,
-                      device=device)
+                      device=dist.device_for_rank(device))
     trainer.checkpoint_dir = Path(cfg.train.checkpoint_dir) / name
     trainer.maybe_resume()
     return trainer
@@ -776,19 +898,24 @@ def build_trainer(cfg: Config, steps_per_epoch: Optional[int] = None,
 def train_from_config(cfg: Config, steps_per_epoch: Optional[int] = None,
                       device="cuda", dataset_kind: str = "standard"):
     """Config-driven training: build_trainer, then train() with test-audio
-    rendering when `cfg.train.test_audio_dir` is set. Returns the history."""
-    trainer = build_trainer(cfg, steps_per_epoch, device, dataset_kind)
-    test_fn = None
-    if cfg.train.test_audio_dir:
-        out_dir = (cfg.train.test_output_dir
-                   or f"outputs/{cfg.train.model}_tests")
-        test_fn = partial(render_test_outputs,
-                          test_audio_dir=cfg.train.test_audio_dir,
-                          test_output_dir=out_dir,
-                          sample_rate=cfg.data.sample_rate,
-                          chunk_seconds=cfg.data.chunk_duration)
+    rendering (by the primary) when `cfg.train.test_audio_dir` is set.
+    Returns the history. Leaves the process group, if any, on the way
+    out."""
     try:
-        return trainer.train(test_audio_fn=test_fn)
+        trainer = build_trainer(cfg, steps_per_epoch, device, dataset_kind)
+        test_fn = None
+        if cfg.train.test_audio_dir and dist.is_primary():
+            out_dir = (cfg.train.test_output_dir
+                       or f"outputs/{cfg.train.model}_tests")
+            test_fn = partial(render_test_outputs,
+                              test_audio_dir=cfg.train.test_audio_dir,
+                              test_output_dir=out_dir,
+                              sample_rate=cfg.data.sample_rate,
+                              chunk_seconds=cfg.data.chunk_duration)
+        try:
+            return trainer.train(test_audio_fn=test_fn)
+        finally:
+            if trainer.logger is not None:
+                trainer.logger.close()
     finally:
-        if trainer.logger is not None:
-            trainer.logger.close()
+        dist.shutdown()

@@ -656,14 +656,16 @@ def test_config_matches_jax(tmp_path):
 
 
 # ------------------------------------------------------- unported options
+# data_parallel > 1 trains with one process a device; in one process it
+# is refused (tests/test_torch_multiprocess.py holds the multi-process runs)
 @pytest.mark.parametrize("kw,match", [
-    ({"data_parallel": 2}, "item 8"),
+    ({"data_parallel": 2}, "--num-processes"),
 ])
 def test_unported_options_raise(kw, match):
     pairing = kw.pop("pairing", None)
     params, state = _jax_weights()
     loader = DataLoader(ToyStereo(), batch_size=B, seed=0)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         Trainer("stereo_separator", _port_model(params, state), loader,
                 config=_cfg(TrainConfig, **kw), pairing=pairing,
                 device="cpu")
