@@ -108,8 +108,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                T=11,024 B=640 in bf16 and f32, source-rate T=44,100 B=64,
                a streaming feed's committed T=22,048 and lookahead T=1,040
                runs at B=16 with a carry in), at the bf16 preset's
-               validation (T=11,025 B=64, bf16) and at evaluate's stereo
-               shape (T=44,100 B=8): against its plain version,
+               validation (T=11,025 B=64, bf16), at evaluate's stereo
+               shape (T=44,100 B=8) and at the shards of a 120 s restore
+               under 2- and 3-entry meshes (T=88,200 B=32, B=22): against
+               its plain version,
                timed beside its bound, its latency floor (waves x steps),
                its registers, CTAs an SM and waves, and cuDNN's nn.LSTM;
  13. serve_fast - a 120 s clip through config/fast_serve.yaml (bf16, 0.25 s
@@ -164,12 +166,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
                TCP twin; an int8 daemon writing its scales file and a
                second one serving from it bit for bit (its 10 s request's
                round trip and launches by path); `serve --warmup` as a
-               subprocess (healthz, a restore, a stream, SIGTERM -> 0).
+               subprocess (healthz, a restore, a stream, SIGTERM -> 0);
+ 19. serve_mesh - multi-device serving on meshes that repeat cuda:0 (the
+               host has one card: the shards time-share it, so this checks
+               the split, the gather and the numbers, not scaling): the
+               120 s clip through 1-, 2- and 3-entry meshes against the
+               unsharded restore (1 entry bit for bit, 2 and 3 within atol
+               2e-5 rtol 1e-4), xRT of each, K1's launches and [T, B] a
+               shard (32/32, 22/21/21); restore_many over 2 entries vs
+               single restores; int8 over 2 entries on the unsharded
+               run's scales file (1/4 of the int8-vs-f32 RMS, the int8
+               conv bit for bit its plain version, 70 launches); 16
+               streams of 10 s over 2 entries within 1e-6 of unsharded
+               ones; StagedRestorationPipeline over [cuda:0] * 3 on the
+               120 s and a 4 s clip bit for bit against restore; a reload
+               on a 2-entry mesh (f32, bf16: every device's models hold
+               the new weights); the CLI: `restore --data-parallel 1`
+               byte for byte, `--data-parallel <cards + 1>` exits
+               non-zero naming the count, `serve --data-parallel 1`.
 Each phase's wall seconds follow it on a line {"phase_wall_s": ...}.
 Then one line {"kernels": [...]} (K1, K2, K3 and the int8 conv, whose
 numbers sum its layers over one 64-chunk program, each layer with its path
 in `shapes`, and whose `launches_by_path` splits its launches on the main
-path among wgmma, stem and generic) and, last, the device line
+path among wgmma, stem and generic; K1's `path_launches` include the
+serve_mesh paths) and, last, the device line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Imports nothing of JAX.
 """
@@ -292,10 +312,11 @@ def _timed_once(torch, fn):
     return start.elapsed_time(end), out
 
 
-def _lstm_segments(torch, ref, gates, seg: int):
+def _lstm_segments(torch, ref, gates, seg: int, state=None):
     """cuDNN's nn.LSTM over `gates` in time segments of `seg` steps, the
-    state threaded from one segment to the next -> [T, B, H]."""
-    outs, state = [], None
+    state (`state` first) threaded from one segment to the next ->
+    [T, B, H]."""
+    outs = []
     for s in range(0, gates.shape[0], seg):
         out, state = ref(gates[s:s + seg], state)
         outs.append(out)
@@ -3210,7 +3231,9 @@ def _k1_library(torch, gates, w_hh, h0, c0):
         ref.bias_hh_l0.zero_()
     state = (h0[None].to(gates.dtype).contiguous(),
              c0[None].to(gates.dtype).contiguous())
-    run = lambda: ref(gates, state)[0]  # noqa: E731
+    # cuDNN refuses more than 44,100 steps in one call (phase_kernels):
+    # longer gates run in segments with the state threaded through
+    run = lambda: _lstm_segments(torch, ref, gates, 44100, state)  # noqa
     try:
         with torch.inference_mode():
             out = run()
@@ -3286,7 +3309,9 @@ def phase_k1_shapes(torch, evaluate_shape):
     from a carry), and the bf16 fast-train preset's validation (64 chunks
     of 0.5 s, 11,025 steps, bf16), and evaluate's stereo evaluation (the
     8 s files' bucketed chunks of 2 s at 22.05 kHz, `evaluate_shape` =
-    (T, B) from the files phase). Returns the rows by path."""
+    (T, B) from the files phase), and a shard of the default 120 s restore
+    under a 2-entry mesh (B=32) and the largest of a 3-entry one (B=22).
+    Returns the rows by path."""
     from ml_audio_restoration_torch.ops import _latency
     from ml_audio_restoration_torch.ops import lstm as L
 
@@ -3302,7 +3327,9 @@ def phase_k1_shapes(torch, evaluate_shape):
             ("stream_committed", 22048, 16, torch.float32, True),
             ("stream_lookahead", 1040, 16, torch.float32, True),
             ("train_bf16_validation", 11025, 64, torch.bfloat16, False),
-            ("evaluate_stereo", *evaluate_shape, torch.float32, False))):
+            ("evaluate_stereo", *evaluate_shape, torch.float32, False),
+            ("serve_mesh_2", 88200, 32, torch.float32, False),
+            ("serve_mesh_3", 88200, 22, torch.float32, False))):
         rows[path] = _k1_at(torch, L, path, t, b, dtype, carry, floor_ns,
                             seed=10 + i)
     return rows
@@ -4606,10 +4633,11 @@ def _serve_int8(torch, L, models, root, rate):
             "lstm_recurrence_launches": launches[1]}
 
 
-def _serve_cli(paths, rate):
-    """`python -m ml_audio_restoration_torch serve --warmup` as a
-    subprocess on the phase's .pth files: /healthz names a CUDA device, a
-    restore and a stream succeed, and SIGTERM ends it with exit code 0."""
+def _serve_cli(paths, rate, *extra):
+    """`python -m ml_audio_restoration_torch serve --warmup` (and `extra`
+    arguments) as a subprocess on the phase's .pth files: /healthz names a
+    CUDA device, a restore and a stream succeed, and SIGTERM ends it with
+    exit code 0."""
     import json
     import queue
     import re
@@ -4625,7 +4653,7 @@ def _serve_cli(paths, rate):
          "--port", "0", "--stream-port", "0", "--stream-slots", "4",
          "--warmup", "--denoiser", paths["denoiser"],
          "--super-res", paths["super_resolution"],
-         "--stereo", paths["stereo"]],
+         "--stereo", paths["stereo"], *extra],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
     lines, log = queue.Queue(), []
@@ -4832,6 +4860,336 @@ def phase_serve(torch):
             "int8_conv": int8["int8_conv_launches"]}
 
 
+MESH_TOL = {"atol": 2e-5, "rtol": 1e-4}  # sharded vs unsharded restore
+#                     (JAX tests/test_pipeline.py:181): a shard's convs
+#                     run at another batch size, cuDNN's algorithm may differ
+MESH_STREAM_TOL = 1e-6  # sharded vs unsharded streams (JAX
+#                     tests/test_streaming.py:229)
+MESH_ENTRIES = (1, 2, 3)  # meshes of repeated cuda:0 entries
+MESH_LABEL = "shards time-sharing one H100: not a scaling figure"
+
+
+@contextlib.contextmanager
+def _k1_shapes_seen(L):
+    """Record [T, B] of every K1 launch inside the block (the launch
+    itself and its count are the kernel's own)."""
+    seen = []
+    k1 = L._lstm_recurrence_cuda
+
+    def spy(gates, w_hh, h0, c0):
+        seen.append(list(gates.shape[:2]))
+        return k1(gates, w_hh, h0, c0)
+
+    L._lstm_recurrence_cuda = spy
+    try:
+        yield seen
+    finally:
+        L._lstm_recurrence_cuda = k1
+
+
+def _mesh_restore(torch, L, pipe, clip, rate, mesh, reps: int = 3):
+    """`pipe` under `mesh` (None: unsharded) on `clip`: one warm-up restore
+    (cuDNN picks its algorithms at the shards' shapes), one counted with
+    the K1 shapes of each shard, then `reps` timed. (output, median wall
+    s, K1 launches, K1 [T, B] per launch)."""
+    pipe.mesh = mesh
+    pipe.restore(clip, rate)
+    with _k1_shapes_seen(L) as shapes:
+        y, _, launches, _ = _timed_restore(torch, L, pipe, clip, rate)
+    walls = [_timed_restore(torch, L, pipe, clip, rate)[1]
+             for _ in range(reps)]
+    return y, statistics.median(walls), launches, shapes
+
+
+def _mesh_bar(torch, got, want) -> dict:
+    """Sharded `got` against unsharded `want` at MESH_TOL."""
+    return {"max_abs": _max_dev(got, want),
+            "within_bar": bool(torch.allclose(got, want, **MESH_TOL)),
+            "bit_for_bit": bool(torch.equal(got, want))}
+
+
+def _mesh_reload(torch, models, paths, mesh, clip, rate, dtype):
+    """A pipeline over `models` on `mesh` restores `clip`, reloads `paths`
+    and restores again: equal to a fresh pipeline on the files under the
+    same mesh, different from before, and every device's stage models
+    (`_cast`) hold the files' weights."""
+    from ml_audio_restoration_torch.config import PipelineConfig
+    from ml_audio_restoration_torch.pipeline import RestorationPipeline
+
+    cfg = PipelineConfig(compute_dtype=dtype)
+    pipe = RestorationPipeline(*models, config=cfg, mesh=mesh)
+    before, _ = pipe.restore(clip, rate)
+    reloaded = pipe.reload_stages(paths)
+    after, _ = pipe.restore(clip, rate)
+    fresh = RestorationPipeline.from_checkpoints(
+        denoiser_path=paths["denoiser"],
+        super_res_path=paths["super_resolution"],
+        stereo_path=paths["stereo"], config=cfg)
+    fresh.mesh = mesh
+    want, _ = fresh.restore(clip, rate)
+    new = [m.state_dict() for m in (fresh.denoiser, fresh.super_resolution,
+                                    fresh.stereo)]
+    served = [(dev, ms) for dev, ms in pipe._cast[dtype].items()]
+    weights_new = all(
+        torch.equal(v.to(t.dtype), t) for _, ms in served
+        for m, sd in zip(ms, new) for k, t in m.state_dict().items()
+        for v in (sd[k],))
+    return {"dtype": dtype, "reloaded": reloaded,
+            "devices": [str(d) for d, _ in served],
+            "equal_to_fresh": bool(torch.equal(after, want)),
+            "differs_from_old": not torch.equal(before, after),
+            "every_device_new_weights": bool(weights_new)}
+
+
+def _mesh_cli(torch, paths, root, rate):
+    """`restore --data-parallel 1` writes the bytes of a run without the
+    flag (in process); `--data-parallel N` with N above the card count
+    exits non-zero naming the count (a subprocess); `serve --data-parallel
+    1` answers a request and a stream (_serve_cli)."""
+    from ml_audio_restoration_torch import cli
+    from ml_audio_restoration_torch.audio import save_audio
+
+    src = os.path.join(root, "in.wav")
+    save_audio(src, _clip(4.0, rate, seed=800), rate)
+    ckpts = ["--denoiser", paths["denoiser"], "--super-res",
+             paths["super_resolution"], "--stereo", paths["stereo"]]
+    outs = {}
+    for name, extra in (("plain", []), ("dp1", ["--data-parallel", "1"])):
+        dst = os.path.join(root, f"{name}.wav")
+        cli.main(["restore", src, dst, *ckpts, *extra])
+        with open(dst, "rb") as fh:
+            outs[name] = fh.read()
+    cards = torch.cuda.device_count()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ml_audio_restoration_torch", "restore", src,
+         os.path.join(root, "too_many.wav"), *ckpts, "--data-parallel",
+         str(cards + 1)], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    names_count = f"only {cards} available" in proc.stderr
+    row = {"restore_dp1_same_bytes": outs["plain"] == outs["dp1"],
+           "too_many_returncode": proc.returncode,
+           "too_many_names_count": names_count,
+           "serve": _serve_cli(paths, rate, "--data-parallel", "1")}
+    if not names_count:
+        row["too_many_stderr"] = proc.stderr[-600:]
+    row["ok"] = bool(row["restore_dp1_same_bytes"] and proc.returncode != 0
+                     and names_count and row["serve"]["ok"])
+    return row
+
+
+def phase_serve_mesh(torch):
+    """Multi-device serving (parallel/mesh.py, pipeline/staged.py) at full
+    published width with seeded weights. The card host has one card, so
+    the meshes repeat cuda:0 (MESH_LABEL): this checks the split, the
+    gather and the numbers, not scaling. Returns {path: (K1 launches,
+    None, None)} for the kernels line, and the int8 conv's launches."""
+    import shutil
+
+    from ml_audio_restoration_torch.compat import save_pth
+    from ml_audio_restoration_torch.config import PipelineConfig
+    from ml_audio_restoration_torch.ops import int8_conv as ic
+    from ml_audio_restoration_torch.ops import lstm as L
+    from ml_audio_restoration_torch.parallel import make_mesh
+    from ml_audio_restoration_torch.pipeline import (
+        RestorationPipeline, StagedRestorationPipeline, StreamingRestorer)
+
+    dev = torch.device("cuda")
+    models = _models(torch, dev)
+    pipe = RestorationPipeline(*models)
+    rate, seconds = pipe.config.sample_rate, 120.0
+    clip = _clip(seconds, rate, seed=3)
+    meshes = {k: make_mesh(k, devices=["cuda:0"] * k) for k in MESH_ENTRIES}
+    root = os.path.join(ROOT, "profiles", "chip_smoke_serve_mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    row = {"phase": "serve_mesh", "label": MESH_LABEL}
+    try:
+        # 1. the 120 s clip unsharded and through 1-, 2- and 3-entry meshes
+        y0, wall0, k1_0, shapes0 = _mesh_restore(torch, L, pipe, clip, rate,
+                                                 None)
+        row["plain"] = {"xrt": seconds / wall0, "wall_s": wall0,
+                        "k1_launches": k1_0, "k1_shapes": shapes0}
+        emit({"phase": "serve_mesh_restore", "entries": 0, **row["plain"]})
+        row["restores"] = {}
+        for k, mesh in meshes.items():
+            y, wall, k1, shapes = _mesh_restore(torch, L, pipe, clip, rate,
+                                                mesh)
+            r = {"entries": k, "xrt": seconds / wall, "wall_s": wall,
+                 "plain_xrt": seconds / wall0, "k1_launches": k1,
+                 "k1_shapes": shapes, **_mesh_bar(torch, y, y0)}
+            row["restores"][k] = r
+            emit({"phase": "serve_mesh_restore", **r})
+        del y
+        # 2. restore_many over the 2-entry mesh against single restores
+        mix = [_clip(s, rate, seed=500 + i)
+               for i, s in enumerate((5.0, 10.0, 20.0, 30.0, 7.5))]
+        pipe.mesh = meshes[2]
+        pipe.restore_many(mix, rate)
+        torch.cuda.synchronize()
+        with _k1_shapes_seen(L) as shapes:
+            L.reset_launch_count()
+            t0 = time.perf_counter()
+            many = pipe.restore_many(mix, rate)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k1_many = L.launch_count
+        singles = [pipe.restore(a, rate)[0] for a in mix]
+        row["many"] = {
+            "recordings": len(mix), "seconds": sum(a.shape[1] for a in mix)
+            / rate, "wall_s": wall, "k1_launches": k1_many,
+            "k1_shapes": shapes,
+            "vs_single_max_abs": max(_max_dev(o, s) for (o, _), s in zip(
+                many, singles)), "tol": MANY_TOL}
+        row["many"]["xrt"] = row["many"]["seconds"] / wall
+        emit({"phase": "serve_mesh_many", **row["many"]})
+        del many, singles
+        # 3. int8 through the 2-entry mesh on the unsharded run's scales
+        q = RestorationPipeline(*models, config=PipelineConfig(
+            quantize_int8=True))
+        q.calibrate_int8(clip, rate)
+        scales = os.path.join(root, "scales.json")
+        q.save_int8_scales(scales)
+        y8, _ = q.restore(clip, rate)
+        qm = RestorationPipeline(*models, config=PipelineConfig(
+            quantize_int8=True), mesh=meshes[2])
+        qm.load_int8_scales(scales)
+        loaded = qm._int8_scales
+        qm.restore(clip, rate)
+        y8m, wall8m, k1_8m, int8_launches = _timed_int8_restore(
+            torch, L, ic, qm, clip, rate)
+        by_path = dict(ic.launch_count_by_path)
+        with ic.plain_int8_conv():
+            y8m_plain, _ = qm.restore(clip, rate)
+        rms = lambda d: float(d.float().square().mean().sqrt())  # noqa: E731
+        row["int8"] = {
+            "entries": 2, "xrt": seconds / wall8m, "k1_launches": k1_8m,
+            "int8_conv_launches": int8_launches,
+            "int8_conv_launches_by_path": by_path,
+            "kernel_equal_to_plain": bool(torch.equal(y8m, y8m_plain)),
+            "not_recalibrated": qm._int8_scales is loaded,
+            "vs_unsharded_rms": rms(y8m - y8),
+            "int8_vs_f32_rms": rms(y8 - y0)}
+        row["int8"]["rms_tol"] = 0.25 * row["int8"]["int8_vs_f32_rms"]
+        emit({"phase": "serve_mesh_int8", **row["int8"]})
+        del q, qm, y8, y8m, y8m_plain
+        torch.cuda.empty_cache()
+        # 4. 16 lockstep streams over the 2-entry mesh vs unsharded
+        block = int(0.5 * rate)
+        streams = np.concatenate([_clip(10.0, rate, seed=600 + i)
+                                  for i in range(16)])
+        blocks = [streams[:, o:o + block]
+                  for o in range(0, streams.shape[1], block)]
+        runs = {}
+        for name, mesh in (("plain", None), ("mesh", meshes[2])):
+            r = StreamingRestorer(*models, batch=16, mesh=mesh)
+            r.warmup(block)
+            torch.cuda.synchronize()
+            L.reset_launch_count()
+            out, emitted, _ = _feed_all(r, blocks)
+            runs[name] = (out, statistics.median(emitted), L.launch_count)
+        row["stream"] = {
+            "streams": 16, "seconds": 10.0, "block_s": 0.5, "entries": 2,
+            "feed_ms_median": runs["mesh"][1],
+            "plain_feed_ms_median": runs["plain"][1],
+            "k1_launches": runs["mesh"][2],
+            "plain_k1_launches": runs["plain"][2],
+            "vs_unsharded_max_abs": float(np.abs(
+                runs["mesh"][0] - runs["plain"][0]).max()),
+            "tol": MESH_STREAM_TOL}
+        emit({"phase": "serve_mesh_stream", **row["stream"]})
+        del runs
+        # 5. staged: one stage an entry of [cuda:0] * 3
+        pipe.mesh = None
+        staged = StagedRestorationPipeline(*models, devices=["cuda:0"] * 3)
+        row["staged"] = {}
+        for name, c in (("120s", clip), ("4s", _clip(4.0, rate, seed=2))):
+            want, _ = pipe.restore(c, rate)
+            staged.restore(c, rate)
+            torch.cuda.synchronize()
+            with _k1_shapes_seen(L) as shapes:
+                L.reset_launch_count()
+                t0 = time.perf_counter()
+                got, _ = staged.restore(c, rate)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                k1 = L.launch_count
+            row["staged"][name] = {
+                "seconds": c.shape[1] / rate, "wall_s": wall,
+                "xrt": c.shape[1] / rate / wall, "k1_launches": k1,
+                "k1_shapes": shapes,
+                "bit_for_bit": bool(torch.equal(got, want)),
+                "placement": {k: str(v)
+                              for k, v in staged.placement.items()}}
+            emit({"phase": "serve_mesh_staged", "clip": name,
+                  **row["staged"][name]})
+        del staged, got, want
+        # 6. reload on a 2-entry mesh pipeline
+        paths = {}
+        for (attr, name), m in zip(
+                (("denoiser", "denoiser"),
+                 ("super_resolution", "super_resolution"),
+                 ("stereo", "stereo_separator")),
+                _models(torch, dev, seed=1)):
+            paths[attr] = os.path.join(root, f"{attr}.pth")
+            save_pth(paths[attr], name, {k: v.cpu() for k, v in
+                                         m.state_dict().items()})
+        row["reload"] = [_mesh_reload(torch, models, paths, meshes[2],
+                                      _clip(10.0, rate, seed=401), rate,
+                                      dtype)
+                         for dtype in ("float32", "bfloat16")]
+        emit({"phase": "serve_mesh_reload", "runs": row["reload"]})
+        # 7. the CLI's --data-parallel
+        row["cli"] = _mesh_cli(torch, paths, root, rate)
+        emit({"phase": "serve_mesh_cli", **row["cli"]})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res, int8, stream = row["restores"], row["int8"], row["stream"]
+    checks = {
+        "mesh1": res[1]["bit_for_bit"] and res[1]["k1_launches"] == 1,
+        "mesh2": (res[2]["within_bar"] and res[2]["k1_launches"] == 2
+                  and res[2]["k1_shapes"] == [[88200, 32]] * 2),
+        "mesh3": (res[3]["within_bar"] and res[3]["k1_launches"] == 3
+                  and res[3]["k1_shapes"] == [[88200, 22], [88200, 21],
+                                              [88200, 21]]),
+        "many": (row["many"]["vs_single_max_abs"] <= MANY_TOL
+                 and row["many"]["k1_launches"] == 2),
+        "int8": (int8["kernel_equal_to_plain"] and int8["not_recalibrated"]
+                 and int8["vs_unsharded_rms"] <= int8["rms_tol"]
+                 and int8["k1_launches"] == 2
+                 and int8["int8_conv_launches_by_path"]
+                 == {"wgmma": 64, "stem": 6, "generic": 0}),
+        "stream": (stream["vs_unsharded_max_abs"] <= MESH_STREAM_TOL
+                   and stream["k1_launches"]
+                   == 2 * stream["plain_k1_launches"]),
+        "staged": all(r["bit_for_bit"] and r["k1_launches"] == 1
+                      for r in row["staged"].values()),
+        "reload": all(r["equal_to_fresh"] and r["differs_from_old"]
+                      and r["every_device_new_weights"]
+                      and r["reloaded"] == ["denoiser", "stereo",
+                                            "super_resolution"]
+                      for r in row["reload"]),
+        "cli": row["cli"]["ok"]}
+    emit({"phase": "serve_mesh", "label": MESH_LABEL, "checks": checks,
+          "plain_xrt": row["plain"]["xrt"],
+          "xrt_by_entries": {k: r["xrt"] for k, r in res.items()},
+          "k1_shapes_by_entries": {k: r["k1_shapes"] for k, r in res.items()},
+          "max_abs_by_entries": {k: r["max_abs"] for k, r in res.items()},
+          "many_xrt": row["many"]["xrt"], "int8_xrt": int8["xrt"],
+          "stream_feed_ms_median": stream["feed_ms_median"],
+          "staged_s": {k: r["wall_s"] for k, r in row["staged"].items()}})
+    if not all(checks.values()):
+        raise AssertionError(f"multi-device serving failed: {checks}")
+    return {"serve_mesh_1": (res[1]["k1_launches"], None, None),
+            "serve_mesh_2": (res[2]["k1_launches"], None, None),
+            "serve_mesh_3": (res[3]["k1_launches"], None, None),
+            "serve_mesh_many": (row["many"]["k1_launches"], None, None),
+            "serve_mesh_int8": (int8["k1_launches"], None, None),
+            "serve_mesh_stream": (stream["k1_launches"], None, None),
+            "serve_mesh_staged": (row["staged"]["120s"]["k1_launches"],
+                                  None, None),
+            "int8_conv": int8["int8_conv_launches"]}
+
+
 def _timed_phase(fn, *args):
     """Run one phase and print its wall seconds on a line of its own."""
     t0 = time.perf_counter()
@@ -4887,6 +5245,9 @@ def main() -> int:
     serve = _timed_phase(phase_serve, torch)
     serve_int8 = serve.pop("int8_conv")
     paths.update(serve)
+    mesh = _timed_phase(phase_serve_mesh, torch)
+    mesh_int8 = mesh.pop("int8_conv")
+    paths.update(mesh)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K1's new shapes, each with the launches of the run of the path that
@@ -4898,7 +5259,11 @@ def main() -> int:
                    "serve_source_rate": paths["serve_source_rate"][0],
                    "stream_committed": paths["stream"][0] // 2,
                    "stream_lookahead": paths["stream"][0] // 2,
-                   "evaluate_stereo": paths["evaluate_stereo"][0]}
+                   "evaluate_stereo": paths["evaluate_stereo"][0],
+                   # a 2-entry mesh launches B=32 twice a restore, a
+                   # 3-entry one B=22 once (and B=21 twice)
+                   "serve_mesh_2": paths["serve_mesh_2"][0],
+                   "serve_mesh_3": 1}
     rows[0]["shapes"] = [
         {**{key: k1[shape][key] for key in (
             "path", "shape", "dtype", "ms", "plain_ms", "bound_ms",
@@ -4930,7 +5295,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "cudnn_f32_ms", "cudnn_bf16_ms")} for r in int8["layers"]],
         "path_launches": {"int8": int8["launches"],
-                          "serve_int8": serve_int8}})
+                          "serve_int8": serve_int8,
+                          "serve_mesh_int8": mesh_int8}})
     emit({"kernels": [{key: row[key] for key in keys + tuple(
         k for k in extra if k in row)} for row in rows]})
     emit({"ok": True, "device": {"platform": "gpu",

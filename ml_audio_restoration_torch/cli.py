@@ -6,6 +6,8 @@
         --config config/fast_serve.yaml [--coalesce 4]
     python -m ml_audio_restoration_torch restore in.wav out.wav \
         --int8 --int8-scales scales.json
+    python -m ml_audio_restoration_torch restore in_dir/ out_dir/ \
+        --data-parallel 4
 
     python -m ml_audio_restoration_torch stream a.wav b.wav \
         --output-dir streamed/ [--block-seconds 0.5]
@@ -14,7 +16,7 @@
         ffmpeg -f f32le -ac 2 -ar 44100 -i - restored.flac
 
     python -m ml_audio_restoration_torch serve --port 8000 \
-        --stream-port 8001 --warmup [--device cuda]
+        --stream-port 8001 --warmup [--device cuda] [--data-parallel 4]
 
     python -m ml_audio_restoration_torch train denoiser \
         --data-dir wavs/ [--steps-per-epoch N] [--device cuda]
@@ -73,6 +75,8 @@ def _add_restore(sub):
                         "below override it")
     p.add_argument("--chunk-seconds", type=float, default=None)
     p.add_argument("--overlap-seconds", type=float, default=None)
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="shard the chunk batch over this many devices")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
                    help="compute dtype")
     p.add_argument("--stereo-chunk-seconds", type=float, default=None,
@@ -103,6 +107,22 @@ def _add_int8(p, what: str):
                         "loaded if it exists, else written after "
                         "auto-calibration (and rewritten if its stages no "
                         "longer cover the enabled ones)")
+
+
+def _mesh(args):
+    """The device mesh of --data-parallel N, or None: every card of the
+    host (N of them, or it raises naming how many there are), or on
+    --device cpu N shards sharing the CPU."""
+    if not args.data_parallel:
+        return None
+    import torch
+
+    from .parallel import make_mesh
+
+    devices = None
+    if torch.device(args.device).type == "cpu":
+        devices = ["cpu"] * args.data_parallel
+    return make_mesh(data_parallel=args.data_parallel, devices=devices)
 
 
 def _persist_int8_scales(path, restorer):
@@ -153,11 +173,13 @@ def _cmd_restore(args):
         config.stereo_source_rate = True
     if args.int8:
         config.quantize_int8 = True
+    mesh = _mesh(args)
     pipe = RestorationPipeline.from_checkpoints(
         denoiser_path=None if args.no_denoise else args.denoiser,
         super_res_path=None if args.no_super_res else args.super_res,
         stereo_path=None if args.no_stereo else args.stereo,
         config=config, device=args.device)
+    pipe.mesh = mesh
     if args.int8_scales and os.path.exists(args.int8_scales):
         pipe.load_int8_scales(args.int8_scales)
     if os.path.isdir(args.input):
@@ -211,6 +233,9 @@ def _add_stream(sub):
                    help="accepted for the JAX package's command line; the "
                         "port's recurrence is its CUDA kernel on the card "
                         "and the plain loop on the CPU")
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="shard the stream batch over this many devices "
+                        "(stream count must divide evenly)")
     p.add_argument("--pcm", choices=["f32le", "s16le"], default=None,
                    help="pipe mode (single '-' input): raw mono PCM in this "
                         "format on stdin, restored interleaved PCM on stdout "
@@ -276,6 +301,9 @@ def _cmd_stream(args):
     pipe = args.inputs == ["-"]
     if "-" in args.inputs and not pipe:
         raise SystemExit("stream: '-' (pipe mode) must be the only input")
+    if pipe and args.data_parallel:
+        raise SystemExit("stream: pipe mode is single-stream; "
+                         "--data-parallel needs file inputs")
     if args.pcm and not pipe:
         raise SystemExit("stream: --pcm is pipe mode's input format; "
                          "it requires the single '-' input")
@@ -289,7 +317,7 @@ def _cmd_stream(args):
         lstm_impl=args.lstm_impl, quantize_int8=args.int8,
         int8_scales=(args.int8_scales if args.int8_scales
                      and os.path.exists(args.int8_scales) else None),
-        device=args.device)
+        mesh=_mesh(args), device=args.device)
     block = max(1, int(round(args.block_seconds * args.sample_rate)))
     if pipe:
         rc = _stream_pipe(args, restorer, block)
@@ -403,8 +431,8 @@ def _add_serve(sub):
                         "without it the first request of each chunk "
                         "bucket pays that)")
     p.add_argument("--data-parallel", type=int, default=None,
-                   help="shard over this many devices: not ported yet "
-                        "(raises)")
+                   help="shard the HTTP pipeline's chunk batch (and the "
+                        "stream batch) over this many devices")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch path)")
@@ -420,10 +448,6 @@ def _cmd_serve(args):
     from .pipeline import (RestorationPipeline, RestorationServer,
                            StreamingRestorer, StreamServer)
 
-    if args.data_parallel is not None:
-        raise NotImplementedError(
-            "serve --data-parallel: multi-device serving is not ported yet "
-            "(ROADMAP.md section 1, item 8)")
     config = load_config(args.config).pipeline
     if args.dtype is not None:
         config.compute_dtype = args.dtype
@@ -439,6 +463,8 @@ def _cmd_serve(args):
         config.quantize_int8 = True
     scales = (args.int8_scales if args.int8_scales
               and os.path.exists(args.int8_scales) else None)
+    # one mesh for both frontends
+    mesh = _mesh(args)
 
     dn = None if args.no_denoise else args.denoiser
     sr_ck = None if args.no_super_res else args.super_res
@@ -446,6 +472,7 @@ def _cmd_serve(args):
     pipe = RestorationPipeline.from_checkpoints(
         denoiser_path=dn, super_res_path=sr_ck, stereo_path=st,
         config=config, device=args.device)
+    pipe.mesh = mesh
     if scales:
         pipe.load_int8_scales(scales)
 
@@ -474,7 +501,7 @@ def _cmd_serve(args):
             mid_exact=args.stereo_mid_exact,
             source_rate=args.stereo_source_rate,
             quantize_int8=args.int8, int8_scales=scales,
-            lstm_impl=args.lstm_impl,
+            mesh=mesh, lstm_impl=args.lstm_impl,
             compute_dtype=args.dtype or "float32", device=args.device)
         block = max(1, int(round(args.block_seconds * config.sample_rate)))
         if args.warmup:

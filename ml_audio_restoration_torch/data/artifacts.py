@@ -26,7 +26,7 @@ those draws. Fed the JAX package's own draws, `apply_artifacts` gives its
 `simulate_batch` output. The adaptive per-item overrides (impulse rate,
 amplitude bound, noise level; AdaptiveArtifactDataset) change only the
 draws. The exact IIR path (`filter_mode="iir"`) is not ported yet
-(ROADMAP item 9).
+(the simulator's IIR path, ROADMAP §1).
 """
 from __future__ import annotations
 
@@ -235,7 +235,8 @@ def _check_filter_mode(filter_mode: str):
     if filter_mode != "fir":
         raise NotImplementedError(
             f"filter_mode={filter_mode!r}: the IIR sosfiltfilt path is not "
-            f"ported yet (ROADMAP item 9); the port filters with FIR kernels")
+            f"ported yet (the simulator's IIR path, ROADMAP §1); the port "
+            f"filters with FIR kernels")
 
 
 def apply_artifacts(audio, draws: dict, sample_rate: int,

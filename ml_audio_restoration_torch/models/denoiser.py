@@ -146,12 +146,13 @@ def _wio_t(up):
 
 def folded_wio(q, key, conv, bn):
     """The eval fold of (conv, bn) as a WIO kernel and its bias, built once
-    per int8 context (ops/quant.py::QuantCtx.folded), on the CPU: the
-    quantized kernels are then the same whichever device serves them."""
+    per int8 context and device (ops/quant.py::QuantCtx.folded), on the
+    CPU: the quantized kernels are then the same whichever device serves
+    them."""
     def make():
         w, b = fold_conv_bn(conv, bn, host=True)
         return w.permute(2, 1, 0), b
-    return q.folded(key, make)
+    return q.folded((conv.weight.device, key), make)
 
 
 def apply_packed(model: AudioDenoiser, x, q=None):

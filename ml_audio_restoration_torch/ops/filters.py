@@ -4,7 +4,8 @@ Counterpart of the parts of ml_audio_restoration_tpu/ops/filters.py that
 the artifact simulator's FIR path uses: `butter_sos` (scipy, cached as
 numpy) and `bank_index`, the nearest-grid rule every coefficient bank
 shares. The IIR scans (`sosfilt`, `sosfiltfilt`), which only
-`filter_mode="iir"` runs, are not ported yet (ROADMAP item 9).
+`filter_mode="iir"` runs, are not ported yet (the simulator's IIR path,
+ROADMAP §1).
 """
 from __future__ import annotations
 

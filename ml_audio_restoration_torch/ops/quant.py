@@ -78,12 +78,14 @@ def int8_exec(x_scale, cache: dict | None = None, key=None):
     """Executor for ops/packed.py's `_exec` hook: the int8 conv of an s8
     input whose per-channel dequant scales are `x_scale`. They are folded
     into the packed kernel's input rows before weight quantization; the
-    quantized kernel is kept in `cache[key]` when a cache is given.
+    quantized kernel is kept in `cache[(device, key)]` when a cache is
+    given, the device being the input's.
     Epilogue keywords: add, add_scale, act, out_inv, out_dtype."""
 
     def _exec(xq, kernel, *, window_strides, padding, lhs_dilation=None,
               **epilogue):
-        weight = cache.get(key) if cache is not None else None
+        slot = (xq.device, key)
+        weight = cache.get(slot) if cache is not None else None
         if weight is None:
             wp, bias = kernel()
             xs = torch.as_tensor(x_scale, dtype=torch.float32,
@@ -91,7 +93,7 @@ def int8_exec(x_scale, cache: dict | None = None, key=None):
             wq, ws = quantize_weight(wp * xs[None, :, None])
             weight = Int8Weight(wq, ws, bias)
             if cache is not None:
-                cache[key] = weight
+                cache[slot] = weight
         return int8_conv(
             xq, weight, stride=window_strides[0], padding=padding[0],
             lhs_dilation=1 if lhs_dilation is None else lhs_dilation[0],
@@ -119,8 +121,10 @@ class QuantCtx:
         self.scope = scope
         self.skip = frozenset(skip)
         self.amax: dict = {}
-        self._weights: dict = {}  # point -> Int8Weight
-        self._folded: dict = {}   # layer -> folded float (w, b)
+        # (device, point) -> Int8Weight; (device, layer) -> folded float
+        # (w, b): a context reached from two devices keeps each one's own
+        self._weights: dict = {}
+        self._folded: dict = {}
         self._scale_cache: dict = {}
 
     @property

@@ -1,4 +1,5 @@
-"""Multi-process data parallelism of the port on torch.distributed."""
+"""Multi-device serving (a device mesh) and multi-process data-parallel
+training on torch.distributed."""
 from .distributed import (
     agree_flag,
     average_gradients,
@@ -12,8 +13,10 @@ from .distributed import (
     shard_indices_by_process,
     shutdown,
 )
+from .mesh import Mesh, make_mesh, replicate, shard_batch
 
 __all__ = [
+    "Mesh",
     "agree_flag",
     "average_gradients",
     "broadcast_from_primary",
@@ -21,8 +24,11 @@ __all__ = [
     "initialize",
     "is_primary",
     "local_batch_size",
+    "make_mesh",
     "process_count",
     "process_index",
+    "replicate",
+    "shard_batch",
     "shard_indices_by_process",
     "shutdown",
 ]

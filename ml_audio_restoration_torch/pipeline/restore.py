@@ -24,9 +24,19 @@ shares the JAX package's gates, which warn and serve float:
 `packed_convs=False`, an unpackable checkpoint, a chunk length off the
 packing grid (whole_file), and, for the stereo stage only, sub-chunked
 stereo windows.
+
+Multi-device serving (`mesh=`, parallel/mesh.py; the 'data' axis of the
+JAX package's mesh): the chunk count is bucketed to a multiple of
+lcm(4, data), the chunk batch is split over the mesh's devices (an uneven
+split is allowed: a 64-chunk slab over 3 devices runs 22, 21 and 21 rows),
+each shard runs on its device with that device's copy of the models, and
+the outputs are gathered on the pipeline's device, where the overlap-add
+runs. The int8 scales are calibrated once, on the pipeline's device, and
+every device quantizes with them.
 """
 from __future__ import annotations
 
+import math
 import os
 import time
 import warnings
@@ -45,6 +55,7 @@ from ..models import denoiser as denoiser_mod
 from ..models import stereo_separator as stereo_mod
 from ..models import super_resolution as sr_mod
 from ..ops import frame_structured, num_chunks, overlap_add, upsample_linear
+from ..parallel.mesh import canonical, replica, shard_batch
 
 
 def resolve_device(device) -> torch.device:
@@ -185,21 +196,28 @@ def _to_host(outs, into=None):
 
 
 class RestorationPipeline:
-    """Holds the three stage models (any may be None) on one device."""
+    """Holds the three stage models (any may be None) on one device, and
+    serves on it or, under a mesh, on the mesh's devices."""
 
     def __init__(self, denoiser: Optional[nn.Module] = None,
                  super_resolution: Optional[nn.Module] = None,
                  stereo: Optional[nn.Module] = None,
                  config: Optional[PipelineConfig] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
+        """`mesh`: a parallel.mesh.Mesh; the chunk batch is sharded over
+        its 'data' axis. It may also be assigned to `pipe.mesh` later (the
+        CLI does): every cache below is keyed by device, and the stage
+        stack is built for the mesh of each call."""
         self.config = config or PipelineConfig()
         check_pipeline_config(self.config)
         self.device = resolve_device(device)
+        self.mesh = mesh
         no_tf32()
         self.denoiser, self.super_resolution, self.stereo = (
             None if m is None else m.to(self.device).eval()
             for m in (denoiser, super_resolution, stereo))
-        self._cast: dict = {}  # compute dtype -> the stage models in it
+        # compute dtype -> {device: the stage models in it on that device}
+        self._cast: dict = {}
         self._warmed: set = set()  # stack shapes warmup has run
         # int8 serving: per-stage {point: scales}, a version that keys the
         # int8 contexts (and so their cached kernels), and the don't-retry
@@ -226,8 +244,9 @@ class RestorationPipeline:
         being `denoiser`, `super_resolution` and `stereo`. Every stage is
         loaded (load_stage) onto the pipeline's device in eval mode before
         any is swapped, so a bad path leaves the pipeline as it was. The
-        compute-dtype models (`_cast`: the f32 entry holds the old modules
-        themselves, a bf16 entry copies of them) and the int8 contexts go
+        compute-dtype models on every device (`_cast`: the f32 entry of the
+        pipeline's device holds the old modules themselves, every other
+        entry copies of them) and the int8 contexts of every device go
         with the old weights, and int8 calibration, which depends on the
         weights, starts over. Returns the swapped attributes, sorted."""
         loaded = {name: load_stage(path, STAGE_MODELS[name], self.device)
@@ -256,28 +275,69 @@ class RestorationPipeline:
     def out_channels(self) -> int:
         return 2 if self.stereo is not None else 1
 
-    def _models(self):
+    def _models(self, device=None):
         """(denoiser, super-resolution or None, stereo) in the compute
-        dtype."""
+        dtype on `device` (default the pipeline's), kept in
+        `_cast[dtype][device]`. The f32 entry of the pipeline's device
+        holds the stage modules themselves; another device's, copies of
+        them (parallel.mesh.replica)."""
         name = self.config.compute_dtype
-        if name not in self._cast:
+        dev = canonical(self.device if device is None else device)
+        per_device = self._cast.setdefault(name, {})
+        if dev not in per_device:
             dtype = getattr(torch, name)
-            self._cast[name] = tuple(cast_model(m, dtype) for m in (
-                self.denoiser, self.super_resolution, self.stereo))
-        dn, sr, st = self._cast[name]
+            per_device[dev] = tuple(cast_model(replica(m, dev), dtype)
+                                    for m in (self.denoiser,
+                                              self.super_resolution,
+                                              self.stereo))
+        dn, sr, st = per_device[dev]
         return dn, (sr if self._has_sr else None), st
+
+    def _granularity(self) -> int:
+        """The chunk-count bucket: a multiple of 4, and of the mesh's data
+        axis, so every bucket splits evenly over it (as in the JAX
+        package)."""
+        if self.mesh is None:
+            return 4
+        return math.lcm(4, self.mesh.shape["data"])
 
     def _stage_stack(self, chunk_size: int,
                      sample_rate: Optional[int] = None):
-        """The per-chunk model stack: fn(chunks [N, chunk, 1] f32) ->
-        [N, C_out, chunk*f] f32. Every option lives here, so `restore` and
-        `restore_many` compute the same function. `sample_rate` is the rate
-        of the audio in the chunks (it sizes the stereo sub-window). Checks
-        the config again: a caller may have set a field since."""
+        """The per-chunk model stack: fn(chunks [N, chunk, 1] f32 on the
+        pipeline's device) -> [N, C_out, chunk*f] f32 there. Every option
+        lives here, so `restore` and `restore_many` compute the same
+        function. `sample_rate` is the rate of the audio in the chunks (it
+        sizes the stereo sub-window). Checks the config again: a caller may
+        have set a field since.
+
+        Under a mesh the batch is split over its 'data' axis (shard_batch),
+        each shard runs the stack of its device, and the outputs are
+        gathered here. Every shard is enqueued before any output is
+        gathered, and nothing in the stack reads the device from the host,
+        so the devices run together. A batch with fewer rows than the mesh
+        has devices (whole_file's one chunk) runs on the first ones."""
+        check_pipeline_config(self.config)
+        if self.mesh is None:
+            return self._device_stack(self.device, chunk_size, sample_rate)
+        devices = self.mesh.data_devices
+        stacks = {d: self._device_stack(d, chunk_size, sample_rate)
+                  for d in dict.fromkeys(devices)}
+        gather = dict(non_blocking=self.device.type == "cuda")
+
+        def sharded(chunks):
+            outs = [stacks[d](part) for d, part in zip(
+                devices, shard_batch(self.mesh, chunks)) if len(part)]
+            return torch.cat([o.to(self.device, **gather) for o in outs])
+
+        return sharded
+
+    def _device_stack(self, device, chunk_size: int,
+                      sample_rate: Optional[int]):
+        """_stage_stack's function on one device: its models and int8
+        contexts, chunks on that device."""
         cfg = self.config
-        check_pipeline_config(cfg)
         dtype = getattr(torch, cfg.compute_dtype)
-        dn, sr, st = self._models()
+        dn, sr, st = self._models(device)
         f = self.upscale_factor
         # source-rate stereo: the stage takes the pre-SR signal (chunk_size
         # samples) and only its side is upsampled around the SR output
@@ -298,11 +358,12 @@ class RestorationPipeline:
             scope = cfg.int8_scope
             if dn is not None:
                 q_dn = self._int8_ctx("denoiser", scope,
-                                      denoiser_mod.INT8_FLOAT_LAYERS)
+                                      denoiser_mod.INT8_FLOAT_LAYERS, device)
             if sr is not None:
-                q_sr = self._int8_ctx("super_resolution", scope)
+                q_sr = self._int8_ctx("super_resolution", scope,
+                                      device=device)
             if st is not None and int8_stereo:
-                q_st = self._int8_ctx("stereo", scope)
+                q_st = self._int8_ctx("stereo", scope, device=device)
 
         def ncw(fn, model, q):
             """The NWC int8 forward of `model` on an NCW [N, 1, T] tensor."""
@@ -347,13 +408,17 @@ class RestorationPipeline:
 
         return stack
 
-    def _int8_ctx(self, stage: str, scope: str, skip=frozenset()):
-        """The int8 context of one stage for the current scales: built
-        once per scales version, compute dtype and scope, so its folded,
-        packed and quantized kernels are too."""
+    def _int8_ctx(self, stage: str, scope: str, skip=frozenset(),
+                  device=None):
+        """The int8 context of one stage on `device` (default the
+        pipeline's) for the current scales: built once per scales version,
+        compute dtype, scope and device, so its folded, packed and
+        quantized kernels are too, on that device. Every device quantizes
+        with the same scales."""
         from ..ops.quant import QuantCtx
 
-        key = (stage, scope, self.config.compute_dtype, self._int8_version)
+        key = (stage, scope, self.config.compute_dtype, self._int8_version,
+               canonical(self.device if device is None else device))
         if key not in self._qctx:
             self._qctx = {k: v for k, v in self._qctx.items()
                           if k[3] == self._int8_version}
@@ -410,7 +475,7 @@ class RestorationPipeline:
         else:
             chunk_size, hop, overlap = self._framing(sample_rate)
             n_real = num_chunks(t, chunk_size, hop)
-            n = _bucket(n_real)
+            n = _bucket(n_real, self._granularity())
         stack = self._stage_stack(chunk_size, sample_rate)
 
         max_n = max(cfg.max_chunks_per_program, 4)
@@ -468,6 +533,7 @@ class RestorationPipeline:
         prepped = [self._mono(a) for a in audios]
         self._ensure_int8(prepped[0], sample_rate)
         max_n = max(cfg.max_chunks_per_program, 4)
+        gran = self._granularity()
         metas = []  # (n_real, n_bucket) per recording
         solo = []  # too long to coalesce: restore() with its slabs
         # cur_cover is max(offset_i + n_bucket_i): the combined batch must
@@ -475,12 +541,12 @@ class RestorationPipeline:
         groups, cur, cur_n, cur_cover = [], [], 0, 0
         for i, x in enumerate(prepped):
             n_real = num_chunks(x.shape[1], chunk_size, hop)
-            metas.append((n_real, _bucket(n_real)))
+            metas.append((n_real, _bucket(n_real, gran)))
             if metas[i][1] > max_n:
                 solo.append(i)
                 continue
             cover = max(cur_cover, cur_n + metas[i][1])
-            if cur and _bucket(max(cur_n + n_real, cover)) > max_n:
+            if cur and _bucket(max(cur_n + n_real, cover), gran) > max_n:
                 groups.append(cur)
                 cur, cur_n = [], 0
                 cover = metas[i][1]
@@ -503,7 +569,8 @@ class RestorationPipeline:
                 offs.append(rows)
                 rows += metas[i][0]
             n_total = _bucket(max(rows, max(o + metas[i][1]
-                                            for o, i in zip(offs, grp))))
+                                            for o, i in zip(offs, grp))),
+                              gran)
             # each member framed as restore frames it, the rows one after
             # another, zero rows up to the bucket
             frames = []
@@ -733,9 +800,11 @@ class RestorationPipeline:
         """Run zero audio through every chunk-count bucket before traffic
         arrives: the CUDA kernels are built and loaded, cuDNN picks its
         algorithms for each batch shape and the caching allocator grows to
-        the largest, so a first request pays none of it. The buckets run
-        from 4 to `max_chunks_per_program` (the top one is also the slab
-        shape); with `coalesce` > 1 the coalesced stack runs at each too.
+        the largest, so a first request pays none of it, on every device of
+        the mesh. The buckets run in steps of the granularity (4, or
+        lcm(4, data) under a mesh) up to `max_chunks_per_program` (the top
+        one is also the slab shape); with `coalesce` > 1 the coalesced
+        stack runs at each too.
 
         `whole_file` mode has one shape per recording length: a no-op with
         a warning. So is `quantize_int8` with no scales loaded (the first
@@ -767,22 +836,28 @@ class RestorationPipeline:
         sample_rate = sample_rate or cfg.sample_rate
         chunk_size, hop, overlap = self._framing(sample_rate)
         max_n = max(cfg.max_chunks_per_program, 4)
-        buckets = sorted({*range(4, max_n + 1, 4), max_n})
+        gran = self._granularity()
+        buckets = sorted({*range(gran, max_n + 1, gran), max_n})
         before = len(self._warmed)
         stack = self._stage_stack(chunk_size, sample_rate)
+        devices = ([self.device] if self.mesh is None
+                   else self.mesh.data_devices)
+        key = (cfg.compute_dtype, self._int8_version,
+               tuple(map(str, devices)))
         with torch.inference_mode():
             for n in buckets:
                 total = (n - 1) * hop + chunk_size
                 zeros = torch.zeros((1, total), device=self.device)
                 self._process(stack, zeros, n, chunk_size, hop, overlap, n)
-                self._warmed.add(("rec", n, chunk_size, hop, sample_rate,
-                                  cfg.compute_dtype, self._int8_version))
+                self._warmed.add(("rec", n, chunk_size, hop, sample_rate)
+                                 + key)
                 if coalesce > 1:
                     stack(torch.zeros((n, chunk_size, 1), device=self.device))
-                    self._warmed.add(("chunks", n, chunk_size, sample_rate,
-                                      cfg.compute_dtype, self._int8_version))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                    self._warmed.add(("chunks", n, chunk_size, sample_rate)
+                                     + key)
+        for dev in dict.fromkeys(devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return {"programs": len(self._warmed) - before,
                 "seconds": time.monotonic() - t0, "buckets": buckets}
 

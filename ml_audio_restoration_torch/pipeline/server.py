@@ -467,11 +467,12 @@ class RestorationServer:
         return cls._content_length(h)
 
     def _devices(self) -> list:
-        """The pipeline's device, with the card's name on a CUDA device."""
-        dev = self.pipeline.device
-        if dev.type == "cuda":
-            return [f"{dev} ({torch.cuda.get_device_name(dev)})"]
-        return [str(dev)]
+        """The devices the pipeline serves on (its mesh's, else its own),
+        each CUDA device with the card's name."""
+        mesh = self.pipeline.mesh
+        devs = [self.pipeline.device] if mesh is None else mesh.data_devices
+        return [f"{d} ({torch.cuda.get_device_name(d)})" if d.type == "cuda"
+                else str(d) for d in devs]
 
     def _handle_get(self, h):
         path = urlparse(h.path).path

@@ -19,11 +19,16 @@ single-shot forward everywhere but the first `context` samples:
 
 `batch=B` runs B lockstep streams as one batch (the LSTM batch dimension);
 outputs are then [B, ch, n*f], and each stream's output equals a
-single-stream restorer's fed the same samples.
+single-stream restorer's fed the same samples. With `mesh=` (parallel/
+mesh.py) the streams are split evenly over the mesh's 'data' axis: each
+device runs its own streams with its copy of the models and holds their
+LSTM carries and decoder history, and the outputs are gathered on the
+restorer's device.
 
 `quantize_int8=True` runs the denoiser and SR through their packed int8
 forwards (scope "packed"; the stereo stage stays float), with scales that
-calibrate on the first drained window unless `int8_scales` (a dict, or a
+calibrate on the first drained window (the whole batch, on the restorer's
+device; every shard quantizes with them) unless `int8_scales` (a dict, or a
 path written by either serving object: one file format) gives them. A gate
 int8 cannot pass (packed=False, an unpackable checkpoint, a window off the
 packing grid) warns and serves float.
@@ -43,6 +48,7 @@ from ..models import denoiser as denoiser_mod
 from ..models import super_resolution as sr_mod
 from ..ops import upsample_linear
 from ..ops.lstm import stacked_lstm
+from ..parallel.mesh import canonical, replica
 from .restore import (_denoiser_packable, _sr_packable, load_stage, no_tf32,
                       resolve_device)
 
@@ -69,12 +75,12 @@ class StreamingRestorer:
         denoiser and SR int8 (module docstring), `int8_scales` preloads
         their scales (a dict or a scales file); `packed=False` disables
         int8 (a warning, then float) and is otherwise ignored, as is
-        `lstm_impl` (None, "scan" or "pallas"). A device mesh is not
-        ported and raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamingRestorer: a device mesh (multi-device streaming) "
-                "is not ported yet (ROADMAP.md section 1, item 8)")
+        `lstm_impl` (None, "scan" or "pallas"). `mesh` shards the streams
+        over its 'data' axis; `batch` must divide evenly over it."""
+        if mesh is not None and int(batch) % mesh.shape["data"]:
+            raise ValueError(
+                f"batch {batch} must divide evenly over the 'data' mesh "
+                f"axis ({mesh.shape['data']} devices)")
         if lstm_impl not in SERVING_LSTM_IMPLS:
             raise ValueError(
                 f"lstm_impl must be pallas|scan|None, got {lstm_impl!r}")
@@ -91,6 +97,15 @@ class StreamingRestorer:
             cast_model(m, self.compute_dtype)
             for m in (self.denoiser, self.super_resolution, self.stereo))
         self.batch = int(batch)
+        # the shards: (device, first stream, end stream), one a data device
+        # of the mesh, each with its device's copies of the models
+        devices = ([canonical(self.device)] if mesh is None
+                   else mesh.data_devices)
+        per = self.batch // len(devices)
+        self._shards = [(dev, k * per, (k + 1) * per)
+                        for k, dev in enumerate(devices)]
+        self._replicas = {dev: tuple(replica(m, dev) for m in (
+            self._dn, self._sr, self._st)) for dev in dict.fromkeys(devices)}
         self.mid_exact = bool(mid_exact)
         self.source_rate = bool(source_rate)
         self.packed = bool(packed)
@@ -98,7 +113,7 @@ class StreamingRestorer:
         self._int8_scales = None
         self._int8_version = 0
         self._int8_ready = False  # gates not yet run on a drained window
-        self._qctx = None  # (scales version, denoiser ctx, SR ctx)
+        self._qctx: dict = {}  # (scales version, device) -> (dn, SR) ctxs
         if int8_scales is not None:
             if isinstance(int8_scales, dict):
                 self._int8_scales = int8_scales
@@ -120,36 +135,41 @@ class StreamingRestorer:
         self.reset()
 
     def reset(self):
-        """Forget every stream: no history, zero LSTM state."""
+        """Forget every stream: no history, zero LSTM state. The carries
+        and decoder history are per shard, on its device."""
         self._in_buffer = np.zeros((self.batch, 0), np.float32)  # unemitted
         self._warm = 0  # samples of valid history in front of the buffer
         self._fed = 0
         self._emitted = 0
-        self._dec_hist_buf = None
+        self._dec_hist_buf = [None] * len(self._shards)
+        self._lstm_carry = [None] * len(self._shards)
         if self.stereo is not None:
-            zeros = [torch.zeros((self.batch, layer["w_hh"].shape[0]),
-                                 dtype=self.compute_dtype, device=self.device)
-                     for layer in self._st.lstm.layers()]
-            self._lstm_carry = [(z, z) for z in zeros]
-        else:
-            self._lstm_carry = None
+            for k, (dev, lo, hi) in enumerate(self._shards):
+                zeros = [torch.zeros((hi - lo, layer["w_hh"].shape[0]),
+                                     dtype=self.compute_dtype, device=dev)
+                         for layer in self._replicas[dev][2].lstm.layers()]
+                self._lstm_carry[k] = [(z, z) for z in zeros]
 
     def reset_stream(self, i: int):
         """Recycle slot i for a new stream: zero its input history, LSTM
-        carry and decoder history. The slot then behaves like a fresh stream
-        whose start is the batch clock; the other streams are untouched."""
+        carry and decoder history (on the device of the shard that holds
+        it). The slot then behaves like a fresh stream whose start is the
+        batch clock; the other streams are untouched."""
         if not 0 <= i < self.batch:
             raise IndexError(f"stream {i} out of range (batch {self.batch})")
         self._in_buffer[i] = 0.0
         if self.stereo is not None:
+            k = i // (self.batch // len(self._shards))
+            dev, lo, hi = self._shards[k]
             # a mask in the carries' dtype, which must not promote them
-            mask = torch.ones((self.batch, 1), dtype=self.compute_dtype,
-                              device=self.device)
-            mask[i, 0] = 0.0
-            self._lstm_carry = [(h * mask, c * mask)
-                                for h, c in self._lstm_carry]
-            if self._dec_hist_buf is not None:
-                self._dec_hist_buf = self._dec_hist_buf * mask[:, :, None]
+            mask = torch.ones((hi - lo, 1), dtype=self.compute_dtype,
+                              device=dev)
+            mask[i - lo, 0] = 0.0
+            self._lstm_carry[k] = [(h * mask, c * mask)
+                                   for h, c in self._lstm_carry[k]]
+            if self._dec_hist_buf[k] is not None:
+                self._dec_hist_buf[k] = (self._dec_hist_buf[k]
+                                         * mask[:, :, None])
 
     @classmethod
     def from_checkpoints(cls, denoiser_path=None, super_res_path=None,
@@ -164,37 +184,50 @@ class StreamingRestorer:
                    device=dev, **kwargs)
 
     def _step(self, window, ctx: int, n: int):
-        """One feed's computation. window [B, L] f32 on the device, L >=
-        ctx + n + lookahead; emits [B, ch, n*f] f32 from the middle and
-        advances the LSTM carry and the decoder history by n frames."""
-        f, g = self.f, self._g
+        """One feed's computation. window [B, L] f32 (on the host or a
+        device), L >= ctx + n + lookahead; emits [B, ch, n*f] f32 on the
+        restorer's device from the middle and advances the LSTM carries
+        and the decoder history by n frames. Each shard's rows are copied
+        to its device before any shard's work is enqueued (a pageable
+        upload waits for the work queued before it), each shard runs
+        there, and the outputs are gathered."""
         self._shapes.add(window.shape[1])
+        parts = [window[lo:hi].to(dev) for dev, lo, hi in self._shards]
+        outs = [self._shard_step(k, part, ctx, n)
+                for k, part in enumerate(parts)]
+        gather = dict(non_blocking=self.device.type == "cuda")
+        return torch.cat([o.to(self.device, **gather) for o in outs])
+
+    def _shard_step(self, k: int, window, ctx: int, n: int):
+        """_step on shard k: window [b, L] f32 on its device."""
+        f, g = self.f, self._g
+        dev = self._shards[k][0]
+        dn, sr, st = self._replicas[dev]
         x = window[:, None, :].to(self.compute_dtype)  # NCW
-        q_dn, q_sr = self._int8_ctxs(window.shape[1])
-        if self._dn is not None:
-            x = (self._dn(x) if q_dn is None else denoiser_mod.apply_packed(
-                self._dn, x.permute(0, 2, 1), q=q_dn).permute(0, 2, 1))
+        q_dn, q_sr = self._int8_ctxs(window.shape[1], dev)
+        if dn is not None:
+            x = (dn(x) if q_dn is None else denoiser_mod.apply_packed(
+                dn, x.permute(0, 2, 1), q=q_dn).permute(0, 2, 1))
         x_src = x  # the pre-SR signal (source-rate stereo input)
-        if self._sr is not None:
-            x = (self._sr(x) if q_sr is None else sr_mod.apply_packed(
-                self._sr, x.permute(0, 2, 1), q=q_sr).permute(0, 2, 1))
+        if sr is not None:
+            x = (sr(x) if q_sr is None else sr_mod.apply_packed(
+                sr, x.permute(0, 2, 1), q=q_sr).permute(0, 2, 1))
         emit = slice(ctx * f, (ctx + n) * f)
-        if self._st is None:
+        if st is None:
             return x[:, :, emit].float()
-        st = self._st
         feats = st.encode(x_src if self.source_rate else x).transpose(1, 2)
         layers = st.lstm.layers()
         # the LSTM consumes each new frame once; the carry holds the past
         lstm_out, carries = stacked_lstm(
             feats[:, ctx * g:(ctx + n) * g], layers,
-            carries=self._lstm_carry, return_carries=True)
+            carries=self._lstm_carry[k], return_carries=True)
         # the decoders are centred convolutions: the left side of the
         # emitted frames comes from the decoder history, the right side from
         # a run over the lookahead frames that starts from the new carry and
         # is not kept (those frames are consumed for real next feed)
         lstm_future = stacked_lstm(feats[:, (ctx + n) * g:], layers,
                                    carries=carries)
-        dec_hist = self._dec_hist()
+        dec_hist = self._dec_hist(k)
         stereo = st.decode(torch.cat([dec_hist, lstm_out, lstm_future],
                                      dim=1).transpose(1, 2))  # [B, 2, L*g]
         if self.source_rate:
@@ -215,31 +248,34 @@ class StreamingRestorer:
                 mid = x[:, :, emit].to(out.dtype)
                 side = (out[:, 0:1] - out[:, 1:2]) * 0.5
                 out = torch.cat([mid + side, mid - side], dim=1)
-        self._lstm_carry = carries
-        self._dec_hist_buf = torch.cat([dec_hist, lstm_out],
-                                       dim=1)[:, -ctx * g:]
+        self._lstm_carry[k] = carries
+        self._dec_hist_buf[k] = torch.cat([dec_hist, lstm_out],
+                                          dim=1)[:, -ctx * g:]
         return out.float()
 
     # ------------------------------------------------------- int8 serving
-    def _int8_ctxs(self, window_len: int):
-        """(denoiser, SR) int8 contexts of a step over a window of
-        `window_len` samples, or None for a stage that runs float. Scope
-        "packed"; built once per scales version."""
+    def _int8_ctxs(self, window_len: int, device):
+        """(denoiser, SR) int8 contexts of a step on `device` over a window
+        of `window_len` samples, or None for a stage that runs float. Scope
+        "packed"; built once per scales version and device."""
         if not (self.quantize_int8 and self._int8_scales is not None
                 and window_len % 4 == 0):
             return None, None
         from ..ops.quant import QuantCtx
 
-        if self._qctx is None or self._qctx[0] != self._int8_version:
+        key = (self._int8_version, device)
+        if key not in self._qctx:
+            self._qctx = {k: v for k, v in self._qctx.items()
+                          if k[0] == self._int8_version}
             sc = self._int8_scales
-            self._qctx = (
-                self._int8_version,
-                None if self._dn is None else QuantCtx(
+            dn, sr, _ = self._replicas[device]
+            self._qctx[key] = (
+                None if dn is None else QuantCtx(
                     sc["denoiser"], "packed",
                     skip=denoiser_mod.INT8_FLOAT_LAYERS),
-                None if self._sr is None else QuantCtx(
+                None if sr is None else QuantCtx(
                     sc["super_resolution"], "packed"))
-        return self._qctx[1:]
+        return self._qctx[key]
 
     def _int8_gates(self, window_len: int):
         """Raise ValueError on what int8 cannot run, for preloaded scales as
@@ -326,14 +362,16 @@ class StreamingRestorer:
                           f"instead: {e}")
             self.quantize_int8 = False
 
-    def _dec_hist(self):
-        """The last ctx*g LSTM outputs [B, ctx*g, H] (zeros at the start)."""
-        if self._dec_hist_buf is None:
-            h_dim = self._st.lstm.hidden_size
-            self._dec_hist_buf = torch.zeros(
-                (self.batch, self.context * self._g, h_dim),
-                dtype=self.compute_dtype, device=self.device)
-        return self._dec_hist_buf
+    def _dec_hist(self, k: int):
+        """Shard k's last ctx*g LSTM outputs [b, ctx*g, H] (zeros at the
+        start)."""
+        if self._dec_hist_buf[k] is None:
+            dev, lo, hi = self._shards[k]
+            self._dec_hist_buf[k] = torch.zeros(
+                (hi - lo, self.context * self._g,
+                 self._st.lstm.hidden_size),
+                dtype=self.compute_dtype, device=dev)
+        return self._dec_hist_buf[k]
 
     def warmup(self, block: int, max_feeds: int = 64) -> dict:
         """Run the window lengths a frontend feeding `block`-sample blocks
@@ -437,7 +475,7 @@ class StreamingRestorer:
             window = np.pad(window, ((0, 0), (deficit, pad)))
             if self.quantize_int8 and not self._int8_ready:
                 self._ensure_int8(window)
-            out = self._step(torch.from_numpy(window).to(self.device), ctx, n)
+            out = self._step(torch.from_numpy(window), ctx, n)
             outs.append(out.cpu().numpy())  # [B, ch, n*f]
             self._warm += n
             self._emitted += n

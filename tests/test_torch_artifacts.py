@@ -282,9 +282,10 @@ def test_draws_lie_in_their_ranges():
 
 def test_iir_filter_mode_raises():
     x = torch.zeros(1, 1, 1000)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    match = "the simulator's IIR path, ROADMAP §1"
+    with pytest.raises(NotImplementedError, match=match):
         PA.simulate_batch(torch.Generator(), x, SR, filter_mode="iir")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(NotImplementedError, match=match):
         PA.apply_artifacts(x, {}, SR, filter_mode="iir")
 
 

@@ -17,6 +17,7 @@ from ml_audio_restoration_tpu.pipeline import RestorationPipeline as JaxPipe
 from ml_audio_restoration_torch import cli
 from ml_audio_restoration_torch.audio import load_audio, save_audio, wav_info
 from ml_audio_restoration_torch.config import PipelineConfig
+from ml_audio_restoration_torch.parallel import make_mesh
 from ml_audio_restoration_torch.pipeline import (
     RestorationPipeline, StreamingRestorer, restore_audio)
 from test_torch_models import jax_model, port_model
@@ -109,16 +110,17 @@ def _int8_pipeline():
 
 
 @pytest.mark.parametrize("make,error", [
-    (lambda: StreamingRestorer(mesh=object(), device="cpu"),
-     NotImplementedError),
+    (lambda: StreamingRestorer(batch=3, mesh=make_mesh(
+        2, devices=["cpu"] * 2), device="cpu"), ValueError),
     (lambda: RestorationPipeline(config=dataclasses.replace(
         PipelineConfig(), lstm_impl="pallas_train"), device="cpu"),
      ValueError),
     (lambda: StreamingRestorer(lstm_impl="pallas_train", device="cpu"),
      ValueError)])
 def test_unported_options_raise(make, error):
-    """Multi-device streaming is not ported and raises; the training
-    recurrence is no serving route."""
+    """A stream batch that does not divide evenly over the mesh raises (JAX
+    tests/test_streaming.py:250); the training recurrence is no serving
+    route."""
     with pytest.raises(error):
         make()
 

@@ -30,13 +30,15 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 from ml_audio_restoration_tpu.pipeline import (
     StreamingRestorer as JaxStreaming)
 from ml_audio_restoration_tpu.pipeline import StreamServer as JaxStreamServer
-from ml_audio_restoration_torch import cli
-from ml_audio_restoration_torch.audio import encode_wav
-from ml_audio_restoration_torch.pipeline import (StreamingRestorer,
+from ml_audio_restoration_torch.audio import encode_wav, normalize_audio
+from ml_audio_restoration_torch.parallel import Mesh, make_mesh
+from ml_audio_restoration_torch.pipeline import (RestorationPipeline,
+                                                 StreamingRestorer,
                                                  StreamServer)
 from ml_audio_restoration_torch.pipeline.server import (restore_over_http,
                                                         stream_over_tcp)
@@ -511,10 +513,35 @@ def test_cli_serve_int8_persists_scales(dn_stage, tmp_path):
 
 
 def test_cli_serve_data_parallel_raises(dn_stage, tmp_path):
-    """Multi-device serving is not ported: --data-parallel raises rather
-    than serving on one device."""
-    ckpt = _save_denoiser(tmp_path / "dn.pth", dn_stage)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.main(["serve", "--port", "0", "--denoiser", str(ckpt),
-                  "--no-super-res", "--no-stereo", "--device", "cpu",
-                  "--data-parallel", "2"])
+    """`serve --data-parallel 2 --device cpu` shards the HTTP pipeline over
+    a two-entry mesh of the CPU: /healthz lists both entries and a request
+    is answered as the unsharded pipeline answers it (JAX
+    tests/test_pipeline.py:181's bar). What still raises is a mesh with
+    model > 1 (sequence-parallel serving, not ported), in make_mesh and in
+    a pipeline handed such a mesh."""
+    proc = _serve(tmp_path, dn_stage, "--data-parallel", "2")
+    try:
+        ports = _announced(_lines(proc), ("http",))
+        health = json.load(urllib.request.urlopen(
+            f"http://127.0.0.1:{ports['http']}/healthz", timeout=TIMEOUT))
+        assert health["devices"] == ["cpu", "cpu"]
+        t = np.arange(SR // 2) / SR
+        sig = (0.3 * np.sin(2 * np.pi * 440 * t)).astype(np.float32)
+        got, rate = restore_over_http("127.0.0.1", ports["http"],
+                                      encode_wav(sig[:, None], SR,
+                                                 subtype="FLOAT"),
+                                      subtype="FLOAT", timeout=TIMEOUT)
+    finally:
+        _stop(proc, signal.SIGINT)
+    assert proc.returncode == 0
+    pipe = RestorationPipeline.from_checkpoints(
+        denoiser_path=tmp_path / "dn.pth", device="cpu")
+    want, _ = pipe.restore(normalize_audio(sig[None]), SR)
+    assert rate == SR
+    np.testing.assert_allclose(got, normalize_audio(want.numpy()),
+                               atol=2e-5, rtol=1e-4)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        make_mesh(1, model_parallel=2, devices=["cpu"] * 2)
+    pipe.mesh = Mesh(((torch.device("cpu"),) * 2,))
+    with pytest.raises(NotImplementedError, match="item 4"):
+        pipe.restore(sig, SR)

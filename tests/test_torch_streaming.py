@@ -150,13 +150,14 @@ def test_bf16_streaming_matches_jax(stages, audio, monkeypatch):  # noqa: F811
     assert got.dtype == np.float32 and got.shape == want.shape
     assert 0.0 < float(np.abs(got - want).max()) <= 2 * float(
         np.abs(want - want32).max())
-    for h, c in port._lstm_carry:
+    (carry,), (hist,) = port._lstm_carry, port._dec_hist_buf  # one shard
+    for h, c in carry:
         assert h.dtype == c.dtype == torch.bfloat16
-    assert port._dec_hist_buf.dtype == torch.bfloat16
+    assert hist.dtype == torch.bfloat16
     port.reset_stream(0)
-    assert all(h.dtype == c.dtype == torch.bfloat16
-               for h, c in port._lstm_carry)
-    assert port._dec_hist_buf.dtype == torch.bfloat16
+    (carry,), (hist,) = port._lstm_carry, port._dec_hist_buf
+    assert all(h.dtype == c.dtype == torch.bfloat16 for h, c in carry)
+    assert hist.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="compute_dtype"):
         StreamingRestorer(compute_dtype="float16", device="cpu")
 
@@ -180,7 +181,7 @@ def test_feed_runs_the_recurrence_twice(stages, monkeypatch):  # noqa: F811
     # 4000 - 512 lookahead, on the 8 grid, at 2x; the lookahead at 2x
     assert (t_new, t_la) == (2 * 3488, 2 * 512)
     assert not h_in.any() and h_la.any()
-    carry = port._lstm_carry[0][0]
+    carry = port._lstm_carry[0][0][0]  # shard 0, layer 0, h
     calls.clear()
     port.feed(block[:1000] * 0.1)
     assert torch.equal(calls[0][1], carry.float())
@@ -212,8 +213,8 @@ def test_warmup_then_reset(stages):  # noqa: F811
     port = _pair(stages, batch=2)[1]
     got = port.warmup(1500)
     assert got["programs"] >= 2 and got["seconds"] > 0
-    assert port._fed == 0 and port._dec_hist_buf is None
-    assert not port._lstm_carry[0][0].any()
+    assert port._fed == 0 and port._dec_hist_buf == [None]
+    assert not port._lstm_carry[0][0][0].any()
     assert port.warmup(1500)["programs"] == 0
 
 
