@@ -114,6 +114,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                its plain version,
                timed beside its bound, its latency floor (waves x steps),
                its registers, CTAs an SM and waves, and cuDNN's nn.LSTM;
+               and at the whole-file walk of sequence-parallel serving
+               (T=5,292,000 B=1 f32; the plain version on the first
+               22,050 steps; cuDNN in 44,100-step pieces);
  13. serve_fast - a 120 s clip through config/fast_serve.yaml (bf16, 0.25 s
                stereo windows): kernel vs plain recurrence, bf16 vs f32,
                xRT, the stage split, K1 launches, peak memory, and
@@ -183,13 +186,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
                on a 2-entry mesh (f32, bf16: every device's models hold
                the new weights); the CLI: `restore --data-parallel 1`
                byte for byte, `--data-parallel <cards + 1>` exits
-               non-zero naming the count, `serve --data-parallel 1`.
+               non-zero naming the count, `serve --data-parallel 1`;
+ 20. serve_seq - sequence-parallel serving (the mesh's 'model' axis) on
+               meshes that repeat cuda:0 (not a scaling figure): a 120 s
+               whole-file restore unsharded and through 1x1 (bit for bit),
+               1x2 and 1x4 (atol 2e-5 rtol 1e-4), the same in bf16
+               (BF16_CHAIN_TOL), int8 over 1x2 on the unsharded run's
+               scales file (1/4 of the int8-vs-f32 RMS, 64 wgmma + 6 stem
+               launches), a chunked 120 s restore on 2x2 (K1 at B=32 once
+               a row) and 16 streams over 1x2; each with its xRT, the
+               device ms of each stage piece and of the gathers, the peak
+               memory, and K1's [T, B]: one walk of T=5,292,000 at B=1 a
+               whole-file restore (timed in k1_shapes, held against the
+               plain version on its first 22,050 steps).
 Each phase's wall seconds follow it on a line {"phase_wall_s": ...}.
 Then one line {"kernels": [...]} (K1, K2, K3 and the int8 conv, whose
 numbers sum its layers over one 64-chunk program, each layer with its path
 in `shapes`, and whose `launches_by_path` splits its launches on the main
 path among wgmma, stem and generic; K1's `path_launches` include the
-serve_mesh paths) and, last, the device line
+serve_mesh and serve_seq paths) and, last, the device line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Imports nothing of JAX.
 """
@@ -3300,6 +3315,72 @@ def _k1_at(torch, L, path, t, b, dtype, carry, floor_ns, seed):
     return row
 
 
+SEQ_T = 5292000    # K1's steps in a 120 s whole-file restore (44.1 kHz)
+SEQ_SLICE = 22050  # the steps of the walk held against the plain version
+
+
+def _k1_whole_file(torch, L, floor_ns, seed):
+    """K1 at the whole-file shape of sequence-parallel serving (T=SEQ_T,
+    B=1, f32, H=64): timed (median of 3 calls) beside its bound and its
+    latency floor; the plain version (a Python loop, minutes at this T)
+    runs the first SEQ_SLICE steps, held against the same steps of the
+    whole walk and timed there; cuDNN's nn.LSTM, which refuses 88,200
+    steps in one call, runs in 44,100-step pieces that carry the state
+    (timed once, after one untimed run)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, t, b = 64, SEQ_T, 1
+    gates = torch.randn((t, b, 4 * h), generator=gen, device=dev) * 0.5
+    w_hh = torch.randn((h, 4 * h), generator=gen, device=dev) * 0.15
+    h0 = c0 = torch.zeros(b, h, device=dev)
+    run = lambda: L._lstm_recurrence_cuda(gates, w_hh, h0, c0)  # noqa: E731
+    out_k = run()
+    ms = _cuda_ms(torch, run, 3)
+    plain_ms, out_p = _timed_once(torch, lambda: L.lstm_recurrence_plain(
+        gates[:SEQ_SLICE], w_hh, h0, c0))
+    err = _max_dev(out_k[0][:, :SEQ_SLICE], out_p[0])
+    res = L.recurrence_resources(h, torch.float32)
+    n_bytes = 4 * (t * b * 4 * h + h * 4 * h + t * b * h) + 4 * 4 * b * h
+    flops = 2.0 * t * b * h * 4 * h
+    bound_ms, bound_by = _bound(n_bytes, flops)
+    ref = torch.nn.LSTM(4 * h, h).to(dev).eval()
+    with torch.no_grad():
+        ref.weight_ih_l0.copy_(torch.eye(4 * h, device=dev))
+        ref.weight_hh_l0.copy_(w_hh.T)
+        ref.bias_ih_l0.zero_()
+        ref.bias_hh_l0.zero_()
+    state = (h0[None].contiguous(), c0[None].contiguous())
+    library_ms = lib_dev = None
+    try:
+        with torch.inference_mode():
+            _lstm_segments(torch, ref, gates, 44100, state)
+            library_ms, lib = _timed_once(torch, lambda: _lstm_segments(
+                torch, ref, gates, 44100, state))
+        lib_dev = _max_dev(lib.transpose(0, 1), out_k[0])
+        del lib
+    except RuntimeError as e:  # the yardstick only: cuDNN may refuse
+        lib_dev = str(e)[:200]
+    row = {"path": "serve_seq_whole_file", "shape": [t, b, h],
+           "dtype": "float32", "carry_in": False, "ms": ms,
+           "plain_ms": plain_ms, "plain_steps": SEQ_SLICE,
+           "max_abs_err": err, "tol": F32_TOL, "bytes": n_bytes,
+           "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by,
+           "floor_ms": t * floor_ns * 1e-6, "ns_per_step": ms * 1e6 / t,
+           "waves": 1, **res, "library_ms": library_ms,
+           "library_pieces": -(-t // 44100),
+           "library_vs_kernel_max_abs": lib_dev}
+    emit({"phase": "kernel_check", "kernel": "lstm_recurrence",
+          "path": row["path"], "shape": [t, b, h], "dtype": "float32",
+          "max_abs_err": err, "tol": F32_TOL, "plain_steps": SEQ_SLICE})
+    emit({"phase": "kernel_time", "kernel": "lstm_recurrence", **row})
+    if not err <= F32_TOL:
+        raise AssertionError(f"lstm_recurrence disagrees with plain at "
+                             f"the whole-file shape: {row}")
+    del gates, out_k, out_p
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_k1_shapes(torch, evaluate_shape):
     """K1 at the shapes the serving paths give it: the 0.25 s stereo
     windows of a 120 s restore (64 chunks x 10 windows of 11,024 steps)
@@ -3310,7 +3391,8 @@ def phase_k1_shapes(torch, evaluate_shape):
     of 0.5 s, 11,025 steps, bf16), and evaluate's stereo evaluation (the
     8 s files' bucketed chunks of 2 s at 22.05 kHz, `evaluate_shape` =
     (T, B) from the files phase), and a shard of the default 120 s restore
-    under a 2-entry mesh (B=32) and the largest of a 3-entry one (B=22).
+    under a 2-entry mesh (B=32) and the largest of a 3-entry one (B=22),
+    and the whole-file walk of sequence-parallel serving (_k1_whole_file).
     Returns the rows by path."""
     from ml_audio_restoration_torch.ops import _latency
     from ml_audio_restoration_torch.ops import lstm as L
@@ -3332,6 +3414,8 @@ def phase_k1_shapes(torch, evaluate_shape):
             ("serve_mesh_3", 88200, 22, torch.float32, False))):
         rows[path] = _k1_at(torch, L, path, t, b, dtype, carry, floor_ns,
                             seed=10 + i)
+    rows["serve_seq_whole_file"] = _k1_whole_file(torch, L, floor_ns,
+                                                  seed=30)
     return rows
 
 
@@ -5190,6 +5274,233 @@ def phase_serve_mesh(torch):
             "int8_conv": int8["int8_conv_launches"]}
 
 
+SEQ_LABEL = ("time shards on repeated cuda:0 entries of one H100, one "
+             "after another on its one stream: not a scaling figure")
+SEQ_STAGES = ("front", "stereo", "encode", "recur", "decode", "combine")
+
+
+@contextlib.contextmanager
+def _seq_stage_events(torch):
+    """CUDA events around every call of the stage pieces the
+    sequence-parallel stack runs (pipeline/restore.py::_Stages): yields
+    a function that returns {piece: device ms summed over its calls,
+    "gather": the rest of the stack's span (the crops, the gathers' cats
+    and the windows' slices), "span": first start to last end}."""
+    from ml_audio_restoration_torch.pipeline import restore as R
+
+    spans = []
+    saved = {name: getattr(R._Stages, name) for name in SEQ_STAGES}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            spans.append((name, start, end))
+            return out
+        return run
+
+    def read():
+        torch.cuda.synchronize()
+        ms = dict.fromkeys(SEQ_STAGES, 0.0)
+        for name, a, b in spans:
+            ms[name] += a.elapsed_time(b)
+        ms["span"] = spans[0][1].elapsed_time(spans[-1][2]) if spans else 0.0
+        ms["gather"] = ms["span"] - sum(ms[n] for n in SEQ_STAGES)
+        return ms
+
+    for name, fn in saved.items():
+        setattr(R._Stages, name, timed(name, fn))
+    try:
+        yield read
+    finally:
+        for name, fn in saved.items():
+            setattr(R._Stages, name, fn)
+
+
+def _seq_restore(torch, L, pipe, clip, rate, mesh):
+    """`pipe` under `mesh` (None: unsharded) on `clip`: one warm-up
+    restore, then one counted, with K1's [T, B] a launch, the peak memory
+    and the device ms of each stage piece. Returns (output, row)."""
+    pipe.mesh = mesh
+    pipe.restore(clip, rate)
+    with _k1_shapes_seen(L) as shapes, _seq_stage_events(torch) as read:
+        y, wall, launches, peak = _timed_restore(torch, L, pipe, clip, rate)
+        stage_ms = read()
+    seconds = clip.shape[1] / rate
+    return y, {"mesh": None if mesh is None else [mesh.shape["data"],
+                                                  mesh.shape["model"]],
+               "xrt": seconds / wall, "wall_s": wall,
+               "k1_launches": launches, "k1_shapes": shapes,
+               "peak_mem_bytes": peak, "stage_ms": stage_ms}
+
+
+def phase_serve_seq(torch):
+    """Sequence-parallel serving (the mesh's 'model' axis,
+    parallel/sequence.py) at full published width with seeded weights, TF32
+    off (the pipeline turns it off): a 120 s whole-file restore through
+    1x1 (bit for bit the unsharded restore), 1x2 and 1x4 meshes (MESH_TOL),
+    the same in bf16 (BF16_CHAIN_TOL) and under int8 over 1x2 on the
+    unsharded run's scales file (RMS within a quarter of the int8-vs-f32
+    RMS), a chunked 120 s restore on 2x2, and 16 streams over 1x2. The
+    card host has one card, so the meshes repeat cuda:0 (SEQ_LABEL).
+    Returns {path: (K1 launches, None, None)} and the int8 conv's
+    launches."""
+    import shutil
+
+    from ml_audio_restoration_torch.config import PipelineConfig
+    from ml_audio_restoration_torch.ops import int8_conv as ic
+    from ml_audio_restoration_torch.ops import lstm as L
+    from ml_audio_restoration_torch.parallel import make_mesh
+    from ml_audio_restoration_torch.pipeline import (RestorationPipeline,
+                                                     StreamingRestorer)
+
+    dev = torch.device("cuda")
+    models = _models(torch, dev)
+    rate, seconds = 22050, 120.0
+    clip = _clip(seconds, rate, seed=3)
+
+    def mesh(d, m):
+        return make_mesh(d, m, devices=["cuda:0"] * (d * m))
+
+    root = os.path.join(ROOT, "profiles", "chip_smoke_serve_seq")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    row = {"phase": "serve_seq", "label": SEQ_LABEL, "seconds": seconds}
+    whole = [(1, 1), (1, 2), (1, 4)]
+    try:
+        # 1-2. whole-file f32 and bf16: unsharded, then 1x1, 1x2, 1x4
+        for dtype, tol in (("float32", MESH_TOL),
+                           ("bfloat16", {"atol": BF16_CHAIN_TOL,
+                                         "rtol": 0.0})):
+            pipe = RestorationPipeline(*models, config=PipelineConfig(
+                whole_file=True, compute_dtype=dtype))
+            y0, plain = _seq_restore(torch, L, pipe, clip, rate, None)
+            emit({"phase": "serve_seq_restore", "dtype": dtype, **plain})
+            runs = {"plain": plain}
+            for d, m in whole:
+                y, r = _seq_restore(torch, L, pipe, clip, rate, mesh(d, m))
+                r.update(max_abs=_max_dev(y, y0),
+                         within_bar=bool(torch.allclose(y, y0, **tol)),
+                         bit_for_bit=bool(torch.equal(y, y0)),
+                         finite=bool(torch.isfinite(y).all()),
+                         shape=list(y.shape))
+                runs[f"{d}x{m}"] = r
+                emit({"phase": "serve_seq_restore", "dtype": dtype, **r})
+                del y
+            row[dtype] = runs
+            if dtype == "float32":
+                y32 = y0
+            del pipe, y0
+            torch.cuda.empty_cache()
+        # 3. int8 over 1x2 on the unsharded run's scales file
+        cfg8 = PipelineConfig(whole_file=True, quantize_int8=True)
+        q = RestorationPipeline(*models, config=cfg8)
+        q.calibrate_int8(clip, rate)
+        scales = os.path.join(root, "scales.json")
+        q.save_int8_scales(scales)
+        y8, _ = q.restore(clip, rate)
+        del q
+        qm = RestorationPipeline(*models, config=cfg8, mesh=mesh(1, 2))
+        loaded = qm.load_int8_scales(scales)
+        qm.restore(clip, rate)
+        with _k1_shapes_seen(L) as shapes:
+            y8m, wall8, k1_8, int8_launches = _timed_int8_restore(
+                torch, L, ic, qm, clip, rate)
+        by_path = dict(ic.launch_count_by_path)
+        rms = lambda d: float(d.float().square().mean().sqrt())  # noqa: E731
+        row["int8"] = {
+            "mesh": [1, 2], "xrt": seconds / wall8, "wall_s": wall8,
+            "k1_launches": k1_8, "k1_shapes": shapes,
+            "int8_conv_launches": int8_launches,
+            "int8_conv_launches_by_path": by_path,
+            "not_recalibrated": qm._int8_scales is loaded,
+            "vs_unsharded_rms": rms(y8m - y8),
+            "vs_unsharded_max_abs": _max_dev(y8m, y8),
+            "int8_vs_f32_rms": rms(y8 - y32)}
+        row["int8"]["rms_tol"] = 0.25 * row["int8"]["int8_vs_f32_rms"]
+        emit({"phase": "serve_seq_int8", **row["int8"]})
+        del qm, y8, y8m, y32
+        torch.cuda.empty_cache()
+        # 4. a chunked 120 s restore on 2x2 (64 chunks: 32 a row)
+        pipe = RestorationPipeline(*models)
+        y0, plain = _seq_restore(torch, L, pipe, clip, rate, None)
+        y, r = _seq_restore(torch, L, pipe, clip, rate, mesh(2, 2))
+        r.update(plain_xrt=plain["xrt"], plain_stage_ms=plain["stage_ms"],
+                 max_abs=_max_dev(y, y0),
+                 within_bar=bool(torch.allclose(y, y0, **MESH_TOL)))
+        row["chunked"] = r
+        emit({"phase": "serve_seq_chunked", **r})
+        del pipe, y, y0
+        # 5. 16 lockstep streams of 10 s over 1x2 against unsharded
+        block = int(0.5 * rate)
+        streams = np.concatenate([_clip(10.0, rate, seed=600 + i)
+                                  for i in range(16)])
+        blocks = [streams[:, o:o + block]
+                  for o in range(0, streams.shape[1], block)]
+        outs = {}
+        for name, msh in (("plain", None), ("1x2", mesh(1, 2))):
+            r = StreamingRestorer(*models, batch=16, mesh=msh)
+            r.warmup(block)
+            torch.cuda.synchronize()
+            L.reset_launch_count()
+            out, emitted, _ = _feed_all(r, blocks)
+            outs[name] = (out, statistics.median(emitted), L.launch_count)
+        row["stream"] = {
+            "streams": 16, "seconds": 10.0, "block_s": 0.5, "mesh": [1, 2],
+            "feed_ms_median": outs["1x2"][1],
+            "plain_feed_ms_median": outs["plain"][1],
+            "k1_launches": outs["1x2"][2],
+            "plain_k1_launches": outs["plain"][2],
+            "vs_unsharded_max_abs": float(np.abs(
+                outs["1x2"][0] - outs["plain"][0]).max()),
+            "tol": MESH_STREAM_TOL}
+        emit({"phase": "serve_seq_stream", **row["stream"]})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    f32, bf16, int8 = row["float32"], row["bfloat16"], row["int8"]
+    walk = [[SEQ_T, 1]]
+    checks = {
+        "f32_1x1": f32["1x1"]["bit_for_bit"],
+        "f32_sharded": all(f32[k]["within_bar"] for k in ("1x2", "1x4")),
+        "bf16_1x1": bf16["1x1"]["bit_for_bit"],
+        "bf16_sharded": all(bf16[k]["within_bar"] for k in ("1x2", "1x4")),
+        "finite": all(r[k]["finite"] for r in (f32, bf16)
+                      for k in ("1x1", "1x2", "1x4")),
+        "k1_whole_file": all(r[k]["k1_shapes"] == walk
+                             for r in (f32, bf16)
+                             for k in ("plain", "1x1", "1x2", "1x4")),
+        "int8": (int8["not_recalibrated"] and int8["k1_shapes"] == walk
+                 and int8["vs_unsharded_rms"] <= int8["rms_tol"]
+                 and int8["int8_conv_launches_by_path"]
+                 == {"wgmma": 64, "stem": 6, "generic": 0}),
+        "chunked": (row["chunked"]["within_bar"]
+                    and row["chunked"]["k1_shapes"] == [[88200, 32]] * 2),
+        "stream": (row["stream"]["vs_unsharded_max_abs"] <= MESH_STREAM_TOL
+                   and row["stream"]["k1_launches"]
+                   == row["stream"]["plain_k1_launches"])}
+    emit({"phase": "serve_seq", "label": SEQ_LABEL, "checks": checks,
+          "xrt": {dt: {k: r["xrt"] for k, r in row[dt].items()}
+                  for dt in ("float32", "bfloat16")},
+          "max_abs": {dt: {k: r["max_abs"] for k, r in row[dt].items()
+                           if k != "plain"}
+                      for dt in ("float32", "bfloat16")},
+          "int8_xrt": int8["xrt"], "chunked_xrt": row["chunked"]["xrt"],
+          "stream_feed_ms_median": row["stream"]["feed_ms_median"]})
+    if not all(checks.values()):
+        raise AssertionError(f"sequence-parallel serving failed: {checks}")
+    return {"serve_seq_1x2": (f32["1x2"]["k1_launches"], None, None),
+            "serve_seq_1x4": (f32["1x4"]["k1_launches"], None, None),
+            "serve_seq_bf16_1x4": (bf16["1x4"]["k1_launches"], None, None),
+            "serve_seq_int8": (int8["k1_launches"], None, None),
+            "serve_seq_chunked_2x2": (row["chunked"]["k1_launches"], None,
+                                      None),
+            "serve_seq_stream": (row["stream"]["k1_launches"], None, None),
+            "int8_conv": int8["int8_conv_launches"]}
+
+
 def _timed_phase(fn, *args):
     """Run one phase and print its wall seconds on a line of its own."""
     t0 = time.perf_counter()
@@ -5248,6 +5559,9 @@ def main() -> int:
     mesh = _timed_phase(phase_serve_mesh, torch)
     mesh_int8 = mesh.pop("int8_conv")
     paths.update(mesh)
+    seq = _timed_phase(phase_serve_seq, torch)
+    seq_int8 = seq.pop("int8_conv")
+    paths.update(seq)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K1's new shapes, each with the launches of the run of the path that
@@ -5263,12 +5577,16 @@ def main() -> int:
                    # a 2-entry mesh launches B=32 twice a restore, a
                    # 3-entry one B=22 once (and B=21 twice)
                    "serve_mesh_2": paths["serve_mesh_2"][0],
-                   "serve_mesh_3": 1}
+                   "serve_mesh_3": 1,
+                   # one walk a whole-file restore, whatever the mesh
+                   "serve_seq_whole_file": paths["serve_seq_1x4"][0]}
     rows[0]["shapes"] = [
         {**{key: k1[shape][key] for key in (
             "path", "shape", "dtype", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "max_abs_err", "tol", "floor_ms",
             "ctas_per_sm", "waves", "regs_per_thread")},
+         # the whole-file walk's plain version ran on its first steps only
+         **{k: k1[shape][k] for k in ("plain_steps",) if k in k1[shape]},
          "launches": launches_of[shape]} for shape in k1]
     rows[0]["path_launches"] = {
         "train_bf16_validation": bf16["lstm_recurrence_validation"],
@@ -5296,7 +5614,8 @@ def main() -> int:
             "cudnn_f32_ms", "cudnn_bf16_ms")} for r in int8["layers"]],
         "path_launches": {"int8": int8["launches"],
                           "serve_int8": serve_int8,
-                          "serve_mesh_int8": mesh_int8}})
+                          "serve_mesh_int8": mesh_int8,
+                          "serve_seq_int8": seq_int8}})
     emit({"kernels": [{key: row[key] for key in keys + tuple(
         k for k in extra if k in row)} for row in rows]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -27,16 +27,17 @@ from .common import (LRELU_SLOPE, double_conv_block, double_conv_block_apply,
                      fold_conv_bn)
 
 DEFAULT_FEATURES = (32, 64, 128)
+IMPULSE_BOX = 5  # detect_impulses' box filter
 
 
 def detect_impulses(x):
-    """|d1|, |d2| and amplitude blended 1:2:0.5 / 3.5, box-smoothed (k=5)
-    and clipped to [0, 1]. x: [B, 1, T] -> [B, 1, T]."""
+    """|d1|, |d2| and amplitude blended 1:2:0.5 / 3.5, box-smoothed (k =
+    IMPULSE_BOX) and clipped to [0, 1]. x: [B, 1, T] -> [B, 1, T]."""
     diff = F.pad(torch.abs(x[..., 1:] - x[..., :-1]), (0, 1))
     diff2 = F.pad(torch.abs(diff[..., 1:] - diff[..., :-1]), (0, 1))
     amplitude = torch.abs(x)
     score = (diff2 * 2.0 + diff + amplitude * 0.5) / 3.5
-    score = moving_average(score, 5)
+    score = moving_average(score, IMPULSE_BOX)
     return torch.clamp(score, 0.0, 1.0)
 
 

@@ -113,12 +113,14 @@ class StereoSeparator(nn.Module):
         return torch.cat([_decoder_apply(self.left_decoder, h, train),
                           _decoder_apply(self.right_decoder, h, train)], dim=1)
 
+    def recur(self, h):
+        """The LSTM over the encoder output: [B, 4C, T] -> [B, H, T]."""
+        return self.lstm(h.transpose(1, 2)).transpose(1, 2)
+
     def forward(self, x):
         """x [B, 1, T] -> [B, 2, T], channels (L, R): encode, the LSTM,
         decode."""
-        h = self.encode(x)
-        h = self.lstm(h.transpose(1, 2)).transpose(1, 2)  # [B, H, T]
-        return self.decode(h)
+        return self.decode(self.recur(self.encode(x)))
 
 
 # ------------------------------------------------------- int8 serving path
@@ -195,6 +197,25 @@ def _decoder_apply_packed(dec: nn.Sequential, h, t: int, q=None,
                  requant=False, r_in=2, r_out=1, padding=3, t_in=t)
 
 
+def lstm_packed(model: StereoSeparator, h):
+    """The LSTM of the packed forward: NWC [B, T, 4C] float in the
+    parameters' dtype (K1 on the card) -> [B, T, H]."""
+    return model.lstm(h.to(model.lstm.weight_hh_l0.dtype))
+
+
+def decode_packed(model: StereoSeparator, h, q=None):
+    """The packed decoders on the LSTM output [B, T, H], quantized at the
+    `lstm_out` point -> [B, T, 2]."""
+    from ..ops.quant import ctx_or_null
+
+    q = ctx_or_null(q)
+    t = h.shape[1]
+    hq = q.quantize_in("lstm_out", h.float() if q.quantized else h)
+    left = _decoder_apply_packed(model.left_decoder, hq, t, q, "left")
+    right = _decoder_apply_packed(model.right_decoder, hq, t, q, "right")
+    return torch.cat([left, right], dim=-1)
+
+
 def apply_packed(model: StereoSeparator, x, q=None):
     """The eval forward with the packed encoder and decoder stages under an
     int8 context (ops/quant.py): the JAX package's `apply_packed` on its
@@ -204,13 +225,8 @@ def apply_packed(model: StereoSeparator, x, q=None):
     from ..ops.quant import ctx_or_null
 
     q = ctx_or_null(q)
-    t = x.shape[1]
-    h = encode_packed(model, x, q=q)
-    h = model.lstm(h.to(model.lstm.weight_hh_l0.dtype))
-    hq = q.quantize_in("lstm_out", h.float() if q.quantized else h)
-    left = _decoder_apply_packed(model.left_decoder, hq, t, q, "left")
-    right = _decoder_apply_packed(model.right_decoder, hq, t, q, "right")
-    return torch.cat([left, right], dim=-1)
+    h = lstm_packed(model, encode_packed(model, x, q=q))
+    return decode_packed(model, h, q)
 
 
 def packed_amax(model: StereoSeparator, x) -> dict:

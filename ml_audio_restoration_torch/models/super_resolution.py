@@ -55,8 +55,11 @@ class AudioSuperResolution(nn.Module):
                                          nn.LeakyReLU(LRELU_SLOPE))
         self.reconstruction = nn.Conv1d(c, channels, 7, padding=3)
 
-    def forward(self, x):
-        """x [B, ch, T] -> [B, ch, T * upscale], in the module's mode."""
+    def forward(self, x, offset: int = 0, total=None):
+        """x [B, ch, T] -> [B, ch, T * upscale], in the module's mode. A
+        time window of a longer recording passes its `offset` and the
+        recording's `total` length, so the interpolated residual counts
+        from the recording's start (ops/interp.py::upsample_linear)."""
         stem = self.initial[0]
         h0 = leaky_relu(conv1d(x, stem.weight, stem.bias, padding=3))
         h = h0
@@ -71,11 +74,13 @@ class AudioSuperResolution(nn.Module):
         h = leaky_relu(conv1d(h, hf.weight, hf.bias, padding=2))
         out = conv1d(h, self.reconstruction.weight, self.reconstruction.bias,
                      padding=3)
-        return out + upsample_linear(x, 2 ** len(self.upsample_blocks))
+        return out + upsample_linear(x, 2 ** len(self.upsample_blocks),
+                                     offset=offset, total=total)
 
 
 # ------------------------------------------------------- int8 serving path
-def apply_packed(model: AudioSuperResolution, x, q=None):
+def apply_packed(model: AudioSuperResolution, x, q=None, offset: int = 0,
+                 total=None):
     """The eval forward in r-packed form under an int8 context `q`
     (ops/quant.py): its calibration pass or int8 serving; the JAX
     package's `apply_packed`. The stem enters r=4 from the plain input,
@@ -83,8 +88,8 @@ def apply_packed(model: AudioSuperResolution, x, q=None):
     reconstruction exits to plain; residual adds are dequantized in the
     consuming conv's epilogue. The linear-interpolation residual stays
     float (the port's upsample_linear, held to the JAX package's
-    transpose-conv form within 1e-6). x: plain NWC [B, t, 1], t % 4 == 0
-    -> [B, m*t, 1]."""
+    transpose-conv form within 1e-6; `offset` and `total` as in
+    `forward`). x: plain NWC [B, t, 1], t % 4 == 0 -> [B, m*t, 1]."""
     from ..ops.packed import packed_conv, packed_conv_r, packed_conv_transpose
     from ..ops.quant import ctx_or_null, lrelu, make_qops
     from .denoiser import _wio, _wio_t, folded_wio
@@ -123,7 +128,8 @@ def apply_packed(model: AudioSuperResolution, x, q=None):
     out = qconv("recon", h, _wio(rc), rc.bias, op=packed_conv_r,
                 requant=False, r_in=r, r_out=1, padding=3, t_in=t_cur)
     m = 2 ** len(model.upsample_blocks)
-    return out + upsample_linear(x.permute(0, 2, 1), m).permute(0, 2, 1)
+    return out + upsample_linear(x.permute(0, 2, 1), m, offset=offset,
+                                 total=total).permute(0, 2, 1)
 
 
 def packed_amax(model: AudioSuperResolution, x) -> dict:

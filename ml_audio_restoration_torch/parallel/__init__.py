@@ -13,7 +13,7 @@ from .distributed import (
     shard_indices_by_process,
     shutdown,
 )
-from .mesh import Mesh, make_mesh, replicate, shard_batch
+from .mesh import Mesh, make_mesh, replicate, shard_batch, time_shards
 
 __all__ = [
     "Mesh",
@@ -31,4 +31,5 @@ __all__ = [
     "shard_batch",
     "shard_indices_by_process",
     "shutdown",
+    "time_shards",
 ]

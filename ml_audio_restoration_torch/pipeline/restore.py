@@ -32,7 +32,12 @@ split is allowed: a 64-chunk slab over 3 devices runs 22, 21 and 21 rows),
 each shard runs on its device with that device's copy of the models, and
 the outputs are gathered on the pipeline's device, where the overlap-add
 runs. The int8 scales are calibrated once, on the pipeline's device, and
-every device quantizes with them.
+every device quantizes with them. A mesh whose 'model' axis is above 1
+also splits each chunk's time over its row's devices (sequence
+parallelism, `_sequence_stack`): the stages in front of the stereo LSTM run
+on overlapping windows, time is gathered before the LSTM, and the decoders
+run on windows again. With whole_file, data=1 and model=N that serves one
+long recording across N devices.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ import math
 import os
 import time
 import warnings
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -145,12 +150,13 @@ def stereo_sub_cfg(cfg: PipelineConfig, stage_len: int, f: int,
     return (sub, sub - sub_ov, sub_ov)
 
 
-def apply_stereo(st: nn.Module, x, sub_cfg, q=None):
+def apply_stereo(st: nn.Module, x, sub_cfg, q=None, spread=None):
     """The stereo stage over [N, 1, T2] -> [N, 2, T2]. With `sub_cfg`
     (stereo_sub_cfg) each row is reframed into M windows, the model runs on
-    the [N*M, 1, sub] batch and each channel is crossfaded back. `q`, an
-    int8 context (ops/quant.py), runs the packed int8 forward (or its
-    calibration) where the window is a multiple of 4."""
+    the [N*M, 1, sub] batch (or `spread` runs it, over several devices)
+    and each channel is crossfaded back. `q`, an int8 context
+    (ops/quant.py), runs the packed int8 forward (or its calibration) where
+    the window is a multiple of 4."""
     stage_len = sub_cfg[0] if sub_cfg is not None else x.shape[-1]
     if q is not None and stage_len % 4 == 0:
         def st(v, model=st):
@@ -166,7 +172,8 @@ def apply_stereo(st: nn.Module, x, sub_cfg, q=None):
     # frame_structured frames each of its "channels" (here the N rows):
     # [M, sub, N] -> [N*M, 1, sub], row-major in (n, m)
     frames = frame_structured(rows, m, sub, sub_hop)
-    y = st(frames.permute(2, 0, 1).reshape(n * m, 1, sub))  # [N*M, 2, sub]
+    batch = frames.permute(2, 0, 1).reshape(n * m, 1, sub)
+    y = (st if spread is None else spread)(batch)  # [N*M, 2, sub]
     y = y.reshape(n, m, 2, sub).permute(1, 0, 2, 3).reshape(m, n * 2, sub)
     out = overlap_add(y, sub_hop, t2, overlap=sub_ov)  # [N*2, T2]
     return out.reshape(n, 2, t2)
@@ -195,6 +202,113 @@ def _to_host(outs, into=None):
     return host, event
 
 
+class _Stages(NamedTuple):
+    """The stage stack of one device, in pieces: `front` (denoiser, SR),
+    the stereo stage whole (`stereo`) or as encoder, LSTM and decoders
+    (`encode`, `recur`, `decode`: the sequence-parallel path runs them on
+    different devices), and `combine` (mid-exact, source-rate). `stack`
+    composes them over a chunk batch."""
+    dn: Optional[nn.Module]
+    sr: Optional[nn.Module]
+    st: Optional[nn.Module]
+    dtype: torch.dtype
+    f: int
+    src_rate: bool
+    st_f: int  # stage-rate samples an input sample
+    sub_cfg: Optional[tuple]
+    int8: bool
+    int8_stereo: bool
+    q: dict  # stage -> its int8 context, or None
+    mid_exact: bool
+
+    def _ncw(self, fn, model, q, **kw):
+        """The NWC int8 forward of `model` on an NCW [N, 1, T] tensor."""
+        return lambda v: fn(model, v.permute(0, 2, 1), q=q, **kw).permute(
+            0, 2, 1)
+
+    def front(self, x, offset: int = 0, total: Optional[int] = None):
+        """x NCW [N, 1, t] in the compute dtype, samples [offset, offset +
+        t) of a chunk of `total` (default t) -> (mid: the denoised and
+        super-resolved signal [N, 1, t*f]; the stereo stage's input: the
+        mid, or under source-rate the denoised signal)."""
+        if self.dn is not None:
+            q = self.q["denoiser"]
+            x = (self.dn(x) if q is None else self._ncw(
+                denoiser_mod.apply_packed, self.dn, q)(x))
+        st_in = x
+        if self.sr is not None:
+            q = self.q["super_resolution"]
+            window = dict(offset=offset, total=total)
+            x = (self.sr(x, **window) if q is None else self._ncw(
+                sr_mod.apply_packed, self.sr, q, **window)(x))
+        return x, (st_in if self.src_rate else x)
+
+    def _stereo_input(self, v):
+        # the int8 denoiser / SR exit in the compute dtype; the int8
+        # stereo stage takes f32, as the JAX package hands it
+        if self.int8:
+            v = v.float() if self.int8_stereo else v.to(self.dtype)
+        return v
+
+    def _packed_stereo(self, v) -> bool:
+        # apply_stereo's gate: int8 on a length the packing takes
+        return self.q["stereo"] is not None and v.shape[-1] % 4 == 0
+
+    def stereo(self, v, spread=None):
+        """The stereo stage on its input [N, 1, T2] -> [N, 2, T2]."""
+        return apply_stereo(self.st, self._stereo_input(v), self.sub_cfg,
+                            q=self.q["stereo"], spread=spread)
+
+    def encode(self, v):
+        """The stereo encoder on (a window of) its input -> [N, 4C, T2]."""
+        v = self._stereo_input(v)
+        if self._packed_stereo(v):
+            return self._ncw(stereo_mod.encode_packed, self.st,
+                             self.q["stereo"])(v)
+        return self.st.encode(v)
+
+    def recur(self, h):
+        """The stereo LSTM over the encoder output -> [N, H, T2]."""
+        if self._packed_stereo(h):
+            return stereo_mod.lstm_packed(self.st, h.permute(0, 2, 1)
+                                          ).permute(0, 2, 1)
+        return self.st.recur(h)
+
+    def decode(self, h):
+        """The stereo decoders on (a window of) the LSTM output ->
+        [N, 2, T2]."""
+        if self._packed_stereo(h):
+            return self._ncw(stereo_mod.decode_packed, self.st,
+                             self.q["stereo"])(h)
+        return self.st.decode(h)
+
+    def combine(self, mid, y):
+        """The stack's output from the mid and the stereo stage's output
+        (None without stereo): [N, C_out, T*f] f32."""
+        x = mid
+        if self.st is not None:
+            if self.src_rate:
+                side = (y[:, 0:1] - y[:, 1:2]) * 0.5
+                if self.f > 1:
+                    side = upsample_linear(side, self.f)
+                x = x + torch.cat([side, -side], dim=1).to(x.dtype)
+            else:
+                if self.mid_exact:
+                    # out = mid +/- the predicted side: the mid is the
+                    # stage's input exactly
+                    side = (y[:, 0:1] - y[:, 1:2]) * 0.5
+                    y = torch.cat([x + side, x - side], dim=1)
+                x = y
+        return x.float()
+
+    def stack(self, chunks):
+        """The whole stack on a chunk batch [N, chunk, 1] -> [N, C_out,
+        chunk*f] f32."""
+        mid, st_in = self.front(chunks.permute(0, 2, 1).to(self.dtype))
+        return self.combine(mid, None if self.st is None
+                            else self.stereo(st_in))
+
+
 class RestorationPipeline:
     """Holds the three stage models (any may be None) on one device, and
     serves on it or, under a mesh, on the mesh's devices."""
@@ -205,7 +319,8 @@ class RestorationPipeline:
                  config: Optional[PipelineConfig] = None,
                  device="cuda", mesh=None):
         """`mesh`: a parallel.mesh.Mesh; the chunk batch is sharded over
-        its 'data' axis. It may also be assigned to `pipe.mesh` later (the
+        its 'data' axis and each chunk's time over its 'model' axis. It
+        may also be assigned to `pipe.mesh` later (the
         CLI does): every cache below is keyed by device, and the stage
         stack is built for the mesh of each call."""
         self.config = config or PipelineConfig()
@@ -315,12 +430,17 @@ class RestorationPipeline:
         gathered here. Every shard is enqueued before any output is
         gathered, and nothing in the stack reads the device from the host,
         so the devices run together. A batch with fewer rows than the mesh
-        has devices (whole_file's one chunk) runs on the first ones."""
+        has devices (whole_file's one chunk) runs on the first ones. A mesh
+        whose 'model' axis is above 1 also splits each chunk's time over
+        its row (_sequence_stack)."""
         check_pipeline_config(self.config)
         if self.mesh is None:
-            return self._device_stack(self.device, chunk_size, sample_rate)
+            return self._device_stages(self.device, chunk_size,
+                                       sample_rate).stack
+        if self.mesh.shape["model"] > 1:
+            return self._sequence_stack(chunk_size, sample_rate)
         devices = self.mesh.data_devices
-        stacks = {d: self._device_stack(d, chunk_size, sample_rate)
+        stacks = {d: self._device_stages(d, chunk_size, sample_rate).stack
                   for d in dict.fromkeys(devices)}
         gather = dict(non_blocking=self.device.type == "cuda")
 
@@ -331,12 +451,97 @@ class RestorationPipeline:
 
         return sharded
 
-    def _device_stack(self, device, chunk_size: int,
-                      sample_rate: Optional[int]):
-        """_stage_stack's function on one device: its models and int8
-        contexts, chunks on that device."""
+    def _sequence_stack(self, chunk_size: int, sample_rate: Optional[int]):
+        """_stage_stack under a mesh with model > 1: sequence parallelism,
+        JAX's P("data", "model", None). The chunk batch is split over the
+        data rows; in each row the chunks' time is cut into cores on the
+        stages' grid (parallel.mesh.time_shards), one a device of the row
+        (fewer when the chunk is shorter than the row's grid units), and:
+
+        1. the stages in front of the LSTM (denoiser, SR, stereo encoder)
+           run on each core's window (parallel.sequence: one input halo
+           for all three), on its device, cropped to the core;
+        2. time is gathered on the row's first device, which runs the
+           LSTM (K1 on the card) over the whole chunk;
+        3. the decoders run on windows of the LSTM output, one a device,
+           cropped and gathered; mid-exact and source-rate combine the
+           gathered stereo output with the gathered mid elementwise there.
+           Sub-chunked stereo gathers its input instead and spreads its
+           windows over the row's devices.
+
+        Every window of every row is enqueued before any output is
+        gathered, and nothing reads the device from the host."""
+        from ..parallel import sequence
+        from ..parallel.mesh import time_shards
+
+        stages = {d: self._device_stages(d, chunk_size, sample_rate)
+                  for d in dict.fromkeys(self.mesh.flat_devices)}
+        one = stages[self.mesh.data_devices[0]]
+        has_st, sub = one.st is not None, one.sub_cfg is not None
+        plan = sequence.plan(one.dn, one.sr, one.st,
+                             source_rate=one.src_rate, stereo_windows=sub,
+                             packed=one.int8)
+        f, st_f, t = one.f, one.st_f, chunk_size
+        front_w = sequence.windows(time_shards(self.mesh, t, plan.grid),
+                                   plan.front_halo, t)
+        back_w = sequence.windows([(w.lo * st_f, w.hi * st_f)
+                                   for w in front_w], plan.back_halo,
+                                  t * st_f)
+        gather = dict(non_blocking=self.device.type == "cuda")
+
+        def cat_on(dev, parts):
+            return torch.cat([p.to(dev, **gather) for p in parts], dim=-1)
+
+        def row_front(row, x):
+            """Step 1 on every window of one row's chunks [n, 1, t]."""
+            mids, ins = [], []
+            for dev, w in zip(row, front_w):
+                g = stages[dev]
+                xw = x[..., w.start:w.stop].to(dev, **gather).to(g.dtype)
+                mid, st_in = g.front(xw, offset=w.start, total=t)
+                mids.append(sequence.crop(mid, w, f))
+                if has_st:
+                    ins.append(sequence.crop(
+                        st_in if sub else g.encode(st_in), w, st_f))
+            return mids, ins
+
+        def spread(row):
+            """The sub-chunked stereo windows [M, 1, sub] over the row."""
+            def run(batch):
+                outs = [stages[dev].st(part.to(dev, **gather))
+                        for dev, part in zip(row, torch.tensor_split(
+                            batch, len(row))) if len(part)]
+                return torch.cat([o.to(row[0], **gather) for o in outs])
+            return run
+
+        def sharded(chunks):
+            rows = [(row, part.permute(0, 2, 1)) for row, part in zip(
+                self.mesh.rows, torch.tensor_split(
+                    chunks, self.mesh.shape["data"])) if len(part)]
+            fronts = [row_front(row, x) for row, x in rows]
+            outs = []
+            for (row, _), (mids, ins) in zip(rows, fronts):
+                d0, g0 = row[0], stages[row[0]]
+                mid = cat_on(d0, mids)
+                y = None
+                if has_st and sub:
+                    y = g0.stereo(cat_on(d0, ins), spread=spread(row))
+                elif has_st:
+                    h = g0.recur(cat_on(d0, ins))
+                    ys = [sequence.crop(stages[dev].decode(
+                        h[..., w.start:w.stop].to(dev, **gather)), w)
+                          for dev, w in zip(row, back_w)]
+                    y = cat_on(d0, ys)
+                outs.append(g0.combine(mid, y))
+            return torch.cat([o.to(self.device, **gather) for o in outs])
+
+        return sharded
+
+    def _device_stages(self, device, chunk_size: int,
+                       sample_rate: Optional[int]):
+        """The stage stack's pieces on one device: its models and int8
+        contexts, tensors on that device (_Stages)."""
         cfg = self.config
-        dtype = getattr(torch, cfg.compute_dtype)
         dn, sr, st = self._models(device)
         f = self.upscale_factor
         # source-rate stereo: the stage takes the pre-SR signal (chunk_size
@@ -353,60 +558,20 @@ class RestorationPipeline:
                   and (sr is None or _sr_packable(sr)))
         int8 = cfg.quantize_int8 and packed and self._int8_scales is not None
         int8_stereo = int8 and sub_cfg is None
-        q_dn = q_sr = q_st = None
+        q = {"denoiser": None, "super_resolution": None, "stereo": None}
         if int8:
             scope = cfg.int8_scope
             if dn is not None:
-                q_dn = self._int8_ctx("denoiser", scope,
-                                      denoiser_mod.INT8_FLOAT_LAYERS, device)
+                q["denoiser"] = self._int8_ctx(
+                    "denoiser", scope, denoiser_mod.INT8_FLOAT_LAYERS, device)
             if sr is not None:
-                q_sr = self._int8_ctx("super_resolution", scope,
-                                      device=device)
+                q["super_resolution"] = self._int8_ctx(
+                    "super_resolution", scope, device=device)
             if st is not None and int8_stereo:
-                q_st = self._int8_ctx("stereo", scope, device=device)
-
-        def ncw(fn, model, q):
-            """The NWC int8 forward of `model` on an NCW [N, 1, T] tensor."""
-            return lambda v: fn(model, v.permute(0, 2, 1), q=q).permute(
-                0, 2, 1)
-
-        run_dn = dn if q_dn is None else ncw(denoiser_mod.apply_packed, dn,
-                                             q_dn)
-        run_sr = sr if q_sr is None else ncw(sr_mod.apply_packed, sr, q_sr)
-
-        def run_stereo(v):
-            # the int8 denoiser / SR exit in the compute dtype; the int8
-            # stereo stage takes f32, as the JAX package hands it
-            if int8:
-                v = v.float() if int8_stereo else v.to(dtype)
-            return apply_stereo(st, v, sub_cfg, q=q_st)
-
-        def stack(chunks):
-            x = chunks.permute(0, 2, 1).to(dtype)  # NCW
-            if dn is not None:
-                x = run_dn(x)
-            side = None
-            if src_rate:
-                y = run_stereo(x)
-                side = (y[:, 0:1] - y[:, 1:2]) * 0.5
-            if sr is not None:
-                x = run_sr(x)
-            if st is not None:
-                if src_rate:
-                    if f > 1:
-                        side = upsample_linear(side, f)
-                    x = x + torch.cat([side, -side], dim=1).to(x.dtype)
-                else:
-                    y = run_stereo(x)
-                    if cfg.stereo_mid_exact:
-                        # out = mid +/- the predicted side: the mid is the
-                        # stage's input exactly
-                        side = (y[:, 0:1] - y[:, 1:2]) * 0.5
-                        y = torch.cat([x + side, x - side], dim=1)
-                    x = y
-            return x.float()
-
-        return stack
+                q["stereo"] = self._int8_ctx("stereo", scope, device=device)
+        return _Stages(dn, sr, st, getattr(torch, cfg.compute_dtype), f,
+                       src_rate, st_f, sub_cfg, int8, int8_stereo, q,
+                       cfg.stereo_mid_exact)
 
     def _int8_ctx(self, stage: str, scope: str, skip=frozenset(),
                   device=None):
@@ -840,10 +1005,8 @@ class RestorationPipeline:
         buckets = sorted({*range(gran, max_n + 1, gran), max_n})
         before = len(self._warmed)
         stack = self._stage_stack(chunk_size, sample_rate)
-        devices = ([self.device] if self.mesh is None
-                   else self.mesh.data_devices)
-        key = (cfg.compute_dtype, self._int8_version,
-               tuple(map(str, devices)))
+        grid = ((self.device,),) if self.mesh is None else self.mesh.devices
+        key = (cfg.compute_dtype, self._int8_version, grid)
         with torch.inference_mode():
             for n in buckets:
                 total = (n - 1) * hop + chunk_size
@@ -855,7 +1018,7 @@ class RestorationPipeline:
                     stack(torch.zeros((n, chunk_size, 1), device=self.device))
                     self._warmed.add(("chunks", n, chunk_size, sample_rate)
                                      + key)
-        for dev in dict.fromkeys(devices):
+        for dev in dict.fromkeys(d for row in grid for d in row):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         return {"programs": len(self._warmed) - before,

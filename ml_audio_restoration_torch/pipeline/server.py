@@ -467,10 +467,11 @@ class RestorationServer:
         return cls._content_length(h)
 
     def _devices(self) -> list:
-        """The devices the pipeline serves on (its mesh's, else its own),
-        each CUDA device with the card's name."""
+        """The devices the pipeline serves on (every entry of its mesh, row
+        by row, else its own device), each CUDA device with the card's
+        name."""
         mesh = self.pipeline.mesh
-        devs = [self.pipeline.device] if mesh is None else mesh.data_devices
+        devs = [self.pipeline.device] if mesh is None else mesh.flat_devices
         return [f"{d} ({torch.cuda.get_device_name(d)})" if d.type == "cuda"
                 else str(d) for d in devs]
 

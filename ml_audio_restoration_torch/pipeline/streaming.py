@@ -21,9 +21,11 @@ single-shot forward everywhere but the first `context` samples:
 outputs are then [B, ch, n*f], and each stream's output equals a
 single-stream restorer's fed the same samples. With `mesh=` (parallel/
 mesh.py) the streams are split evenly over the mesh's 'data' axis: each
-device runs its own streams with its copy of the models and holds their
-LSTM carries and decoder history, and the outputs are gathered on the
-restorer's device.
+data row's first device runs its own streams with its copy of the models
+and holds their LSTM carries and decoder history, and the outputs are
+gathered on the restorer's device. A 'model' axis above 1 leaves the rest
+of each row idle: the JAX package shards the stream batch over 'data' and
+replicates it over 'model', which computes the same output.
 
 `quantize_int8=True` runs the denoiser and SR through their packed int8
 forwards (scope "packed"; the stereo stage stays float), with scales that
@@ -76,7 +78,8 @@ class StreamingRestorer:
         their scales (a dict or a scales file); `packed=False` disables
         int8 (a warning, then float) and is otherwise ignored, as is
         `lstm_impl` (None, "scan" or "pallas"). `mesh` shards the streams
-        over its 'data' axis; `batch` must divide evenly over it."""
+        over its 'data' axis (each row's first device); `batch` must
+        divide evenly over it."""
         if mesh is not None and int(batch) % mesh.shape["data"]:
             raise ValueError(
                 f"batch {batch} must divide evenly over the 'data' mesh "

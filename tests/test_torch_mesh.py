@@ -113,14 +113,30 @@ def test_make_mesh():
 
 
 def test_model_axis_raises():
-    """Sequence-parallel whole-file serving (the 'model' axis) is not
-    ported: asking for it raises, naming ROADMAP item 4."""
-    with pytest.raises(NotImplementedError, match="item 4"):
-        make_mesh(1, model_parallel=2, devices=["cpu"] * 2)
-    mesh = Mesh(((CPU, CPU),))
-    assert mesh.shape == {"data": 1, "model": 2}
-    with pytest.raises(NotImplementedError, match="item 4"):
-        shard_batch(mesh, torch.zeros(4, 1))
+    """The 'model' axis (sequence parallelism): a data x model grid filled
+    row by row, data defaulting to len(devices) // model as in the JAX
+    package; each row's devices, its first device a data device, every
+    entry listed; shard_batch splits over the rows only. Too few devices
+    still raise."""
+    devs = [torch.device("cpu", i) for i in range(6)]
+    mesh = make_mesh(2, model_parallel=3, devices=devs)
+    assert mesh.shape == {"data": 2, "model": 3}
+    assert mesh.rows == [devs[:3], devs[3:]]
+    assert mesh.data_devices == [devs[0], devs[3]]
+    assert mesh.flat_devices == devs
+    assert make_mesh(model_parallel=2, devices=devs).shape == {
+        "data": 3, "model": 2}
+    assert make_mesh(model_parallel=4, devices=devs).shape == {
+        "data": 1, "model": 4}
+    assert Mesh(((CPU, CPU),)).shape == {"data": 1, "model": 2}
+    parts = shard_batch(make_mesh(2, 2, devices=["cpu"] * 4),
+                        torch.arange(6.0)[:, None])
+    assert [p.shape[0] for p in parts] == [3, 3]
+    with pytest.raises(ValueError, match="mesh needs 8 devices, only 6 "
+                                         "available"):
+        make_mesh(2, model_parallel=4, devices=devs)
+    with pytest.raises(ValueError, match="mesh needs 2 devices, only 1"):
+        make_mesh(model_parallel=2, devices=["cpu"])
 
 
 def test_shard_batch_uneven_and_replicate():

@@ -516,9 +516,9 @@ def test_cli_serve_data_parallel_raises(dn_stage, tmp_path):
     """`serve --data-parallel 2 --device cpu` shards the HTTP pipeline over
     a two-entry mesh of the CPU: /healthz lists both entries and a request
     is answered as the unsharded pipeline answers it (JAX
-    tests/test_pipeline.py:181's bar). What still raises is a mesh with
-    model > 1 (sequence-parallel serving, not ported), in make_mesh and in
-    a pipeline handed such a mesh."""
+    tests/test_pipeline.py:181's bar). A mesh with a 'model' axis
+    (sequence parallelism, from the library) restores as the unsharded
+    pipeline does too, at that bar."""
     proc = _serve(tmp_path, dn_stage, "--data-parallel", "2")
     try:
         ports = _announced(_lines(proc), ("http",))
@@ -540,8 +540,9 @@ def test_cli_serve_data_parallel_raises(dn_stage, tmp_path):
     assert rate == SR
     np.testing.assert_allclose(got, normalize_audio(want.numpy()),
                                atol=2e-5, rtol=1e-4)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        make_mesh(1, model_parallel=2, devices=["cpu"] * 2)
-    pipe.mesh = Mesh(((torch.device("cpu"),) * 2,))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        pipe.restore(sig, SR)
+    plain, _ = pipe.restore(sig, SR)
+    pipe.mesh = make_mesh(1, model_parallel=2, devices=["cpu"] * 2)
+    assert pipe.mesh == Mesh(((torch.device("cpu"),) * 2,))
+    seq, _ = pipe.restore(sig, SR)
+    np.testing.assert_allclose(seq.numpy(), plain.numpy(), atol=2e-5,
+                               rtol=1e-4)
