@@ -6,7 +6,8 @@
 Phases, each printing one JSON line; any failure exits non-zero:
   1. device  - the card's name and power limit (nvidia-smi);
   2. build   - every native source of the package, one compiler per
-               library, all started together: nvcc for the kernels and the
+               library, all started together: nvcc for the kernels (the
+               IIR scans' csrc/iir_scan.cu among them) and the
                latency probe of ops/_latency.py, g++ for the audio codec
                (csrc/wavio.cpp + csrc/flacio.cpp);
   3. kernels - each kernel (K1 inference recurrence, K2 train forward, K3
@@ -198,10 +199,42 @@ Phases, each printing one JSON line; any failure exits non-zero:
                device ms of each stage piece and of the gathers, the peak
                memory, and K1's [T, B]: one walk of T=5,292,000 at B=1 a
                whole-file restore (timed in k1_shapes, held against the
-               plain version on its first 22,050 steps).
+               plain version on its first 22,050 steps);
+ 21. iir     - the simulator's IIR path (csrc/iir_scan.cu behind
+               ops/iir.py) at the denoiser's training shape (B=16, C=1,
+               T=44,100 at 22.05 kHz; each walk sees 44,130 samples): the
+               crackle, rumble and per-item roll-off walks and a direct
+               form II walk of order 4, forward and adjoint, bit for bit
+               their plain versions on the same inputs (one walk's plain
+               version on the card too), each timed beside its bound and
+               its latency floor (steps x the measured dependent chain);
+               filtfilt / lfilter at order 4 and its gradient card vs CPU;
+               simulate_batch(filter_mode="iir") on the card against the
+               CPU on the same draws (1e-5) in six launches; the IIR
+               degradation timed beside the FIR path's on the same draws,
+               and scipy's sosfiltfilt on the host CPU;
+ 22. resume_jax - resuming a JAX training run at full width: the stereo
+               separator (Adam without clipping, 7 + 2N optimizer leaves)
+               and the denoiser (max_grad_norm 1, EMA 0.995; 3 + 2N): a
+               trainer's 3 steps written as checkpoint_epoch_1.msgpack in
+               the JAX layout (jax_checkpoint_payload, test tooling), then
+               train_from_config in a fresh directory resumes it and runs
+               the next 2 steps (K2/K3 counted), bit for bit the
+               uninterrupted trainer's;
+ 23. library - istft(stft(x)) of the 120 s clip (n_fft 2048, hop 512) and
+               transient_spectral_loss with its gradient on 16 x 2 s at
+               44.1 kHz, card against CPU;
+ 24. profile - utils.profiling.trace around a warm default 120 s restore
+               and around one stereo train step at full width, each read
+               with trace_device_times and trace_top_ops: the kernels'
+               total within the wall time, K1 on top of the restore's
+               recurrence bucket, and the bucket within 5% of K1's time
+               from phase kernels.
 Each phase's wall seconds follow it on a line {"phase_wall_s": ...}.
-Then one line {"kernels": [...]} (K1, K2, K3 and the int8 conv, whose
-numbers sum its layers over one 64-chunk program, each layer with its path
+Then one line {"kernels": [...]} (K1, K2, K3, the int8 conv and the IIR
+scan, whose numbers are one crackle walk's with every walk in `shapes`,
+and `floor_ms` its latency floor; the int8 conv's numbers sum its layers
+over one 64-chunk program, each layer with its path
 in `shapes`, and whose `launches_by_path` splits its launches on the main
 path among wgmma, stem and generic; K1's `path_launches` include the
 serve_mesh and serve_seq paths) and, last, the device line
@@ -281,8 +314,8 @@ def phase_build():
     from ml_audio_restoration_torch.audio import native
     from ml_audio_restoration_torch.ops import _build, _latency
 
-    sources = ("lstm_recurrence", "lstm_train", "int8_conv", _latency.PROBE,
-               native.LIBRARY)
+    sources = ("lstm_recurrence", "lstm_train", "int8_conv", "iir_scan",
+               _latency.PROBE, native.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
@@ -5501,6 +5534,483 @@ def phase_serve_seq(torch):
             "int8_conv": int8["int8_conv_launches"]}
 
 
+# ----------------------------------------------------------------- IIR scans
+IIR_RATE, IIR_B, IIR_T = 22050, 16, 44100  # the denoiser's training batch
+IIR_TOL = 0.0       # kernel vs plain: the same IEEE operations in the same
+#                     order (-fmad=false), so bit for bit
+IIR_SIM_TOL = 1e-5  # simulate_batch(iir) and DF2T filtfilt, card vs CPU
+#                     on the same inputs (DEGRADE_TOL: the pops' exp and
+#                     sin, and sums around the walks, round differently)
+
+
+def _iir_walk(torch, x, sos, zi):
+    """The rows one walk of sosfiltfilt's first pass sees: x [B, C, T]
+    oddly extended, the coefficients and the scaled steady state a row."""
+    from ml_audio_restoration_torch.ops import filters as F
+
+    sos = torch.as_tensor(sos, device=x.device).to(x.dtype)
+    zi = torch.as_tensor(zi, device=x.device).to(x.dtype)
+    n = sos.shape[-2]
+    ext = F._odd_extend(x, 3 * (2 * n + 1))
+    lead = tuple(ext.shape[:-1])
+    z0 = zi * ext[..., 0][..., None, None]
+    return (ext.reshape(-1, ext.shape[-1]).contiguous(),
+            sos.broadcast_to(lead + (n, 6)).reshape(-1, n, 6).contiguous(),
+            z0.broadcast_to(lead + (n, 2)).reshape(-1, n, 2).contiguous())
+
+
+def _iir_bound(rows: int, steps: int, flops_per_step: float):
+    """(bound ms, "bytes" or "operations") of one walk: each input read and
+    each output written once, against its f32 operations."""
+    return _bound(2 * 4 * rows * steps, flops_per_step * rows * steps)
+
+
+def _iir_rows(torch, I, walks, lat, ghz):
+    """Each walk against its plain version on the CPU (the same inputs),
+    forward and adjoint, and timed on the card beside its bound and its
+    latency floor (steps x the dependent chain of a step: four dependent
+    f32 operations a biquad step, out and z0's multiply, subtract and add;
+    three for direct form II's; FMUL and FADD share the measured FADD
+    latency)."""
+    rows, worst = [], 0.0
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for name, (x, coef, zi, kind) in walks.items():
+        fwd, adj = ((I._sos_forward, I._sos_adjoint) if kind == "sos"
+                    else (I._df2t_forward, I._df2t_adjoint))
+        plain_fwd, plain_adj = ((I.sos_scan_plain, I.sos_adjoint_plain)
+                                if kind == "sos" else
+                                (I.df2t_scan_plain, I.df2t_adjoint_plain))
+        y = fwd(x, coef, zi)
+        gy = torch.randn(x.shape, generator=gen, device="cuda")
+        gx, gzi = adj(gy, coef)
+        torch.cuda.synchronize()
+        cpu = [t.cpu() for t in (x, coef, zi, gy)]
+        y_p = plain_fwd(*cpu[:3])
+        gx_p, gzi_p = plain_adj(cpu[3], cpu[1])
+        err = {"forward": _max_dev(y.cpu(), y_p),
+               "adjoint": max(_max_dev(gx.cpu(), gx_p),
+                              _max_dev(gzi.cpu(), gzi_p))}
+        worst = max(worst, *err.values())
+        r, t = x.shape
+        size = coef.shape[1] if kind == "sos" else zi.shape[1]
+        chain = 4 if kind == "sos" else 3
+        flops = 9 * size if kind == "sos" else 4 * size + 2
+        bound, by = _iir_bound(r, t, flops)
+        rows.append({"walk": name, "kind": kind, "rows": r, "steps": t,
+                     "size": size, "max_abs_err": err,
+                     "ms": _cuda_ms(torch, lambda: fwd(x, coef, zi), 10),
+                     "adjoint_ms": _cuda_ms(torch, lambda: adj(gy, coef),
+                                            5),
+                     "bound_ms": bound, "bound_by": by,
+                     "floor_ms": t * chain * lat["fadd"] / ghz * 1e-6})
+    return rows, worst
+
+
+def phase_iir(torch):
+    """The simulator's IIR path (ops/filters.py over csrc/iir_scan.cu) at
+    the denoiser's training shape, B=16, C=1, T=44,100 at 22.05 kHz (the
+    walks see 44,130 samples: padlen 15 each side): each walk of the
+    degradation (crackle high-pass, rumble low-pass, the per-item roll-off)
+    forward and adjoint against its plain version, one walk's plain version
+    on the card too, DF2T lfilter / filtfilt at order 4, then
+    simulate_batch(filter_mode="iir") on the card against the CPU on the
+    same draws, its launches, and the whole IIR degradation timed beside
+    the FIR path's on the same draws and scipy's sosfiltfilt on the host."""
+    from scipy import signal as sig
+
+    from ml_audio_restoration_torch.config import ArtifactConfig
+    from ml_audio_restoration_torch.data import artifacts as A
+    from ml_audio_restoration_torch.ops import _latency
+    from ml_audio_restoration_torch.ops import filters as F
+    from ml_audio_restoration_torch.ops import iir as I
+
+    dev = torch.device("cuda")
+    rate, b, t = IIR_RATE, IIR_B, IIR_T
+    clean = torch.from_numpy(_mono_batch(b, t, rate, seed=31))
+    draws = A.draw_artifacts(torch.Generator().manual_seed(31), (b, 1, t),
+                             rate)
+    clean_d = clean.to(dev)
+    draws_d = {k: v.to(dev) for k, v in draws.items()}
+
+    # the three walks' inputs as apply_artifacts forms them
+    def scaled(key, level):
+        return draws_d[key] * draws_d[level][:, None, None]
+
+    mix = A.apply_artifacts(clean_d, draws_d, rate,
+                            ArtifactConfig(add_rolloff=False),
+                            filter_mode="iir")
+    f_lo, f_hi = ArtifactConfig().rolloff_freq
+    bank = F.butter_bank(3, f_lo, f_hi, rate, "low", A.ROLLOFF_BANK)
+    idx = F.bank_index(A.ROLLOFF_BANK, draws["rolloff_freq"], f_lo,
+                       f_hi).long().numpy()
+    walks = {
+        "crackle": (*_iir_walk(torch, scaled("crackle", "crackle_level"),
+                               *F.butter_sos(4, 2500.0, rate, "high")),
+                    "sos"),
+        "rumble": (*_iir_walk(torch, scaled("rumble", "rumble_level"),
+                              *F.butter_sos(4, 100.0, rate, "low")), "sos"),
+        "rolloff": (*_iir_walk(torch, mix, bank[0][idx][:, None],
+                               bank[1][idx][:, None]), "sos")}
+    bb, ba, _ = F.butter_coeffs(4, 2500.0, rate, "high")
+    ext = F._odd_extend(scaled("crackle", "crackle_level"), 15)[:, 0]
+    zi = F.lfilter_zi(bb, ba).to(dev) * ext[:, :1]
+    coef = torch.cat([torch.from_numpy(bb / ba[0]),
+                      torch.from_numpy(ba / ba[0])]).to(dev)
+    walks["df2t_order4"] = (ext.contiguous(),
+                            coef.expand(b, 10).contiguous(),
+                            zi.contiguous(), "df2t")
+    probe = _latency.step_floor(64, {"k1": 1, "k2": 1, "k3": 1}, dev)
+    lat, ghz = probe["latency_cycles"], probe["sm_ghz"]
+    rows, worst = _iir_rows(torch, I, walks, lat, ghz)
+
+    # one walk's plain version on the card, the whole length
+    x, sos, z0, _ = walks["crackle"]
+    y_k = I._sos_forward(x, sos, z0)
+    plain_ms, y_p = _timed_once(torch, lambda: I.sos_scan_plain(x, sos, z0))
+    plain_card_err = _max_dev(y_k, y_p)
+    worst = max(worst, plain_card_err)
+
+    # DF2T lfilter / filtfilt at order 4 through the public functions,
+    # with the gradient: card vs CPU
+    sig_in = scaled("crackle", "crackle_level")[:, 0]
+    xg = sig_in.clone().requires_grad_()
+    y = F.filtfilt(bb, ba, xg)
+    (y * sig_in).sum().backward()
+    xc = sig_in.cpu().clone().requires_grad_()
+    yc = F.filtfilt(bb, ba, xc)
+    (yc * sig_in.cpu()).sum().backward()
+    lf = F.lfilter(bb, ba, sig_in)
+    # (card vs CPU: the walks agree bit for bit, the gradient's products
+    # with zi and the first samples are summed in another order)
+    df2t = {"filtfilt_max_abs": _max_dev(y.detach().cpu(), yc.detach()),
+            "filtfilt_grad_max_abs": _max_dev(xg.grad.cpu(), xc.grad),
+            "lfilter_max_abs": _max_dev(lf.cpu(),
+                                        F.lfilter(bb, ba, sig_in.cpu()))}
+
+    # the simulator's IIR path: its launches, card vs CPU, timed
+    torch.cuda.synchronize()
+    I.reset_launch_count()
+    got = A.simulate_batch(torch.Generator().manual_seed(31), clean_d, rate,
+                           filter_mode="iir")
+    torch.cuda.synchronize()
+    launches = {"forward": I.launch_count, "adjoint": I.adjoint_launch_count}
+    want = A.simulate_batch(torch.Generator().manual_seed(31), clean, rate,
+                            filter_mode="iir")
+    sim_err = _max_dev(got.cpu(), want)
+    iir_ms = _cuda_ms(torch, lambda: A.apply_artifacts(
+        clean_d, draws_d, rate, filter_mode="iir"), 5)
+    fir_ms = _cuda_ms(torch, lambda: A.apply_artifacts(
+        clean_d, draws_d, rate), 5)
+    walk_ms = {r["walk"]: r["ms"] for r in rows}
+
+    # scipy's sosfiltfilt of the same three filters on the host CPU
+    host = {}
+    for name, design, arr in (
+            ("crackle", (4, 2500.0, "high"),
+             scaled("crackle", "crackle_level")),
+            ("rumble", (4, 100.0, "low"), scaled("rumble", "rumble_level")),
+            ("rolloff_7khz", (3, 7000.0, "low"), mix)):
+        s64 = sig.butter(design[0], design[1] / (rate / 2), btype=design[2],
+                         output="sos")
+        arr = arr.cpu().numpy()
+        host[name] = _host_ms(lambda: sig.sosfiltfilt(s64, arr, axis=-1))[0]
+    row = {"phase": "iir", "shape": [b, 1, t], "rate": rate,
+           "walks": rows, "kernel_vs_plain_max_abs": worst,
+           "kernel_vs_plain_tol": IIR_TOL,
+           "plain_on_card": {"walk": "crackle", "ms": plain_ms,
+                             "max_abs_err": plain_card_err},
+           "df2t_card_vs_cpu": df2t, "simulate_launches": launches,
+           "simulate_card_vs_cpu_max_abs": sim_err,
+           "simulate_tol": IIR_SIM_TOL,
+           "degradation_ms": {"iir": iir_ms, "fir": fir_ms,
+                              "iir_six_walks": 2 * sum(
+                                  walk_ms[k] for k in ("crackle", "rumble",
+                                                       "rolloff"))},
+           "latency_cycles": lat, "sm_clock": probe["sm_clock"],
+           "scipy_sosfiltfilt_host_ms": host, "host_cpu": _host_cpu()}
+    emit(row)
+    if not (worst <= IIR_TOL and sim_err <= IIR_SIM_TOL
+            and max(df2t.values()) <= IIR_SIM_TOL
+            and launches == {"forward": 6, "adjoint": 0}
+            and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"IIR path failed: {row}")
+    crackle = rows[0]
+    return {"name": "iir_scan", "route": "cuda",
+            "source": "ml_audio_restoration_torch/csrc/iir_scan.cu",
+            "replaces": "ml_audio_restoration_tpu/ops/filters.py:94",
+            "launches": launches["forward"], "max_abs_err": worst,
+            "ms": crackle["ms"], "plain_ms": plain_ms,
+            "bound_ms": crackle["bound_ms"], "bound_by": crackle["bound_by"],
+            "library_ms": None, "floor_ms": crackle["floor_ms"],
+            "shapes": rows, "path_launches": {"iir": launches["forward"]}}
+
+
+# -------------------------------------------------- resuming a JAX run
+RESUME_FILES = 48   # 2 s items: 2 batches of 16 an epoch, a validation set
+
+
+def _resume_jax_family(torch, name, root, **train):
+    """One family through a JAX-layout resume: trainer A takes 3 steps,
+    is written as checkpoint_epoch_1.msgpack (jax_checkpoint_payload), and
+    goes on through train() for one epoch of 2 steps (the uninterrupted
+    run); train_from_config in a fresh directory resumes the file and runs
+    the same epoch. Both must end equal bit for bit."""
+    from ml_audio_restoration_torch.ops import lstm as L
+    from ml_audio_restoration_torch.train.trainer import (
+        build_trainer, train_from_config)
+
+    def config(ckpt_dir):
+        cfg = _train_config(name, root, ckpt_dir, 16, 2.0)
+        cfg.train.num_epochs = 2
+        for k, v in train.items():
+            setattr(cfg.train, k, v)
+        if name == "denoiser":
+            cfg.data.data_dir = os.path.join(root, "mono")
+        return cfg
+
+    a = build_trainer(config("ck_a"), steps_per_epoch=2)
+    # three steps on batches of another loader, so that a's own loader
+    # starts its epoch where the resumed run's fresh one does
+    two = _loader_batches(build_trainer(config("ck_x"), steps_per_epoch=2),
+                          2)
+    for i, batch in enumerate(two + two[:1]):
+        a._train_step(batch, a._seeded(99, i))
+        a.global_step += 1
+    a.epoch = 1
+    path = write_jax_checkpoint(
+        a, os.path.join(root, "ck_b", name, "checkpoint_epoch_1.msgpack"))
+    a.train()
+    L.reset_launch_count()
+    history = train_from_config(config("ck_b"), steps_per_epoch=2)
+    launches = {"lstm_train_fwd": L.train_fwd_launch_count,
+                "lstm_train_bwd": L.train_bwd_launch_count}
+    b = build_trainer(config("ck_b"), steps_per_epoch=2)
+    # BN's num_batches_tracked is not in the JAX layout (it loads as 0) and
+    # no model reads it (they run BN at a fixed momentum)
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    same = (all(torch.equal(sa[k], sb[k]) for k in sa
+                if not k.endswith("num_batches_tracked"))
+        and all(torch.equal(sa[k], sb[k]) for sa, sb in zip(
+            a.optimizer.state_dict()["state"].values(),
+            b.optimizer.state_dict()["state"].values()) for k in sa)
+        and history == a.history
+        and (b.ema_params is None) == (a.ema_params is None)
+        and all(torch.equal(a.ema_params[k], b.ema_params[k])
+                for k in (a.ema_params or {})))
+    return {"family": name, "leaves": len(
+        jax_checkpoint_payload(a)["opt_state"]["leaves"]),
+        "written": path.name, "resumed_files": sorted(os.listdir(
+            os.path.join(root, "ck_b", name))),
+        "steps": [b.global_step, a.global_step], "history": history,
+        "bit_for_bit": same, "launches": launches, **train}
+
+
+def phase_resume_jax(torch):
+    """Resuming a JAX training run at full width: the stereo separator
+    (batch 16 of 2 s, K2/K3 at T=44,100 B=16; Adam without clipping, the
+    7 + 2N leaf layout) and the denoiser with max_grad_norm 1 and EMA
+    0.995 (3 + 2N); each resumed run's next 2 steps bit for bit the
+    uninterrupted run's."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_corpus(os.path.join(tmp, "wavs"), files=RESUME_FILES,
+                      seconds=2.5)
+        _write_mono_corpus(os.path.join(tmp, "mono"), RESUME_FILES, 2.5,
+                           22050)
+        rows = [_resume_jax_family(torch, "stereo_separator", tmp),
+                _resume_jax_family(torch, "denoiser", tmp,
+                                   max_grad_norm=1.0, ema_decay=0.995)]
+    emit({"phase": "resume_jax", "families": rows})
+    st = rows[0]["launches"]
+    if not (all(r["bit_for_bit"] for r in rows)
+            and [r["leaves"] for r in rows] == [7 + 2 * 68, 3 + 2 * 70]
+            and all("checkpoint_epoch_1.msgpack" in r["resumed_files"]
+                    for r in rows)
+            and st == {"lstm_train_fwd": 2, "lstm_train_bwd": 2}):
+        raise AssertionError(f"JAX resume failed: {rows}")
+    return st
+
+
+# ------------------------------------------------------- library functions
+LIB_FFT_TOL = 1e-5  # istft(stft(x)), card vs CPU, of the clip's peak
+TRANSIENT_LOSS_RTOL = 1e-5  # the transient loss, card vs CPU
+TRANSIENT_GRAD_L2 = 2e-3    # its gradient, relative L2: about five times
+#                             the reading on the H100 (3.9e-4; the
+#                             log-spectral term weighs each bin by 1/|S|)
+
+
+def phase_library(torch):
+    """istft(stft(x)) of the 120 s clip (n_fft 2048, hop 512) and
+    transient_spectral_loss with its gradient on 16 x 2 s at 44.1 kHz,
+    each on the card against the CPU."""
+    from ml_audio_restoration_torch.losses import (
+        detect_transients, transient_spectral_loss)
+    from ml_audio_restoration_torch.ops import istft, stft
+
+    clip = torch.from_numpy(_clip(120.0, 22050, seed=41))
+    n_fft, hop = 2048, 512
+
+    def roundtrip(x):
+        return istft(stft(x, n_fft, hop), n_fft, hop, length=x.shape[-1])
+
+    card = roundtrip(clip.cuda())
+    cpu = roundtrip(clip)
+    fft_ms = _cuda_ms(torch, lambda: roundtrip(clip.cuda()), 3)
+    x = torch.from_numpy(_stereo_batch(16, 88200, seed=42)["stereo"])
+    out, target = x[:, :1].transpose(1, 2), x[:, 1:].transpose(1, 2)
+
+    def loss_and_grad(o, tgt):
+        o = o.clone().requires_grad_()
+        loss = transient_spectral_loss(o, tgt)
+        loss.backward()
+        return loss.detach(), o.grad, detect_transients(tgt[:, :, 0])
+
+    lc, gc, mc = loss_and_grad(out.cuda(), target.cuda())
+    lh, gh, mh = loss_and_grad(out, target)
+    loss_ms = _cuda_ms(torch, lambda: loss_and_grad(out.cuda(),
+                                                    target.cuda()), 3)
+    row = {"phase": "library",
+           "istft_shape": list(card.shape),
+           "istft_card_vs_cpu_max_abs": _max_dev(card.cpu(), cpu),
+           "istft_roundtrip_max_abs": _max_dev(cpu, clip[:, :cpu.shape[1]]),
+           "istft_tol": LIB_FFT_TOL * float(clip.abs().max()),
+           "stft_istft_ms": fft_ms,
+           "transient_loss": [float(lc), float(lh)],
+           "transient_loss_rtol": TRANSIENT_LOSS_RTOL,
+           "transient_grad_rel_l2": _rel_l2(gc.cpu(), gh),
+           "transient_grad_tol": TRANSIENT_GRAD_L2,
+           "transient_mask_agree": float((mc.cpu() == mh).float().mean()),
+           "transient_loss_grad_ms": loss_ms}
+    emit(row)
+    if not (row["istft_card_vs_cpu_max_abs"] <= row["istft_tol"]
+            and abs(float(lc) - float(lh)) <= TRANSIENT_LOSS_RTOL * abs(
+                float(lh))
+            and row["transient_grad_rel_l2"] <= TRANSIENT_GRAD_L2
+            and card.shape[1] == hop * (clip.shape[1] // hop)):
+        raise AssertionError(f"library check failed: {row}")
+
+
+# ----------------------------------------------------------------- profile
+PROFILE_K1_REL = 0.05  # the recurrence bucket against K1's kernel_time
+
+
+def phase_profile(torch, k1_ms: float):
+    """utils.profiling.trace around a warm default 120 s restore, then
+    around one stereo train step at full width (batch 16 of 2 s), each
+    read with trace_device_times and trace_top_ops: the kernels' total is
+    at most the wall time, K1 tops the restore's recurrence bucket, and the
+    bucket is within 5% of K1's time from phase kernels."""
+    from ml_audio_restoration_torch.models import StereoSeparator
+    from ml_audio_restoration_torch.pipeline import RestorationPipeline
+    from ml_audio_restoration_torch.utils import profiling as P
+
+    dev = torch.device("cuda")
+    dn, sr, st = _models(torch, dev)
+    pipe = RestorationPipeline(dn, sr, st)
+    rate = pipe.config.sample_rate
+    clip = _clip(120.0, rate, seed=3)
+    pipe.restore(clip, rate)  # warm
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("restore", "train_step"):
+            logdir = os.path.join(tmp, name)
+            if name == "restore":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with P.trace(logdir):
+                    with P.annotate("restore"):
+                        pipe.restore(clip, rate)
+            else:
+                model = StereoSeparator().to(dev)
+                tr = _train_trainer(torch, model, dev, learning_rate=1e-4)
+                batch = _stereo_batch(16, 44100, seed=5)
+                tr._train_step(batch)  # warm
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with P.trace(logdir):
+                    with P.annotate("train_step"):
+                        tr._train_step(batch)
+            wall = (time.perf_counter() - t0) * 1e3
+            times = P.trace_device_times(logdir)
+            top = P.trace_top_ops(logdir, 8)
+            out[name] = {"wall_ms_traced": wall, "device_times": times,
+                         "top_ops": top,
+                         "top_recurrence": next(
+                             (op for op in top
+                              if P.bucket(op[0]) == "recurrence"), None)}
+    row = {"phase": "profile", **out, "k1_kernel_time_ms": k1_ms}
+    emit(row)
+    rs = out["restore"]
+    rec = rs["device_times"].get("recurrence", 0.0)
+    k1 = rs["top_recurrence"]
+    if not (0 < rs["device_times"]["total_device_ms"] <= rs["wall_ms_traced"]
+            and k1 is not None and "lstm_recurrence" in k1[0]
+            and abs(rec - k1_ms) <= PROFILE_K1_REL * k1_ms
+            and out["train_step"]["device_times"]["total_device_ms"]
+            <= out["train_step"]["wall_ms_traced"]):
+        raise AssertionError(f"profile check failed: {row}")
+
+
+# ------------------------------------------------ JAX-layout checkpoints
+def jax_checkpoint_payload(tr) -> dict:
+    """The payload the JAX trainer's save_checkpoint writes for the state
+    of port trainer `tr` (test tooling: it lets the card, which has no
+    JAX, make a JAX-layout run; the tests hold it leaf for leaf to the
+    JAX trainer's own file). The optax leaves are the layout
+    `inject_hyperparams` gives: [count, learning_rate, adam_count, *mu,
+    *nu] when the config clips, [count, b1, b2, eps, eps_root,
+    learning_rate, adam_count, *mu, *nu] when it does not."""
+    from ml_audio_restoration_torch.compat.optim import ADAM_DEFAULTS, LeafMap
+    from ml_audio_restoration_torch.compat.weights import jax_from_state_dict
+
+    name = tr.model_name
+    sd = tr.model.state_dict()
+    params, model_state = jax_from_state_dict(name, sd)
+    leaf_map = LeafMap(name, tr.model)
+    named = list(tr.model.named_parameters())
+    states = [tr.optimizer.state.get(p, {}) for _, p in named]
+
+    def leaves(key):
+        flat = np.concatenate([
+            (s[key].detach().cpu().numpy() if key in s
+             else np.zeros(tuple(p.shape), np.float32)).ravel()
+            for s, (_, p) in zip(states, named)]).astype(np.float32)
+        return [flat[idx] for idx in leaf_map.index]
+
+    step = np.asarray(int(states[0]["step"]) if "step" in states[0] else 0,
+                      np.int32)
+    lr = np.asarray(tr.lr, np.float32)
+    hyper = ([lr] if tr.cfg.max_grad_norm > 0 else
+             [np.asarray(ADAM_DEFAULTS[k], np.float32)
+              for k in ("b1", "b2", "eps", "eps_root")] + [lr])
+    payload = {
+        "params": params, "model_state": model_state,
+        "opt_state": {"leaves": [step, *hyper, step.copy(),
+                                 *leaves("exp_avg"), *leaves("exp_avg_sq")]},
+        "epoch": np.asarray(tr.epoch), "global_step": np.asarray(
+            tr.global_step),
+        "best_val_loss": np.asarray(tr.best_val_loss),
+        "lr": np.asarray(tr.lr),
+        "history": {k: np.asarray(v, np.float64)
+                    for k, v in tr.history.items()},
+        "model_name": name, "plateau_wait": np.asarray(tr._plateau_wait)}
+    if tr.ema_params is not None:
+        ema = {k: v.detach().cpu() for k, v in tr.ema_params.items()}
+        payload["ema_params"] = jax_from_state_dict(name, {**sd, **ema})[0]
+    return payload
+
+
+def write_jax_checkpoint(tr, path):
+    """`jax_checkpoint_payload(tr)` as a flax msgpack file at `path`."""
+    from pathlib import Path
+
+    from ml_audio_restoration_torch.compat import msgpack
+
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(msgpack.dumps(jax_checkpoint_payload(tr)))
+    return path
+
+
 def _timed_phase(fn, *args):
     """Run one phase and print its wall seconds on a line of its own."""
     t0 = time.perf_counter()
@@ -5562,6 +6072,12 @@ def main() -> int:
     seq = _timed_phase(phase_serve_seq, torch)
     seq_int8 = seq.pop("int8_conv")
     paths.update(seq)
+    iir = _timed_phase(phase_iir, torch)
+    resume = _timed_phase(phase_resume_jax, torch)
+    for row in rows[1:]:
+        row["path_launches"]["resume_jax"] = resume[row["name"]]
+    _timed_phase(phase_library, torch)
+    _timed_phase(phase_profile, torch, rows[0]["ms"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K1's new shapes, each with the launches of the run of the path that
@@ -5600,7 +6116,7 @@ def main() -> int:
                                    for p, v in paths.items()
                                    if v[1] is not None}
     extra = ("max_abs_err_bf16", "shapes", "path_launches", "path_max_abs_err",
-             "launches_by_path")
+             "launches_by_path", "floor_ms")
     rows.append({
         "name": "int8_conv", "route": "cuda",
         "source": "ml_audio_restoration_torch/csrc/int8_conv.cu",
@@ -5616,6 +6132,7 @@ def main() -> int:
                           "serve_int8": serve_int8,
                           "serve_mesh_int8": mesh_int8,
                           "serve_seq_int8": seq_int8}})
+    rows.append(iir)
     emit({"kernels": [{key: row[key] for key in keys + tuple(
         k for k in extra if k in row)} for row in rows]})
     emit({"ok": True, "device": {"platform": "gpu",

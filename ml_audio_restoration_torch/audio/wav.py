@@ -32,6 +32,11 @@ class WavInfo:
         self.data_offset = data_offset
         self.data_size = data_size
 
+    @property
+    def duration(self):
+        """Seconds of audio: frames / sample_rate."""
+        return self.frames / self.sample_rate
+
 
 def _parse_header(f) -> WavInfo:
     riff, _size, wave = struct.unpack("<4sI4s", f.read(12))

@@ -28,6 +28,8 @@
         --denoiser best_model.msgpack [--stereo st.pth] [--device cpu]
     python -m ml_audio_restoration_torch export best_model.msgpack \
         denoiser.pth [--ema]
+    python -m ml_audio_restoration_torch acquire internetarchive \
+        --output-dir data/raw --max-files 50
 
 `restore` restores one recording through the chain, or every recording of
 a directory (coalesced device batches); `stream` feeds recordings block by
@@ -39,8 +41,10 @@ on a directory of recordings: the denoiser on clean mono chunks degraded
 on the device, super-resolution on 44.1 kHz chunks downsampled on the
 device, the stereo separator on stereo chunks; `analyze` prints a
 recording's impulse statistics; `evaluate` measures checkpoints' quality
-on held-out audio; `export` writes a checkpoint as an upstream `.pth`.
-Recordings are WAV, FLAC, mp3 or ogg; checkpoints are upstream `.pth`
+on held-out audio; `export` writes a checkpoint as an upstream `.pth`;
+`acquire` downloads eligible stereo training recordings (acquire/).
+`train` resumes from the newest checkpoint in its checkpoint directory,
+the port's `.pth` or a `.msgpack` the JAX trainer wrote. Recordings are WAV, FLAC, mp3 or ogg; checkpoints are upstream `.pth`
 files, the port's trainer checkpoints or the JAX package's `.msgpack`
 files. All run on the card unless `--device cpu` is given.
 """
@@ -721,6 +725,32 @@ def _cmd_export(args):
     return 0
 
 
+def _add_acquire(sub):
+    p = sub.add_parser("acquire",
+                       help="download eligible stereo training data")
+    p.add_argument("source", choices=["internetarchive", "freesound",
+                                      "musopen"])
+    p.add_argument("--output-dir", default="data/raw")
+    p.add_argument("--max-files", type=int, default=50)
+    p.add_argument("--freesound-api-key", default=None)
+    return p
+
+
+def _cmd_acquire(args) -> int:
+    from .acquire import SCRAPERS, ScraperConfig
+
+    cfg = ScraperConfig(output_dir=args.output_dir,
+                        max_files_per_source=args.max_files)
+    kwargs = {}
+    if args.source == "freesound" and args.freesound_api_key:
+        kwargs["api_key"] = args.freesound_api_key
+    stats = SCRAPERS[args.source](cfg, **kwargs).run()
+    print(f"{args.source}: searched={stats.searched} "
+          f"eligible={stats.eligible} downloaded={stats.downloaded} "
+          f"skipped={stats.skipped} failed={stats.failed}")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="ml_audio_restoration_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -731,6 +761,7 @@ def main(argv=None) -> int:
     _add_analyze(sub).set_defaults(func=_cmd_analyze)
     _add_evaluate(sub).set_defaults(func=_cmd_evaluate)
     _add_export(sub).set_defaults(func=_cmd_export)
+    _add_acquire(sub).set_defaults(func=_cmd_acquire)
     args = parser.parse_args(argv)
     return args.func(args)
 

@@ -1,7 +1,7 @@
 """78rpm artifact simulator, run on the device inside the train step.
 
-Counterpart of ml_audio_restoration_tpu/data/artifacts.py on its default
-FIR path. Each item of a [B, C, T] batch gets, in this order:
+Counterpart of ml_audio_restoration_tpu/data/artifacts.py. Each item of a
+[B, C, T] batch gets, in this order:
 
 1. surface noise     - Gaussian, level ~ U(0.015, 0.03)
 2. pops              - Poisson-timed impulses (rate/s), amp ~ U(0.1, 0.5),
@@ -12,21 +12,27 @@ FIR path. Each item of a [B, C, T] batch gets, in this order:
 4. rumble            - Gaussian noise through a zero-phase 100 Hz low-pass
 5. bandwidth rolloff - zero-phase low-pass at U(6, 8) kHz on the whole mix
 
-The zero-phase filters are the truncated impulse responses of scipy's
-sosfiltfilt, designed on the host once and cached as numpy: 257 taps for
-the crackle, 2,049 for the rumble (both applied through an FFT), and a bank
-of 49 129-tap kernels over the roll-off range, one picked per item by
-`ops.filters.bank_index` and applied as a direct convolution.
+On the default FIR path (`filter_mode="fir"`) the zero-phase filters are
+the truncated impulse responses of scipy's sosfiltfilt, designed on the
+host once and cached as numpy: 257 taps for the crackle, 2,049 for the
+rumble (both applied through an FFT), and a bank of 49 129-tap kernels over
+the roll-off range, one picked per item by `ops.filters.bank_index` and
+applied as a direct convolution. On the exact IIR path
+(`filter_mode="iir"`) they are Butterworth sosfiltfilt itself
+(ops.filters, the scans of csrc/iir_scan.cu on the card): crackle a
+high-pass of order 4, rumble a low-pass of order 4, and the roll-off an
+order-3 low-pass from `butter_bank`'s 49 cutoffs, picked per item by the
+same `bank_index`, so one launch filters the batch's items each through
+its own filter (six launches a degradation).
 
 The JAX package draws from `jax.random` keys, which torch cannot
 reproduce, so the simulator is split in two: `draw_artifacts` makes every
 random quantity of a batch from a `torch.Generator` (on the generator's
 device), and `apply_artifacts` is a deterministic function of the audio and
 those draws. Fed the JAX package's own draws, `apply_artifacts` gives its
-`simulate_batch` output. The adaptive per-item overrides (impulse rate,
-amplitude bound, noise level; AdaptiveArtifactDataset) change only the
-draws. The exact IIR path (`filter_mode="iir"`) is not ported yet
-(the simulator's IIR path, ROADMAP §1).
+`simulate_batch` output, in either filter mode. The adaptive per-item
+overrides (impulse rate, amplitude bound, noise level;
+AdaptiveArtifactDataset) change only the draws.
 """
 from __future__ import annotations
 
@@ -38,10 +44,12 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ArtifactConfig
-from ..ops.filters import bank_index
+from ..ops.filters import (bank_index, butter_bank, butter_filtfilt,
+                           sosfiltfilt)
 
 ROLLOFF_BANK = 49    # grid points of the roll-off cutoff bank
 FFT_ABOVE_TAPS = 192  # longer kernels are applied through an FFT
+FILTER_MODES = ("fir", "iir")
 
 
 # --------------------------------------------------------------------- FIR
@@ -232,11 +240,9 @@ def draw_artifacts(generator: torch.Generator, shape, sample_rate: int,
 
 
 def _check_filter_mode(filter_mode: str):
-    if filter_mode != "fir":
-        raise NotImplementedError(
-            f"filter_mode={filter_mode!r}: the IIR sosfiltfilt path is not "
-            f"ported yet (the simulator's IIR path, ROADMAP §1); the port "
-            f"filters with FIR kernels")
+    if filter_mode not in FILTER_MODES:
+        raise ValueError(f"filter_mode must be one of {FILTER_MODES}, got "
+                         f"{filter_mode!r}")
 
 
 def apply_artifacts(audio, draws: dict, sample_rate: int,
@@ -244,32 +250,46 @@ def apply_artifacts(audio, draws: dict, sample_rate: int,
                     filter_mode: str = "fir"):
     """Degrade clean audio [B, C, T] with the artifacts `draws` describe
     (draw_artifacts' keys, on audio's device) -> [B, C, T]. Deterministic:
-    the same audio and draws give the same output."""
+    the same audio and draws give the same output. `filter_mode` "fir"
+    filters with the truncated zero-phase FIR kernels, "iir" with
+    Butterworth sosfiltfilt."""
     _check_filter_mode(filter_mode)
     cfg = cfg or ArtifactConfig()
     t = audio.shape[-1]
+    iir = filter_mode == "iir"
 
     def scaled(noise, level):
         return draws[noise] * draws[level][:, None, None]
 
-    def kernel(*design):
-        return torch.as_tensor(zero_phase_fir(*design), device=audio.device,
-                               dtype=audio.dtype)
+    def zero_phase(x, order, cutoff, btype, taps):
+        if iir:
+            return butter_filtfilt(x, order, cutoff, sample_rate, btype)
+        kernel = torch.as_tensor(
+            zero_phase_fir(order, cutoff, sample_rate, btype, taps),
+            device=audio.device, dtype=audio.dtype)
+        return _fir_same(x, kernel)
 
     out = audio + scaled("surface", "surface_level")
     out = out + _make_pops(draws, t, sample_rate, cfg)[:, None]
-    out = out + _fir_same(scaled("crackle", "crackle_level"),
-                          kernel(4, 2500.0, sample_rate, "high", 257))
+    out = out + zero_phase(scaled("crackle", "crackle_level"), 4, 2500.0,
+                           "high", 257)
     if cfg.add_rumble:
-        out = out + _fir_same(scaled("rumble", "rumble_level"),
-                              kernel(4, 100.0, sample_rate, "low", 2049))
+        out = out + zero_phase(scaled("rumble", "rumble_level"), 4, 100.0,
+                               "low", 2049)
     if cfg.add_rolloff:
         f_lo, f_hi = cfg.rolloff_freq
-        bank = torch.as_tensor(zero_phase_fir_bank(
-            3, f_lo, f_hi, sample_rate, "low", 129, num=ROLLOFF_BANK),
-            device=audio.device, dtype=audio.dtype)
-        idx = bank_index(ROLLOFF_BANK, draws["rolloff_freq"], f_lo, f_hi)
-        out = _fir_same(out, bank[idx.long()])
+        idx = bank_index(ROLLOFF_BANK, draws["rolloff_freq"], f_lo,
+                         f_hi).long()
+        if iir:
+            sos, zi = (torch.as_tensor(a, device=audio.device)[idx][:, None]
+                       for a in butter_bank(3, f_lo, f_hi, sample_rate,
+                                            "low", ROLLOFF_BANK))
+            out = sosfiltfilt(sos, out, zi=zi)
+        else:
+            bank = torch.as_tensor(zero_phase_fir_bank(
+                3, f_lo, f_hi, sample_rate, "low", 129, num=ROLLOFF_BANK),
+                device=audio.device, dtype=audio.dtype)
+            out = _fir_same(out, bank[idx])
     return out
 
 
@@ -284,7 +304,8 @@ def simulate_batch(generator: torch.Generator, batch, sample_rate: int,
     draws = draw_artifacts(generator, tuple(batch.shape), sample_rate, cfg,
                            dtype=batch.dtype, overrides=overrides)
     draws = {k: v.to(batch.device) for k, v in draws.items()}
-    return apply_artifacts(batch, draws, sample_rate, cfg)
+    return apply_artifacts(batch, draws, sample_rate, cfg,
+                           filter_mode=filter_mode)
 
 
 def simulate_vinyl_artifacts(generator: torch.Generator, audio,

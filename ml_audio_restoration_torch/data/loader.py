@@ -120,3 +120,14 @@ def train_val_split(dataset, val_fraction: float, seed: int = 0):
     order = np.random.default_rng(seed).permutation(n)
     n_val = int(n * val_fraction)
     return order[n_val:], order[:n_val]
+
+
+def prepare_dataset(data_dir, batch_size: int = 16, num_workers: int = 4,
+                    **dataset_kwargs) -> DataLoader:
+    """A RestorationDataset over `data_dir` (dataset_kwargs passed on) in
+    a shuffling DataLoader."""
+    from .datasets import RestorationDataset
+
+    dataset = RestorationDataset(data_dir, **dataset_kwargs)
+    return DataLoader(dataset, batch_size, shuffle=True,
+                      num_workers=num_workers)

@@ -29,8 +29,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 GXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-pthread", "-shared"]
 #: nvcc flags of one library beyond NVCC_FLAGS: the int8 conv's epilogue
-#: must round each f32 operation on its own, as its plain version does
-EXTRA_NVCC_FLAGS = {"int8_conv": ["-fmad=false"]}
+#: and the IIR scans' steps must round each operation on their own, as
+#: their plain versions do
+EXTRA_NVCC_FLAGS = {"int8_conv": ["-fmad=false"], "iir_scan": ["-fmad=false"]}
 #: libraries built with g++ for the host: name -> translation units in csrc/
 HOST_LIBRARIES = {"wavio": ("wavio.cpp", "flacio.cpp")}
 

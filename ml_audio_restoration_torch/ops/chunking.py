@@ -19,6 +19,16 @@ def num_chunks(length: int, chunk_size: int, hop: int) -> int:
     return 1 + math.ceil((length - chunk_size) / hop)
 
 
+def chunk_signal(x, chunk_size: int, hop: int):
+    """Frame [C, T] into [N, C, chunk_size] chunks `hop` apart, the tail
+    zero-padded. Returns (chunks, original length)."""
+    c, t = x.shape
+    n = num_chunks(t, chunk_size, hop)
+    total = (n - 1) * hop + chunk_size
+    xp = F.pad(x, (0, total - t))
+    return xp.unfold(-1, chunk_size, hop).transpose(0, 1).contiguous(), t
+
+
 def crossfade_window(chunk_size: int, overlap: int, dtype=torch.float32,
                      device=None):
     """Trapezoid window with linear ramps of `overlap` samples at both ends;

@@ -84,6 +84,22 @@ def lstm_recurrence_plain(gates_tm, w_hh, h0, c0):
     return out, h, c
 
 
+def lstm_init(generator: torch.Generator, input_size: int, hidden_size: int,
+              dtype=torch.float32):
+    """torch.nn.LSTM's init in the JAX layout: w_ih [C, 4H], w_hh [H, 4H],
+    b_ih and b_hh [4H], each ~ U(-1/sqrt(H), 1/sqrt(H)), drawn from
+    `generator` on its device."""
+    bound = 1.0 / hidden_size ** 0.5
+
+    def u(*shape):
+        return (torch.rand(shape, generator=generator, dtype=dtype,
+                           device=generator.device) * 2 - 1) * bound
+
+    return {"w_ih": u(input_size, 4 * hidden_size),
+            "w_hh": u(hidden_size, 4 * hidden_size),
+            "b_ih": u(4 * hidden_size), "b_hh": u(4 * hidden_size)}
+
+
 _KERNEL_HIDDEN = (16, 32, 64)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

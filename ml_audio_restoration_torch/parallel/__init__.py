@@ -5,6 +5,7 @@ from .distributed import (
     average_gradients,
     broadcast_from_primary,
     device_for_rank,
+    global_device_count,
     initialize,
     is_primary,
     local_batch_size,
@@ -21,6 +22,7 @@ __all__ = [
     "average_gradients",
     "broadcast_from_primary",
     "device_for_rank",
+    "global_device_count",
     "initialize",
     "is_primary",
     "local_batch_size",

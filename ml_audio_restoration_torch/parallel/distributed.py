@@ -117,6 +117,17 @@ def process_count() -> int:
     return tdist.get_world_size() if _active() else 1
 
 
+def global_device_count() -> int:
+    """The devices the job computes on. Under a process group each rank
+    trains on one device of its own (device_for_rank), so it is the rank
+    count; ranks that share a card each hold a replica and count as one
+    device apiece. Without a group it is the cards this process sees (the
+    serving mesh spans them), or the CPU where there is none."""
+    if _active():
+        return process_count()
+    return max(torch.cuda.device_count(), 1)
+
+
 def is_primary() -> bool:
     """True on the process that writes checkpoints, metrics and renders."""
     return process_index() == 0

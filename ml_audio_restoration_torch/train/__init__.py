@@ -5,6 +5,7 @@ from .checkpoints import (
     epoch_checkpoint_name,
     latest_checkpoint,
     load_checkpoint,
+    load_native,
     save_checkpoint,
 )
 from .trainer import (
@@ -13,5 +14,6 @@ from .trainer import (
 
 __all__ = ["AsyncCheckpointer", "MODELS", "PAIRINGS", "Trainer",
            "build_trainer", "cleanup_old_epochs", "epoch_checkpoint_name",
-           "latest_checkpoint", "load_checkpoint", "render_test_outputs",
+           "latest_checkpoint", "load_checkpoint", "load_native",
+           "render_test_outputs",
            "save_checkpoint", "train_from_config"]

@@ -7,10 +7,13 @@ progress, history and the model family. Retention keeps the newest epoch
 checkpoint plus best_model; resume walks them newest first.
 
 The format is torch.save (`checkpoint_epoch_{n}.pth`, `best_model.pth`).
-The JAX package's checkpoints are flax msgpack files; `load_msgpack` and
+The JAX package's checkpoints are flax msgpack files
+(`checkpoint_epoch_{n}.msgpack`, `best_model.msgpack`); `load_msgpack` and
 `load_native` read them through compat/msgpack.py (neither flax nor
-msgpack is on the card's machine), for their weights: the port's trainer
-resumes from its own `.pth` only.
+msgpack is on the card's machine). Resume walks both kinds, so a run
+started on the TPU goes on in the port (Trainer.load_checkpoint maps the
+payload), which writes `.pth` from then on; retention deletes only the
+`.pth` epoch checkpoints the port wrote.
 """
 from __future__ import annotations
 
@@ -134,8 +137,10 @@ class AsyncCheckpointer:
                 "saving does NOT exist on disk)") from e
 
 
-_EPOCH_RE = re.compile(r"checkpoint_epoch_(\d+)\.pth$")
+_EPOCH_RE = re.compile(r"checkpoint_epoch_(\d+)\.(pth|msgpack)$")
 BEST = "best_model.pth"
+#: resume order at an equal epoch: the port's own file first
+SUFFIXES = (".pth", ".msgpack")
 
 
 def epoch_checkpoint_name(epoch: int) -> str:
@@ -143,7 +148,8 @@ def epoch_checkpoint_name(epoch: int) -> str:
 
 
 def cleanup_old_epochs(checkpoint_dir, keep_path):
-    """Keep only `keep_path` among the epoch checkpoints."""
+    """Keep only `keep_path` among the port's epoch checkpoints (`.pth`; a
+    JAX `.msgpack` is never deleted: the port did not write it)."""
     keep = Path(keep_path)
     for p in Path(checkpoint_dir).glob("checkpoint_epoch_*.pth"):
         if p != keep:
@@ -151,20 +157,23 @@ def cleanup_old_epochs(checkpoint_dir, keep_path):
 
 
 def all_checkpoints(checkpoint_dir):
-    """Resume candidates, best first: epoch checkpoints newest first, then
-    best_model. Empty if there are none."""
+    """Resume candidates, best first: epoch checkpoints (`.pth` and JAX
+    `.msgpack`) newest first, the port's `.pth` first at an equal epoch,
+    then best_model.pth, then best_model.msgpack. Empty if there are
+    none."""
     d = Path(checkpoint_dir)
     if not d.is_dir():
         return []
     epochs = []
-    for p in d.glob("checkpoint_epoch_*.pth"):
+    for p in d.glob("checkpoint_epoch_*"):
         m = _EPOCH_RE.search(p.name)
         if m:
-            epochs.append((int(m.group(1)), p))
-    out = [p for _, p in sorted(epochs, reverse=True)]
-    best = d / BEST
-    if best.exists():
-        out.append(best)
+            epochs.append((-int(m.group(1)), SUFFIXES.index(p.suffix), p))
+    out = [p for *_, p in sorted(epochs)]
+    for suffix in SUFFIXES:
+        best = (d / BEST).with_suffix(suffix)
+        if best.exists():
+            out.append(best)
     return out
 
 

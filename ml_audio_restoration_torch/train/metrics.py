@@ -35,6 +35,11 @@ class MetricsLogger:
         if self._tb is not None:
             self._tb.add_scalar(tag, value, step)
 
+    def add_scalars(self, scalars: dict, step: int, prefix: str = ""):
+        """add_scalar for each {tag: value}, each tag behind `prefix`."""
+        for k, v in scalars.items():
+            self.add_scalar(f"{prefix}{k}", v, step)
+
     def add_audio(self, tag: str, audio, sample_rate: int, step: int):
         """audio: [C, T] -> WAV under <log_dir>/audio/."""
         from ..audio import save_audio

@@ -20,8 +20,9 @@ Adam with optional
 global-norm clipping (optax's `clip_by_global_norm` semantics),
 ReduceLROnPlateau (patience 5, factor 0.5) by mutating the optimizer's
 `lr`, an optional EMA of the weights for validation and rendering,
-checkpoint/resume with retention and a corrupt-file fallback, metrics
-every 50 steps.
+checkpoint/resume with retention and a corrupt-file fallback (resume also
+reads the JAX trainer's `.msgpack` checkpoints, Adam state included),
+metrics every 50 steps.
 
 `compute_dtype="bfloat16"` is JAX's AMP: each forward runs on bf16 casts
 of the f32 parameters (`models.cast_params`; the BN running statistics stay
@@ -65,6 +66,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..compat.optim import LeafMap, adam_from_jax
+from ..compat.weights import state_dict_from_jax
 from ..config import ArtifactConfig, Config, PipelineConfig, TrainConfig
 from ..data import artifacts
 from ..losses import (
@@ -659,13 +662,19 @@ class Trainer:
             print(f"checkpoint saved: {path}")
 
     def load_checkpoint(self, filename_or_path):
+        """Resume from a checkpoint: the port's `.pth`, or a `.msgpack` the
+        JAX trainer wrote (its params, BN statistics, Adam moments and
+        step, EMA, LR, plateau counter and history carried over)."""
         path = Path(filename_or_path)
         if not path.exists():
             path = self.checkpoint_dir / filename_or_path
-        payload = ckpt.load_checkpoint(path)
         # read and check EVERY key before mutating the trainer, so a
         # rejected checkpoint leaves it as it was and maybe_resume's
         # fallback walk cannot leave it half loaded
+        if path.suffix == ".msgpack":
+            payload = self._payload_from_jax(ckpt.load_msgpack(path), path)
+        else:
+            payload = ckpt.load_checkpoint(path)
         saved_name = str(payload["model_name"])
         if saved_name != self.model_name:
             raise ValueError(
@@ -706,6 +715,45 @@ class Trainer:
         self._plateau_wait = plateau_wait
         self.history = history
         print(f"checkpoint loaded: {path} (epoch {self.epoch})")
+
+    def _payload_from_jax(self, payload: dict, path) -> dict:
+        """A JAX trainer's checkpoint payload as the port's: the weights and
+        EMA through state_dict_from_jax, the optax leaves as Adam's state
+        (compat/optim.py; the layout the trainer's clipping gives, else a
+        ValueError), the rest as saved."""
+        name = payload["model_name"]
+        name = name.decode() if isinstance(name, bytes) else str(name)
+        if name != self.model_name:
+            raise ValueError(
+                f"checkpoint {path} is for model {name!r}; this trainer "
+                f"trains {self.model_name!r}")
+        params, model_state = payload["params"], payload["model_state"]
+        sd = state_dict_from_jax(name, params, model_state)
+        lr = float(np.asarray(payload["lr"]))
+        step, mu, nu = adam_from_jax(
+            payload["opt_state"]["leaves"], LeafMap(name, self.model),
+            clipped=self.cfg.max_grad_norm > 0, lr=lr)
+        template = self._make_optimizer().state_dict()
+        names = [n for n, _ in self.model.named_parameters()]
+        opt_state = {"param_groups": template["param_groups"], "state": {
+            i: {"step": torch.tensor(float(step)),
+                "exp_avg": torch.from_numpy(mu[n]),
+                "exp_avg_sq": torch.from_numpy(nu[n])}
+            for i, n in enumerate(names)}}
+        ema = payload.get("ema_params")
+        if ema is not None:
+            ema = state_dict_from_jax(name, ema, model_state)
+            ema = {n: ema[n] for n in names}
+        return {"model_name": name, "model_state_dict": sd,
+                "opt_state": opt_state, "ema_params": ema,
+                "epoch": int(np.asarray(payload["epoch"])),
+                "global_step": int(np.asarray(payload["global_step"])),
+                "best_val_loss": float(np.asarray(payload["best_val_loss"])),
+                "lr": lr,
+                "plateau_wait": int(np.asarray(payload.get("plateau_wait",
+                                                           0))),
+                "history": {k: np.asarray(v, np.float64).tolist()
+                            for k, v in payload["history"].items()}}
 
     def maybe_resume(self):
         """Resume from the newest readable checkpoint. Saves are atomic, but

@@ -281,12 +281,15 @@ def test_draws_lie_in_their_ranges():
 
 
 def test_iir_filter_mode_raises():
+    """"iir" is a filter mode since the IIR path was ported (held to JAX in
+    tests/test_torch_iir.py); a mode that is neither "fir" nor "iir"
+    raises in both entry points."""
     x = torch.zeros(1, 1, 1000)
-    match = "the simulator's IIR path, ROADMAP §1"
-    with pytest.raises(NotImplementedError, match=match):
-        PA.simulate_batch(torch.Generator(), x, SR, filter_mode="iir")
-    with pytest.raises(NotImplementedError, match=match):
-        PA.apply_artifacts(x, {}, SR, filter_mode="iir")
+    match = "filter_mode must be one of"
+    with pytest.raises(ValueError, match=match):
+        PA.simulate_batch(torch.Generator(), x, SR, filter_mode="butter")
+    with pytest.raises(ValueError, match=match):
+        PA.apply_artifacts(x, {}, SR, filter_mode="butter")
 
 
 # --------------------------------------------------------- io helpers

@@ -26,6 +26,11 @@ its `.pth` twin bit for bit. int8: csrc/int8_conv.cu against its plain
 version bit for bit over the int8 layers' geometries and every epilogue,
 and an int8 restore on the card (bit for bit its plain-conv twin, within a
 quarter of its int8-vs-f32 deviation of the CPU on the same scales).
+IIR scans: csrc/iir_scan.cu's forward and adjoint walks bit for bit their
+plain versions (biquad cascades of 1 to 4 sections, direct form II of order
+1 to 8, f32 and f64, one filter a row), and simulate_batch(filter_mode=
+"iir") on the card within 1e-5 of the CPU on the same draws, in six
+forward launches.
 """
 import contextlib
 
@@ -660,3 +665,55 @@ def test_server_copy_is_not_held_by_the_next_program(card):
         assert torch.equal(first.out, want.cpu())
     finally:
         srv._httpd.server_close()
+
+
+# ----------------------------------------------------------- IIR scans
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind,size", [("sos", n) for n in (1, 2, 3, 4)]
+                         + [("df2t", n) for n in (1, 2, 4, 8)])
+def test_iir_scan_kernel_matches_plain(card, kind, size, dtype):
+    from scipy import signal as sig
+
+    from ml_audio_restoration_torch.ops import iir
+
+    rows, t = 5, 1001
+    rng = np.random.default_rng(size)
+    x = torch.from_numpy(rng.normal(size=(rows, t))).to(dtype)
+    gy = torch.from_numpy(rng.normal(size=(rows, t))).to(dtype)
+    cut = rng.uniform(0.05, 0.6, rows)
+    if kind == "sos":
+        coef = torch.from_numpy(np.stack([sig.butter(
+            2 * size, c, output="sos") for c in cut])).to(dtype)
+        zi = torch.from_numpy(rng.normal(size=(rows, size, 2))).to(dtype)
+        fwd, adj = iir._sos_forward, iir._sos_adjoint
+    else:
+        coef = torch.from_numpy(np.stack([np.concatenate(sig.butter(
+            size, c)) for c in cut])).to(dtype)
+        zi = torch.from_numpy(rng.normal(size=(rows, size))).to(dtype)
+        fwd, adj = iir._df2t_forward, iir._df2t_adjoint
+    iir.reset_launch_count()
+    y = fwd(*(a.to(card) for a in (x, coef, zi)))
+    gx, gzi = adj(gy.to(card), coef.to(card))
+    assert (iir.launch_count, iir.adjoint_launch_count) == (1, 1)
+    assert torch.equal(y.cpu(), fwd(x, coef, zi))
+    want_gx, want_gzi = adj(gy, coef)
+    assert torch.equal(gx.cpu(), want_gx)
+    assert torch.equal(gzi.cpu(), want_gzi)
+
+
+@pytest.mark.cuda
+def test_iir_simulate_batch_on_the_card(card):
+    from ml_audio_restoration_torch.data import artifacts as A
+    from ml_audio_restoration_torch.ops import iir
+
+    rng = np.random.default_rng(3)
+    clean = torch.from_numpy(
+        (rng.normal(size=(4, 1, 22050)) * 0.1).astype(np.float32))
+    iir.reset_launch_count()
+    got = A.simulate_batch(torch.Generator().manual_seed(5), clean.to(card),
+                           22050, filter_mode="iir")
+    assert iir.launch_count == 6
+    want = A.simulate_batch(torch.Generator().manual_seed(5), clean, 22050,
+                            filter_mode="iir")
+    assert float((got.cpu() - want).abs().max()) <= 1e-5

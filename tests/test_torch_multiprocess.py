@@ -215,6 +215,29 @@ def test_one_rank_group_step_is_the_plain_step():
             assert torch.equal(a[k], b[k]), k
 
 
+@pytest.mark.parametrize("group,count,cards,devices", [
+    (False, 1, 0, 1),   # one process on the CPU
+    (False, 1, 8, 8),   # one process over a host's cards (serving mesh)
+    (True, 8, 8, 8),    # torchrun on an 8-card host: one card a rank
+    (True, 2, 1, 2)])   # two ranks sharing one card: a replica each
+def test_global_device_count(monkeypatch, group, count, cards, devices):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(dist, "_active", lambda: group)
+    _ranks(monkeypatch, 0, count)
+    assert dist.global_device_count() == devices
+
+
+def test_global_device_count_in_a_one_rank_group(monkeypatch):
+    """A real one-rank group on a host that shows 8 cards: one device."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    assert dist.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cpu")
+    try:
+        assert dist.global_device_count() == 1
+    finally:
+        dist.shutdown()
+    assert dist.global_device_count() == 8
+
+
 # ------------------------------------------------------------ trainer
 @pytest.mark.parametrize("data_parallel,count", [(2, 1), (1, 2), (4, 2)])
 def test_data_parallel_must_equal_the_process_count(monkeypatch,
