@@ -206,13 +206,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
                crackle, rumble and per-item roll-off walks and a direct
                form II walk of order 4, forward and adjoint, bit for bit
                their plain versions on the same inputs (one walk's plain
-               version on the card too), each timed beside its bound and
-               its latency floor (steps x the measured dependent chain);
-               filtfilt / lfilter at order 4 and its gradient card vs CPU;
-               simulate_batch(filter_mode="iir") on the card against the
-               CPU on the same draws (1e-5) in six launches; the IIR
-               degradation timed beside the FIR path's on the same draws,
-               and scipy's sosfiltfilt on the host CPU;
+               version on the card too) and within 1e-6 of the peak of
+               scipy's float64 filter, each timed beside its bytes bound
+               and the blocked design's floors (its latency chain and its
+               double operations over the FP64 lanes of one SM a row);
+               the same checks at the partition's edges (40, 65 and
+               100,000 steps); filtfilt / lfilter at order 4 and its
+               gradient card vs CPU; simulate_batch(filter_mode="iir") on
+               the card against the CPU on the same draws (1e-5) in six
+               launches; the IIR degradation timed beside the FIR path's
+               on the same draws and traced (its top device ops and the
+               host's gaps), and scipy's sosfiltfilt on the host CPU;
  22. resume_jax - resuming a JAX training run at full width: the stereo
                separator (Adam without clipping, 7 + 2N optimizer leaves)
                and the denoiser (max_grad_norm 1, EMA 0.995; 3 + 2N): a
@@ -5541,6 +5545,15 @@ IIR_TOL = 0.0       # kernel vs plain: the same IEEE operations in the same
 IIR_SIM_TOL = 1e-5  # simulate_batch(iir) and DF2T filtfilt, card vs CPU
 #                     on the same inputs (DEGRADE_TOL: the pops' exp and
 #                     sin, and sums around the walks, round differently)
+IIR_REF_TOL = 1e-6  # a walk, forward or adjoint (gx), against scipy's
+#                     float64 filter of the same f32 coefficients and state,
+#                     of the reference's peak: the double state's accuracy
+#                     (JAX's f32 serial walk of the rumble low-pass: 3.3e-5)
+IIR_EDGE_STEPS = (40, 65, 100_000)  # below one block, one past it, and a
+#                     row long enough that the blocks grow past 64 steps
+H100_FP64_LANES = 64  # FP64 operations an SM issues a cycle: 33.5 TFLOP/s
+#                     FP64 (an FMA two) over 132 SMs at 1.98 GHz, H100 SXM
+#                     data sheet
 
 
 def _iir_walk(torch, x, sos, zi):
@@ -5565,45 +5578,190 @@ def _iir_bound(rows: int, steps: int, flops_per_step: float):
     return _bound(2 * 4 * rows * steps, flops_per_step * rows * steps)
 
 
+def _iir_reference(kind, x, coef, zi, gy):
+    """(y, gx) of scipy's float64 filter, a row at a time, with each row's
+    coefficients and initial state widened to float64: y the forward walk,
+    gx the adjoint's (a linear time-invariant filter's transpose is the
+    same filter on the time-reversed cotangent from the zero state,
+    reversed back)."""
+    from scipy import signal as sig
+
+    x, coef, zi, gy = (t.detach().cpu().double().numpy()
+                       for t in (x, coef, zi, gy))
+    ys, gxs = [], []
+    for r in range(x.shape[0]):
+        if kind == "sos":
+            y, _ = sig.sosfilt(coef[r], x[r], zi=zi[r])
+            gx = sig.sosfilt(coef[r], gy[r, ::-1])[::-1]
+        else:
+            b, a = np.split(coef[r], 2)
+            y, _ = sig.lfilter(b, a, x[r], zi=zi[r])
+            gx = sig.lfilter(b, a, gy[r, ::-1])[::-1]
+        ys.append(y)
+        gxs.append(gx)
+    return np.stack(ys), np.stack(gxs)
+
+
+def _peak_dev(got, want) -> float:
+    """max |got - want| over the peak of want."""
+    got = got.detach().cpu().double().numpy()
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _iir_check(torch, I, kind, x, coef, zi, gy):
+    """One walk on the card, forward and adjoint: (its max abs deviations
+    from the plain versions on the CPU, its deviations from scipy's
+    float64 reference over the reference's peak)."""
+    fwd, adj = ((I._sos_forward, I._sos_adjoint) if kind == "sos"
+                else (I._df2t_forward, I._df2t_adjoint))
+    plain_fwd, plain_adj = ((I.sos_scan_plain, I.sos_adjoint_plain)
+                            if kind == "sos" else
+                            (I.df2t_scan_plain, I.df2t_adjoint_plain))
+    y = fwd(x, coef, zi)
+    gx, gzi = adj(gy, coef)
+    torch.cuda.synchronize()
+    cpu = [t.cpu() for t in (x, coef, zi, gy)]
+    gx_p, gzi_p = plain_adj(cpu[3], cpu[1])
+    y_ref, gx_ref = _iir_reference(kind, *cpu)
+    return {"forward": _max_dev(y.cpu(), plain_fwd(*cpu[:3])),
+            "adjoint": max(_max_dev(gx.cpu(), gx_p),
+                           _max_dev(gzi.cpu(), gzi_p))}, {
+        "forward": _peak_dev(y, y_ref), "adjoint": _peak_dev(gx, gx_ref)}
+
+
+def _iir_ops(kind: str, size: int) -> int:
+    """Double operations of one step of a walk, forward or adjoint (they
+    are equal): nine a biquad section, 4 N + 1 a DF2T step of order N."""
+    return 9 * size if kind == "sos" else 4 * size + 1
+
+
+def _iir_floors(kind: str, size: int, rows: int, steps: int, lat: dict,
+                ghz: float, sms: int) -> dict:
+    """The blocked design's floors, ms: `latency`, its critical chain (two
+    passes of L steps, local and replay, at four dependent DADD-latency
+    operations a biquad step and three a DF2T one, plus the combine's
+    log2(P) levels, each a product of 2 n dependent operations and a
+    shared-memory round trip through a barrier, twice); `fp64_issue`, its
+    double operations (the passes' 2 T steps, the unit states' n L, the
+    combine's levels x P x 2 n^2) over the FP64 lanes of an SM, one CTA a
+    row and `sms` rows at once; and the serial design's latency floor
+    (`serial`, T steps of the chain in f32), which no one-thread-a-row walk
+    beats."""
+    from ml_audio_restoration_torch.ops import iir as I
+
+    block, blocks = I.partition(steps)
+    n = 2 * size if kind == "sos" else size
+    chain = 4 if kind == "sos" else 3
+    levels = (blocks - 1).bit_length()
+    latency = (2 * block * chain + levels * 2 * n) * lat["dadd"] + (
+        levels * 2 * lat["sts_bar_lds_fadd"])
+    ops = (_iir_ops(kind, size) * (2 * steps + n * block)
+           + levels * blocks * 2 * n * n)
+    waves = -(-rows // sms)
+    return {"latency_ms": latency / ghz * 1e-6,
+            "fp64_issue_ms": waves * ops / H100_FP64_LANES / ghz * 1e-6,
+            "serial_ms": steps * chain * lat["fadd"] / ghz * 1e-6,
+            "block": block, "blocks": blocks, "levels": levels,
+            "fp64_ops_per_row": ops}
+
+
+def _iir_kernel_ms(torch, fn, reps: int = 20) -> float:
+    """The median device time of one launch of fn's kernel over `reps`
+    calls. A walk is shorter than the host's work for a call, so the calls
+    queue behind a spin of the card first (torch.cuda._sleep, ~5 ms) and
+    run back to back, each between its own pair of CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10_000_000)
+    return _cuda_ms(torch, fn, reps)
+
+
 def _iir_rows(torch, I, walks, lat, ghz):
-    """Each walk against its plain version on the CPU (the same inputs),
-    forward and adjoint, and timed on the card beside its bound and its
-    latency floor (steps x the dependent chain of a step: four dependent
-    f32 operations a biquad step, out and z0's multiply, subtract and add;
-    three for direct form II's; FMUL and FADD share the measured FADD
-    latency)."""
-    rows, worst = [], 0.0
+    """Each walk against its plain version on the CPU (the same inputs) and
+    scipy's float64 filter, forward and adjoint, and timed on the card
+    beside its bytes bound and the design's floors (_iir_floors): the
+    kernel's device time (`ms`, `adjoint_ms`) and a forward call's on the
+    stream, the wrapper's host work included (`call_ms`)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, worst, worst_ref = [], 0.0, 0.0
     gen = torch.Generator(device="cuda").manual_seed(8)
     for name, (x, coef, zi, kind) in walks.items():
         fwd, adj = ((I._sos_forward, I._sos_adjoint) if kind == "sos"
                     else (I._df2t_forward, I._df2t_adjoint))
-        plain_fwd, plain_adj = ((I.sos_scan_plain, I.sos_adjoint_plain)
-                                if kind == "sos" else
-                                (I.df2t_scan_plain, I.df2t_adjoint_plain))
-        y = fwd(x, coef, zi)
         gy = torch.randn(x.shape, generator=gen, device="cuda")
-        gx, gzi = adj(gy, coef)
-        torch.cuda.synchronize()
-        cpu = [t.cpu() for t in (x, coef, zi, gy)]
-        y_p = plain_fwd(*cpu[:3])
-        gx_p, gzi_p = plain_adj(cpu[3], cpu[1])
-        err = {"forward": _max_dev(y.cpu(), y_p),
-               "adjoint": max(_max_dev(gx.cpu(), gx_p),
-                              _max_dev(gzi.cpu(), gzi_p))}
+        err, ref = _iir_check(torch, I, kind, x, coef, zi, gy)
         worst = max(worst, *err.values())
+        worst_ref = max(worst_ref, *ref.values())
         r, t = x.shape
         size = coef.shape[1] if kind == "sos" else zi.shape[1]
-        chain = 4 if kind == "sos" else 3
-        flops = 9 * size if kind == "sos" else 4 * size + 2
-        bound, by = _iir_bound(r, t, flops)
+        bound, by = _iir_bound(r, t, _iir_ops(kind, size))
+        floors = _iir_floors(kind, size, r, t, lat, ghz, sms)
         rows.append({"walk": name, "kind": kind, "rows": r, "steps": t,
                      "size": size, "max_abs_err": err,
-                     "ms": _cuda_ms(torch, lambda: fwd(x, coef, zi), 10),
-                     "adjoint_ms": _cuda_ms(torch, lambda: adj(gy, coef),
-                                            5),
+                     "reference_peak_dev": ref,
+                     "ms": _iir_kernel_ms(torch, lambda: fwd(x, coef, zi)),
+                     "adjoint_ms": _iir_kernel_ms(torch,
+                                                  lambda: adj(gy, coef)),
+                     "call_ms": _cuda_ms(torch, lambda: fwd(x, coef, zi),
+                                         20),
                      "bound_ms": bound, "bound_by": by,
-                     "floor_ms": t * chain * lat["fadd"] / ghz * 1e-6})
-    return rows, worst
+                     "floor_ms": max(floors["latency_ms"],
+                                     floors["fp64_issue_ms"]),
+                     "floors": floors})
+    return rows, worst, worst_ref
+
+
+def _iir_edges(torch, I):
+    """The partition's edges on the card (IIR_EDGE_STEPS), a biquad
+    cascade (the crackle high-pass) and DF2T of order 4 on 4 rows: each
+    walk bit for bit its plain version and within IIR_REF_TOL of scipy."""
+    from ml_audio_restoration_torch.ops import filters as F
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    sos, zi = F.butter_sos(4, 2500.0, IIR_RATE, "high")
+    bb, ba, bzi = F.butter_coeffs(4, 0.3 * IIR_RATE / 2, IIR_RATE, "low")
+    out = []
+    for t in IIR_EDGE_STEPS:
+        x = torch.randn((4, t), generator=gen, device="cuda")
+        gy = torch.randn((4, t), generator=gen, device="cuda")
+        scale = x[:, :1]
+        cases = {
+            "sos": (torch.from_numpy(sos).cuda().expand(4, -1, -1)
+                    .contiguous(),
+                    torch.from_numpy(zi).cuda() * scale[..., None]),
+            "df2t": (torch.from_numpy(np.concatenate([bb, ba])).cuda()
+                     .expand(4, -1).contiguous(),
+                     torch.from_numpy(bzi).cuda() * scale)}
+        for kind, (coef, z0) in cases.items():
+            err, ref = _iir_check(torch, I, kind, x, coef, z0.contiguous(),
+                                  gy)
+            out.append({"kind": kind, "steps": t,
+                        "partition": I.partition(t), "max_abs_err": err,
+                        "reference_peak_dev": ref})
+    return out
+
+
+def _iir_profile(torch, run):
+    """The IIR degradation under utils.profiling.trace: wall ms, device ms
+    by bucket, the top device ops and the host's gaps (wall - device)."""
+    from ml_audio_restoration_torch.utils import profiling as P
+
+    run()  # warm
+    with tempfile.TemporaryDirectory() as tmp:
+        with P.trace(tmp):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        try:
+            times = P.trace_device_times(tmp)
+            top = P.trace_top_ops(tmp, 12)
+        except RuntimeError as err:  # a trace the profiler left empty
+            return {"wall_ms_traced": wall, "not_measured": str(err)}
+    return {"wall_ms_traced": wall, "device_times": times, "top_ops": top,
+            "host_gap_ms": wall - times["total_device_ms"],
+            "idle_share": 1.0 - times["total_device_ms"] / wall}
 
 
 def phase_iir(torch):
@@ -5612,10 +5770,11 @@ def phase_iir(torch):
     walks see 44,130 samples: padlen 15 each side): each walk of the
     degradation (crackle high-pass, rumble low-pass, the per-item roll-off)
     forward and adjoint against its plain version, one walk's plain version
-    on the card too, DF2T lfilter / filtfilt at order 4, then
-    simulate_batch(filter_mode="iir") on the card against the CPU on the
-    same draws, its launches, and the whole IIR degradation timed beside
-    the FIR path's on the same draws and scipy's sosfiltfilt on the host."""
+    on the card too, DF2T lfilter / filtfilt at order 4, the partition's
+    edges, then simulate_batch(filter_mode="iir") on the card against the
+    CPU on the same draws, its launches, and the whole IIR degradation
+    timed beside the FIR path's on the same draws and scipy's sosfiltfilt
+    on the host, and traced (its top device ops and the host's gaps)."""
     from scipy import signal as sig
 
     from ml_audio_restoration_torch.config import ArtifactConfig
@@ -5661,7 +5820,11 @@ def phase_iir(torch):
                             zi.contiguous(), "df2t")
     probe = _latency.step_floor(64, {"k1": 1, "k2": 1, "k3": 1}, dev)
     lat, ghz = probe["latency_cycles"], probe["sm_ghz"]
-    rows, worst = _iir_rows(torch, I, walks, lat, ghz)
+    rows, worst, worst_ref = _iir_rows(torch, I, walks, lat, ghz)
+    edges = _iir_edges(torch, I)
+    for edge in edges:
+        worst = max(worst, *edge["max_abs_err"].values())
+        worst_ref = max(worst_ref, *edge["reference_peak_dev"].values())
 
     # one walk's plain version on the card, the whole length
     x, sos, z0, _ = walks["crackle"]
@@ -5697,11 +5860,15 @@ def phase_iir(torch):
     want = A.simulate_batch(torch.Generator().manual_seed(31), clean, rate,
                             filter_mode="iir")
     sim_err = _max_dev(got.cpu(), want)
-    iir_ms = _cuda_ms(torch, lambda: A.apply_artifacts(
-        clean_d, draws_d, rate, filter_mode="iir"), 5)
-    fir_ms = _cuda_ms(torch, lambda: A.apply_artifacts(
-        clean_d, draws_d, rate), 5)
+
+    def degrade(mode):
+        return lambda: A.apply_artifacts(clean_d, draws_d, rate,
+                                         filter_mode=mode)
+
+    iir_ms = _cuda_ms(torch, degrade("iir"), 5)
+    fir_ms = _cuda_ms(torch, degrade("fir"), 5)
     walk_ms = {r["walk"]: r["ms"] for r in rows}
+    traced = _iir_profile(torch, degrade("iir"))
 
     # scipy's sosfiltfilt of the same three filters on the host CPU
     host = {}
@@ -5715,8 +5882,9 @@ def phase_iir(torch):
         arr = arr.cpu().numpy()
         host[name] = _host_ms(lambda: sig.sosfiltfilt(s64, arr, axis=-1))[0]
     row = {"phase": "iir", "shape": [b, 1, t], "rate": rate,
-           "walks": rows, "kernel_vs_plain_max_abs": worst,
+           "walks": rows, "edges": edges, "kernel_vs_plain_max_abs": worst,
            "kernel_vs_plain_tol": IIR_TOL,
+           "reference_peak_dev": worst_ref, "reference_tol": IIR_REF_TOL,
            "plain_on_card": {"walk": "crackle", "ms": plain_ms,
                              "max_abs_err": plain_card_err},
            "df2t_card_vs_cpu": df2t, "simulate_launches": launches,
@@ -5726,10 +5894,12 @@ def phase_iir(torch):
                               "iir_six_walks": 2 * sum(
                                   walk_ms[k] for k in ("crackle", "rumble",
                                                        "rolloff"))},
+           "degradation_traced": traced,
            "latency_cycles": lat, "sm_clock": probe["sm_clock"],
            "scipy_sosfiltfilt_host_ms": host, "host_cpu": _host_cpu()}
     emit(row)
-    if not (worst <= IIR_TOL and sim_err <= IIR_SIM_TOL
+    if not (worst <= IIR_TOL and worst_ref <= IIR_REF_TOL
+            and sim_err <= IIR_SIM_TOL
             and max(df2t.values()) <= IIR_SIM_TOL
             and launches == {"forward": 6, "adjoint": 0}
             and bool(torch.isfinite(got).all())):

@@ -104,9 +104,11 @@ def _decode(raw: bytes, info: WavInfo) -> np.ndarray:
     return x.reshape(-1, ch)
 
 
-def read_wav(path, start: int = 0, frames: int = -1):
+def read_wav(path, start: int = 0, frames: int = -1,
+             always_2d: bool = True):
     """Read a WAV file, or `frames` frames of it from `start` (a seek, no
-    decode of the rest) -> (float32 [T, C], sample_rate)."""
+    decode of the rest) -> (float32 [T, C], sample_rate), or [T] for a
+    mono file when not always_2d."""
     with open(path, "rb") as f:
         info = _parse_header(f)
         bpf = info.channels * info.bits // 8
@@ -117,7 +119,10 @@ def read_wav(path, start: int = 0, frames: int = -1):
         raw = f.read(n * bpf)
     # a truncated data chunk leaves a partial last frame: decode whole frames
     raw = raw[:len(raw) // bpf * bpf]
-    return _decode(raw, info), info.sample_rate
+    data = _decode(raw, info)
+    if not always_2d and info.channels == 1:
+        data = data[:, 0]
+    return data, info.sample_rate
 
 
 def decode_wav(buf: bytes, always_2d: bool = True):

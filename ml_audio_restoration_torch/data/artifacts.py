@@ -173,13 +173,16 @@ def max_pops_for(num_samples: int, sample_rate: int, cfg: ArtifactConfig,
 def draw_artifacts(generator: torch.Generator, shape, sample_rate: int,
                    cfg: ArtifactConfig | None = None, *,
                    dtype: torch.dtype = torch.float32,
-                   overrides: dict | None = None) -> dict:
+                   overrides: dict | None = None,
+                   max_pops: int | None = None) -> dict:
     """Every random quantity of a [B, C, T] batch's degradation, drawn from
     `generator` on its device: per item the noise levels, the surface,
     crackle and rumble noise [B, C, T], the Poisson pop count and, for
-    max_pops_for(T) pops, their locations, amplitudes, polarities, decay draws
-    (U(1, 3) ms before the amplitude scaling) and ringing frequencies, and
-    the roll-off cutoff.
+    `max_pops` pops (default max_pops_for(T)), their locations, amplitudes,
+    polarities, decay draws (U(1, 3) ms before the amplitude scaling) and
+    ringing frequencies, and the roll-off cutoff. The pop count is capped
+    at `max_pops` where the pops are made, as JAX's
+    `simulate_vinyl_artifacts(max_pops=)` caps it.
 
     `overrides` holds per-item [B] tensors, as JAX's
     `simulate_vinyl_artifacts(overrides=)` takes them: `impulse_rate` is
@@ -190,8 +193,9 @@ def draw_artifacts(generator: torch.Generator, shape, sample_rate: int,
     cfg = cfg or ArtifactConfig()
     ov = overrides or {}
     b, c, t = shape
-    p = max_pops_for(t, sample_rate, cfg, ADAPTIVE_RATE_BOUND
-                     if "impulse_rate" in ov else None)
+    p = max_pops if max_pops is not None else max_pops_for(
+        t, sample_rate, cfg,
+        ADAPTIVE_RATE_BOUND if "impulse_rate" in ov else None)
     g, dev = generator, generator.device
 
     def unit(*size, kind=dtype):
@@ -295,14 +299,16 @@ def apply_artifacts(audio, draws: dict, sample_rate: int,
 
 def simulate_batch(generator: torch.Generator, batch, sample_rate: int,
                    cfg: ArtifactConfig | None = None, *,
-                   filter_mode: str = "fir", overrides: dict | None = None):
+                   filter_mode: str = "fir", overrides: dict | None = None,
+                   max_pops: int | None = None):
     """Degrade a [B, C, T] batch with draws from `generator` (per-item
-    `overrides` as draw_artifacts takes them). The draws are made on the
-    generator's device and moved to the batch's, so a CPU generator gives
-    the same degradation on any device."""
+    `overrides` and the pop bound `max_pops` as draw_artifacts takes them).
+    The draws are made on the generator's device and moved to the batch's,
+    so a CPU generator gives the same degradation on any device."""
     _check_filter_mode(filter_mode)
     draws = draw_artifacts(generator, tuple(batch.shape), sample_rate, cfg,
-                           dtype=batch.dtype, overrides=overrides)
+                           dtype=batch.dtype, overrides=overrides,
+                           max_pops=max_pops)
     draws = {k: v.to(batch.device) for k, v in draws.items()}
     return apply_artifacts(batch, draws, sample_rate, cfg,
                            filter_mode=filter_mode)
@@ -311,7 +317,8 @@ def simulate_batch(generator: torch.Generator, batch, sample_rate: int,
 def simulate_vinyl_artifacts(generator: torch.Generator, audio,
                              sample_rate: int,
                              cfg: ArtifactConfig | None = None, **kwargs):
-    """Degrade one item, [C, T] or [T] -> the same shape."""
+    """Degrade one item, [C, T] or [T] -> the same shape; `kwargs`
+    (filter_mode, overrides, max_pops) as simulate_batch takes them."""
     squeeze = audio.dim() == 1
     batch = audio[None, None] if squeeze else audio[None]
     out = simulate_batch(generator, batch, sample_rate, cfg, **kwargs)[0]

@@ -1,4 +1,5 @@
-"""Latency floors of the recurrence kernels K1, K2 and K3.
+"""Latency floors of the recurrence kernels K1, K2 and K3 (and the DADD
+latency the IIR scan's floor is counted from).
 
 `csrc/latency_probe.cu` times the building blocks of a recurrence step on
 the card (cycles of a dependent chain of each); `floor_cycles` counts from
@@ -14,6 +15,7 @@ import subprocess
 from . import _build
 
 CHAINS = ("ffma", "fadd", "gate_act", "shfl_fadd", "sts_bar_lds_fadd")
+PROBED = CHAINS + ("dadd",)  # the chains the probe times, in its order
 PROBE = "latency_probe"  # csrc/latency_probe.cu
 
 
@@ -51,11 +53,11 @@ def step_floor(hidden: int, steps: dict, dev) -> dict:
     from . import lstm as L
 
     n = 4096
-    cycles = torch.zeros(len(CHAINS), dtype=torch.int64, device=dev)
+    cycles = torch.zeros(len(PROBED), dtype=torch.int64, device=dev)
     sink = torch.empty(128, device=dev)
     L._launch(PROBE, _build.load(PROBE).latency, 2, 1,
               [cycles.data_ptr(), sink.data_ptr(), n], dev)
-    lat = dict(zip(CHAINS, (cycles.cpu().double() / n).tolist()))
+    lat = dict(zip(PROBED, (cycles.cpu().double() / n).tolist()))
     clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
                             "--format=csv,noheader"], capture_output=True,
                            text=True, timeout=60).stdout.strip()

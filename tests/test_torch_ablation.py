@@ -90,3 +90,17 @@ def test_int8_patches_find_their_targets(monkeypatch):
     assert set(texts) == set(ab.VARIANTS)
     for name, text in texts.items():
         assert (text == shipped) == (name == "shipped"), name
+
+
+def test_iir_patches_find_their_targets(monkeypatch):
+    """scripts/torch_iir_ablation.py: each IIR scan variant is the shipped
+    source with its one patch applied, so each differs from it."""
+    monkeypatch.syspath_prepend(str(ROOT / "scripts"))
+    import torch_iir_ablation as ab
+
+    texts = ab.sources(CSRC)
+    shipped = (CSRC / "iir_scan.cu").read_text()
+    assert texts["shipped"] == shipped
+    assert set(texts) == set(ab.VARIANTS)
+    for name, text in texts.items():
+        assert (text == shipped) == (name == "shipped"), name

@@ -75,12 +75,15 @@ def _stack(items):
     return out
 
 
-def jax_draws(key, shape, sample_rate=SR, cfg=None):
-    """The draws of JAX's simulate_batch(key, [B, C, T] batch), as the
-    port's draw dict (torch tensors on the CPU)."""
+def jax_draws(key, shape, sample_rate=SR, cfg=None, max_pops=None):
+    """The draws of JAX's simulate_batch(key, [B, C, T] batch, max_pops=),
+    as the port's draw dict (torch tensors on the CPU): the pop draws are
+    [B, max_pops] (default JAX's bound, max_pops_for(T)), and the Poisson
+    count is left uncapped, as JAX draws it."""
     cfg = cfg or JArtifactConfig()
     b, c, t = shape
-    max_pops = PA.max_pops_for(t, sample_rate, cfg)
+    if max_pops is None:
+        max_pops = PA.max_pops_for(t, sample_rate, cfg)
     return _stack([_jax_item_draws(k, c, t, sample_rate, cfg, max_pops)
                    for k in jax.random.split(key, b)])
 
@@ -220,6 +223,44 @@ def test_simulate_batch_matches_jax(shape, overrides):
     assert got.shape == shape and got.dtype == torch.float32
     assert _dev(got.numpy(), want) <= SIM_BAR
     assert _dev(want, x) > 0.1  # it degraded
+
+
+@pytest.mark.parametrize("cap", [1, 6])
+def test_pop_cap_matches_jax(cap):
+    """max_pops below the Poisson count (200 pops/s over 0.2 s, about 40):
+    JAX's simulate_batch(max_pops=) on its own draws, and the port's
+    draw_artifacts / simulate_batch / simulate_vinyl_artifacts taking the
+    cap, which sizes the pop draws."""
+    shape = (2, 1, 4410)
+    overrides = {"impulse_rate": 200.0}
+    key = jax.random.PRNGKey(21)
+    x = clean_batch(*shape, seed=5)
+    jcfg = JArtifactConfig(**overrides)
+    want = np.asarray(JA.simulate_batch(key, jnp.asarray(x), SR, jcfg,
+                                        max_pops=cap))
+    draws = jax_draws(key, shape, SR, jcfg, max_pops=cap)
+    assert draws["pop_amps"].shape == (2, cap)
+    assert int(draws["pop_count"].min()) > cap
+    cfg = ArtifactConfig(**overrides)
+    got = PA.apply_artifacts(torch.from_numpy(x), draws, SR, cfg)
+    assert _dev(got.numpy(), want) <= SIM_BAR
+    uncapped = np.asarray(JA.simulate_batch(key, jnp.asarray(x), SR, jcfg))
+    assert _dev(want, uncapped) > 0.05  # the cap took pops away
+
+    mine = PA.draw_artifacts(torch.Generator().manual_seed(2), shape, SR,
+                             cfg, max_pops=cap)
+    for name in ("pop_locs", "pop_amps", "pop_polarity", "pop_decay",
+                 "pop_freq"):
+        assert mine[name].shape == (2, cap), name
+    xt = torch.from_numpy(x)
+    one = PA.simulate_batch(torch.Generator().manual_seed(2), xt, SR, cfg,
+                            max_pops=cap)
+    assert torch.equal(one, PA.apply_artifacts(xt, mine, SR, cfg))
+    item = PA.simulate_vinyl_artifacts(torch.Generator().manual_seed(2),
+                                       xt[0], SR, cfg, max_pops=cap)
+    first = PA.draw_artifacts(torch.Generator().manual_seed(2),
+                              (1,) + shape[1:], SR, cfg, max_pops=cap)
+    assert torch.equal(item, PA.apply_artifacts(xt[:1], first, SR, cfg)[0])
 
 
 @pytest.mark.parametrize("channels", [None, 1, 2])

@@ -28,7 +28,8 @@ and an int8 restore on the card (bit for bit its plain-conv twin, within a
 quarter of its int8-vs-f32 deviation of the CPU on the same scales).
 IIR scans: csrc/iir_scan.cu's forward and adjoint walks bit for bit their
 plain versions (biquad cascades of 1 to 4 sections, direct form II of order
-1 to 8, f32 and f64, one filter a row), and simulate_batch(filter_mode=
+1 to 8, f32 and f64, one filter a row, at the blocked scan's edges), a
+CUDA tensor the kernel cannot take raising, and simulate_batch(filter_mode=
 "iir") on the card within 1e-5 of the CPU on the same draws, in six
 forward launches.
 """
@@ -669,15 +670,19 @@ def test_server_copy_is_not_held_by_the_next_program(card):
 
 # ----------------------------------------------------------- IIR scans
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 63, 65, 1001, 70_000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kind,size", [("sos", n) for n in (1, 2, 3, 4)]
                          + [("df2t", n) for n in (1, 2, 4, 8)])
-def test_iir_scan_kernel_matches_plain(card, kind, size, dtype):
+def test_iir_scan_kernel_matches_plain(card, kind, size, dtype, t):
+    """At the blocked scan's edges (ops/iir.py::partition): one step, one
+    block short of full, one step into a second block, many blocks, and a
+    row whose blocks grow past 64 steps."""
     from scipy import signal as sig
 
     from ml_audio_restoration_torch.ops import iir
 
-    rows, t = 5, 1001
+    rows = 5
     rng = np.random.default_rng(size)
     x = torch.from_numpy(rng.normal(size=(rows, t))).to(dtype)
     gy = torch.from_numpy(rng.normal(size=(rows, t))).to(dtype)
@@ -700,6 +705,23 @@ def test_iir_scan_kernel_matches_plain(card, kind, size, dtype):
     want_gx, want_gzi = adj(gy, coef)
     assert torch.equal(gx.cpu(), want_gx)
     assert torch.equal(gzi.cpu(), want_gzi)
+
+
+@pytest.mark.cuda
+def test_iir_scan_kernel_raises_on_what_it_cannot_take(card):
+    """No fallback: a CUDA tensor of a dtype, size or length the kernel
+    does not take raises."""
+    from ml_audio_restoration_torch.ops import iir
+
+    x = torch.zeros((2, 100), device=card)
+    sos = torch.zeros((2, 5, 6), device=card)
+    with pytest.raises(ValueError, match="1 to 4 sections"):
+        iir._sos_forward(x, sos, torch.zeros((2, 5, 2), device=card))
+    with pytest.raises(TypeError, match="f32 or f64"):
+        iir._sos_forward(x.half(), sos[:, :2].half(),
+                         torch.zeros((2, 2, 2), device=card).half())
+    with pytest.raises(ValueError, match="at least one step"):
+        iir._sos_adjoint(x[:, :0], sos[:, :2])
 
 
 @pytest.mark.cuda

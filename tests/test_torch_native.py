@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 from ml_audio_restoration_tpu.audio import native as jnative
+from ml_audio_restoration_tpu.audio.wav import read_wav as jread_wav
 from ml_audio_restoration_torch.audio import (
     flac, load_audio, native, read_wav, write_wav)
 from ml_audio_restoration_torch.ops import _build
@@ -70,6 +71,19 @@ def test_reads_equal_jax_library_and_numpy(files, name):
         np.testing.assert_array_equal(got, plain.astype(np.float32))
     mono, _ = native.read(path, mono=True)
     np.testing.assert_array_equal(mono, jnative.read(path, mono=True)[0])
+
+
+@pytest.mark.parametrize("name", ["wav_mono", "wav_PCM_16"])
+def test_read_wav_always_2d_equals_jax(files, name):
+    """read_wav(always_2d=False) gives a mono file as [T] and keeps a
+    stereo one [T, C], as JAX's read_wav does, whole and in part."""
+    for kw in ({}, dict(always_2d=False),
+               dict(start=1234, frames=777, always_2d=False)):
+        got, sr = read_wav(files[name], **kw)
+        want, want_sr = jread_wav(files[name], **kw)
+        assert sr == want_sr and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+    assert got.ndim == (1 if name == "wav_mono" else 2)
 
 
 def test_batch_reader_with_padding_equals_jax(files):

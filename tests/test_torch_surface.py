@@ -1,9 +1,11 @@
 """The port covers the JAX package's surface: every name in the `__all__`
 of each JAX subpackage has a counterpart in the port's subpackage of the
-same name, and every JAX CLI subcommand and option exists in the port's
-parser. The exceptions are listed below, each with why."""
+same name, every exported callable takes JAX's parameter names, and every
+JAX CLI subcommand and option exists in the port's parser. The exceptions
+are listed below, each with why."""
 import argparse
 import importlib
+import inspect
 
 import pytest
 
@@ -42,6 +44,54 @@ RENAMED = {
 COMMANDS = ("restore", "stream", "serve", "train", "analyze", "evaluate",
             "export", "acquire")
 
+# Parameters that differ by design, {key: (JAX's names the port lacks, the
+# port's names JAX lacks)}. Every other exported callable takes JAX's
+# parameter names, the positional ones in JAX's order, so a JAX call binds
+# the same way in the port. Defaults are not compared: the port's are
+# torch dtypes and its own config objects.
+SIGNATURE_DIFFERENCES = {
+    # torch.Generators in place of jax.random keys; the item function
+    # passes its keywords on to simulate_batch through **kwargs, where
+    # JAX's simulate_batch passes them the other way
+    "data.simulate_vinyl_artifacts": (
+        ("key", "filter_mode", "max_pops", "overrides"),
+        ("generator", "kwargs")),
+    "data.simulate_batch": (("key", "kwargs"),
+                            ("generator", "filter_mode", "overrides",
+                             "max_pops")),
+    "ops.lstm_init": (("key",), ("generator",)),
+    # a module where JAX has a pytree of parameters (and its state)
+    "models.count_params": (("tree",), ("model",)),
+    "compat.save_pth": (("params", "state"), ("sd",)),
+    "parallel.replicate": (("tree",), ("module",)),
+    "parallel.replicated": ((), ("module",)),
+    # the port's mesh places tensors itself: the counterparts of JAX's
+    # shardings take what they place (RENAMED above), and shard_batch,
+    # which is also batch_sharding's counterpart, takes any tensor
+    "parallel.batch_sharding": ((), ("x",)),
+    "parallel.shard_batch": (("batch",), ("x",)),
+    "parallel.time_sharding": ((), ("length", "grid")),
+    # the global batch statistics go through torch.distributed, not a
+    # named mesh axis (parallel/distributed.py)
+    "ops.batch_norm_train": (("axis_name",), ()),
+    # JAX picks the recurrence's Pallas kernel or lax.scan and its unroll;
+    # the port's recurrence is picked by the tensor's device. The port's
+    # ops.lstm is the submodule: the function is ops.lstm.lstm
+    "ops.lstm": (("unroll", "impl"), ()),
+    # entry points run on the card unless the caller asks for the CPU
+    "ops.hann_window": ((), ("device",)),
+    "ops.crossfade_window": ((), ("device",)),
+    "parallel.initialize": ((), ("device",)),
+    "pipeline.RestorationPipeline": ((), ("device",)),
+    "pipeline.restore_audio": ((), ("device",)),
+    "pipeline.StreamingRestorer": ((), ("device",)),
+    # the time-sharded serving path upsamples a window of a recording
+    # (parallel/seq.py); the trainer reads its metrics from moments
+    # reduced across ranks
+    "ops.upsample_linear": ((), ("offset", "total")),
+    "losses.stereo_metrics": ((), ("moments",)),
+}
+
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)
 def test_every_exported_name_has_a_counterpart(sub):
@@ -66,6 +116,60 @@ def test_exception_lists_name_real_jax_names():
             f"ml_audio_restoration_tpu.{sub}").__all__, key
         assert not hasattr(importlib.import_module(
             f"ml_audio_restoration_torch.{sub}"), name), key
+
+
+def _counterpart(key):
+    sub, name = key.split(".")
+    port = getattr(importlib.import_module(
+        f"ml_audio_restoration_torch.{sub}"), RENAMED.get(key, name))
+    if inspect.ismodule(port):   # ops.lstm (SIGNATURE_DIFFERENCES)
+        port = getattr(port, name)
+    return port
+
+
+def _signature(fn, drop=()):
+    """(positional names in order, the other names as a set) of fn's
+    parameters, without the names in `drop`."""
+    params = [p for p in inspect.signature(fn).parameters.values()
+              if p.name not in drop]
+    positional = (inspect.Parameter.POSITIONAL_ONLY,
+                  inspect.Parameter.POSITIONAL_OR_KEYWORD)
+    return ([p.name for p in params if p.kind in positional],
+            {p.name for p in params if p.kind not in positional})
+
+
+def _exported_callables(sub):
+    jax_pkg = importlib.import_module(f"ml_audio_restoration_tpu.{sub}")
+    for name in jax_pkg.__all__:
+        key = f"{sub}.{name}"
+        if key not in NON_PORTS and callable(getattr(jax_pkg, name)):
+            yield key, getattr(jax_pkg, name)
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_every_exported_callable_takes_jax_parameter_names(sub):
+    differ = {}
+    for key, jax_fn in _exported_callables(sub):
+        lacks, adds = SIGNATURE_DIFFERENCES.get(key, ((), ()))
+        want = _signature(jax_fn, lacks)
+        got = _signature(_counterpart(key), adds)
+        if got != want:
+            differ[key] = (want, got)
+    assert not differ, differ
+
+
+def test_signature_differences_name_real_differences():
+    """Each listed difference is one: JAX's callable has each name the
+    port is said to lack and the port's has not, and the other way round,
+    so the list cannot go stale silently."""
+    jax_fns = {key: fn for sub in SUBPACKAGES
+               for key, fn in _exported_callables(sub)}
+    for key, (lacks, adds) in SIGNATURE_DIFFERENCES.items():
+        assert lacks or adds, key
+        want = set(inspect.signature(jax_fns[key]).parameters)
+        got = set(inspect.signature(_counterpart(key)).parameters)
+        assert set(lacks) <= want - got, (key, lacks)
+        assert set(adds) <= got - want, (key, adds)
 
 
 def _options(cli):
