@@ -1,0 +1,6 @@
+"""Device ms a traced restore in the convolution bucket (cuDNN)."""
+from benchmark.harness.reading import device_ms_per_step
+
+
+def read(rec):
+    return device_ms_per_step(rec, "convolution")
