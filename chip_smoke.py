@@ -6086,9 +6086,8 @@ def phase_profile(torch, k1_ms: float):
             if name == "restore":
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                with P.trace(logdir):
-                    with P.annotate("restore"):
-                        pipe.restore(clip, rate)
+                with P.trace(logdir):  # restore() opens its own span
+                    pipe.restore(clip, rate)
             else:
                 model = StereoSeparator().to(dev)
                 tr = _train_trainer(torch, model, dev, learning_rate=1e-4)

@@ -18,6 +18,8 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
+from ..utils.profiling import annotate
+
 
 def collate(items: Sequence[dict]) -> dict:
     """Stack a list of {key: array|scalar} into {key: [B, ...]}."""
@@ -89,7 +91,6 @@ class DataLoader:
                         items = [self.dataset[int(j)] for j in batch_idx]
                     if not put(collate(items)):
                         return
-                put(None)
             except BaseException as e:  # raised on the consumer side
                 put(e)
 
@@ -101,10 +102,10 @@ class DataLoader:
             # the stop flag for an eagerly started worker
             t.start()
             try:
-                while True:
-                    item = q.get()
-                    if item is None:
-                        return
+                # one item a batch, or the worker's exception
+                for _ in batches:
+                    with annotate("loader.wait"):
+                        item = q.get()
                     if isinstance(item, BaseException):
                         raise item
                     yield item

@@ -61,6 +61,7 @@ from ..models import stereo_separator as stereo_mod
 from ..models import super_resolution as sr_mod
 from ..ops import frame_structured, num_chunks, overlap_add, upsample_linear
 from ..parallel.mesh import canonical, replica, shard_batch
+from ..utils.profiling import annotate
 
 
 def resolve_device(device) -> torch.device:
@@ -233,14 +234,16 @@ class _Stages(NamedTuple):
         mid, or under source-rate the denoised signal)."""
         if self.dn is not None:
             q = self.q["denoiser"]
-            x = (self.dn(x) if q is None else self._ncw(
-                denoiser_mod.apply_packed, self.dn, q)(x))
+            with annotate("restore.denoise", device_ms=True):
+                x = (self.dn(x) if q is None else self._ncw(
+                    denoiser_mod.apply_packed, self.dn, q)(x))
         st_in = x
         if self.sr is not None:
             q = self.q["super_resolution"]
             window = dict(offset=offset, total=total)
-            x = (self.sr(x, **window) if q is None else self._ncw(
-                sr_mod.apply_packed, self.sr, q, **window)(x))
+            with annotate("restore.super_resolution", device_ms=True):
+                x = (self.sr(x, **window) if q is None else self._ncw(
+                    sr_mod.apply_packed, self.sr, q, **window)(x))
         return x, (st_in if self.src_rate else x)
 
     def _stereo_input(self, v):
@@ -256,8 +259,9 @@ class _Stages(NamedTuple):
 
     def stereo(self, v, spread=None):
         """The stereo stage on its input [N, 1, T2] -> [N, 2, T2]."""
-        return apply_stereo(self.st, self._stereo_input(v), self.sub_cfg,
-                            q=self.q["stereo"], spread=spread)
+        with annotate("restore.stereo", device_ms=True):
+            return apply_stereo(self.st, self._stereo_input(v), self.sub_cfg,
+                                q=self.q["stereo"], spread=spread)
 
     def encode(self, v):
         """The stereo encoder on (a window of) its input -> [N, 4C, T2]."""
@@ -627,7 +631,13 @@ class RestorationPipeline:
     @torch.inference_mode()
     def restore(self, audio, sample_rate: Optional[int] = None):
         """audio [C, T] (mixed to mono if C > 1), numpy or tensor ->
-        (tensor [out_ch, T*f] on the pipeline's device, out_rate)."""
+        (tensor [out_ch, T*f] on the pipeline's device, out_rate). Its
+        span, `restore`, counts the real chunks (`rows_real`) and the chunk
+        rows computed (`rows_run`: the bucket, or the slabs' rows)."""
+        with annotate("restore") as span:
+            return self._restore(audio, sample_rate, span)
+
+    def _restore(self, audio, sample_rate, span):
         cfg = self.config
         sample_rate = sample_rate or cfg.sample_rate
         audio = self._mono(audio)
@@ -645,6 +655,7 @@ class RestorationPipeline:
 
         max_n = max(cfg.max_chunks_per_program, 4)
         if cfg.whole_file or n <= max_n:
+            span.count(rows_real=n_real, rows_run=n)
             total = (n - 1) * hop + chunk_size
             padded = F.pad(audio, (0, total - t))
             out = self._process(stack, padded, n, chunk_size, hop, overlap,
@@ -657,6 +668,7 @@ class RestorationPipeline:
         # `valid` masks the bucket padding of the last one.
         s = max_n
         num_slabs = -(-n_real // s)
+        span.count(rows_real=n_real, rows_run=num_slabs * s)
         slab_len = (s - 1) * hop + chunk_size
         needed = (num_slabs - 1) * s * hop + slab_len
         padded = F.pad(audio, (0, needed - t))

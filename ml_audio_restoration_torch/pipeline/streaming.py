@@ -51,6 +51,7 @@ from ..models import super_resolution as sr_mod
 from ..ops import upsample_linear
 from ..ops.lstm import stacked_lstm
 from ..parallel.mesh import canonical, replica
+from ..utils.profiling import annotate
 from .restore import (_denoiser_packable, _sr_packable, load_stage, no_tf32,
                       resolve_device)
 
@@ -195,7 +196,8 @@ class StreamingRestorer:
         upload waits for the work queued before it), each shard runs
         there, and the outputs are gathered."""
         self._shapes.add(window.shape[1])
-        parts = [window[lo:hi].to(dev) for dev, lo, hi in self._shards]
+        with annotate("stream.upload", device_ms=True):
+            parts = [window[lo:hi].to(dev) for dev, lo, hi in self._shards]
         outs = [self._shard_step(k, part, ctx, n)
                 for k, part in enumerate(parts)]
         gather = dict(non_blocking=self.device.type == "cuda")
@@ -426,7 +428,11 @@ class StreamingRestorer:
     def feed(self, block) -> np.ndarray:
         """Append input samples for every stream; return the finished
         output samples ([out_ch, m*f], or [B, out_ch, m*f] for batch > 1;
-        m may be 0 while the lookahead fills)."""
+        m may be 0 while the lookahead fills). Its span is `stream.feed`."""
+        with annotate("stream.feed"):
+            return self._feed(block)
+
+    def _feed(self, block) -> np.ndarray:
         block = np.asarray(block, np.float32)
         if self.batch > 1:
             # a 1-D block whose size divides B would smear one stream's
@@ -444,7 +450,8 @@ class StreamingRestorer:
                 f"got shape {block.shape}")
         block = block.reshape(self.batch, -1)
         self._fed += block.shape[1]
-        self._in_buffer = np.concatenate([self._in_buffer, block], axis=1)
+        with annotate("stream.buffer"):
+            self._in_buffer = np.concatenate([self._in_buffer, block], axis=1)
         return self._drain()
 
     def flush(self) -> np.ndarray:
@@ -468,27 +475,33 @@ class StreamingRestorer:
             n -= n % self._align  # keep window starts on the pooling grid
             if n <= 0:
                 break
-            # history shorter than ctx at a stream's start: zeros before it
-            window = self._in_buffer[:, max(0, self._warm - ctx):]
-            deficit = ctx - min(ctx, self._warm)
-            # right-pad to a multiple of 8, as the JAX restorer does to keep
-            # its packed layouts: the zeros lie beyond the lookahead, which
-            # covers the receptive field, so no emitted sample sees them
-            pad = -(deficit + window.shape[1]) % 8
-            window = np.pad(window, ((0, 0), (deficit, pad)))
+            with annotate("stream.buffer"):
+                # history shorter than ctx at a stream's start: zeros before
+                # it
+                window = self._in_buffer[:, max(0, self._warm - ctx):]
+                deficit = ctx - min(ctx, self._warm)
+                # right-pad to a multiple of 8, as the JAX restorer does to
+                # keep its packed layouts: the zeros lie beyond the
+                # lookahead, which covers the receptive field, so no emitted
+                # sample sees them
+                pad = -(deficit + window.shape[1]) % 8
+                window = np.pad(window, ((0, 0), (deficit, pad)))
             if self.quantize_int8 and not self._int8_ready:
                 self._ensure_int8(window)
             out = self._step(torch.from_numpy(window), ctx, n)
-            outs.append(out.cpu().numpy())  # [B, ch, n*f]
+            with annotate("stream.download", device_ms=True):
+                outs.append(out.cpu().numpy())  # [B, ch, n*f]
             self._warm += n
             self._emitted += n
-            # drop history that is never needed again
-            keep_from = max(0, self._warm - ctx)
-            self._in_buffer = self._in_buffer[:, keep_from:]
-            self._warm -= keep_from
+            with annotate("stream.buffer"):
+                # drop history that is never needed again
+                keep_from = max(0, self._warm - ctx)
+                self._in_buffer = self._in_buffer[:, keep_from:]
+                self._warm -= keep_from
         if not outs:
             ch = 2 if self.stereo is not None else 1
             full = np.zeros((self.batch, ch, 0), np.float32)
         else:
-            full = np.concatenate(outs, axis=2)
+            with annotate("stream.buffer"):
+                full = np.concatenate(outs, axis=2)
         return full[0] if self.batch == 1 else full

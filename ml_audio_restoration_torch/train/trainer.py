@@ -79,6 +79,7 @@ from ..models import (
 from ..ops import interp_linear
 from ..parallel import distributed as dist
 from ..pipeline.restore import resolve_device
+from ..utils.profiling import annotate
 from . import checkpoints as ckpt
 from .metrics import MetricsLogger
 
@@ -411,7 +412,8 @@ class Trainer:
             if dist.in_global_batch():
                 metrics, moments = self._average_over_ranks(metrics, moments)
         if train:
-            self._update()
+            with annotate("train.update", device_ms=True):
+                self._update()
         if moments is not None:
             metrics.update(stereo_metrics(moments=moments))
         return metrics
@@ -455,8 +457,9 @@ class Trainer:
                     break
             elif self.interrupted:
                 break
-            metrics = self._train_step(batch,
-                                       self._seeded(2 * self.epoch, i))
+            with annotate("train.step"):
+                metrics = self._train_step(batch,
+                                           self._seeded(2 * self.epoch, i))
             total += metrics["loss"]
             n += 1
             if self.logger and self.global_step % 50 == 0:

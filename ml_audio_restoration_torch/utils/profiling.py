@@ -4,27 +4,48 @@ Counterpart of ml_audio_restoration_tpu/utils/profiling.py, whose xplane
 readers become readers of the profiler's chrome trace:
 - trace(): records CPU and CUDA activity for the block and writes the
   chrome trace (viewable in Perfetto or chrome://tracing) under log_dir;
-- annotate(): a named region (record_function), which also shows on the
-  card's timeline as a span around its kernels;
+- annotate(name, device_ms=False, **counts): the program's span. While no
+  torch profiler records on the calling thread it returns one shared
+  no-op context (a single flag check). While one records, it enters
+  `record_function(name)`, so the span lies in the chrome trace as a
+  `user_annotation` on the timeline of every kernel and copy, and keeps a
+  record: name, parent (the thread's innermost open span), host start and
+  end, `counts`, and, for a `device_ms` span once CUDA is initialised, a
+  CUDA event on the current stream at entry and one at exit. It never
+  synchronises;
+- spans() / clear_spans(): the records (a bounded buffer of the last
+  MAX_SPANS), each span's device ms resolved from its events;
 - sync(): waits for the tensor's device and returns the tensor;
-- StepTimer: rolling wall-time statistics;
 - trace_device_times() / trace_top_ops(): the device time of the newest
   trace by bucket, and its top kernels.
+
+The program's spans (README, `utils.profiling`; those that time the
+device marked *): `restore` (rows_real, rows_run), `restore.denoise`*,
+`restore.super_resolution`*, `restore.stereo`*; `stream.feed`,
+`stream.buffer`, `stream.upload`*, `stream.download`*; `train.step`,
+`train.update`*, `loader.wait`.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
+import threading
 import time
 from collections import defaultdict, deque
 from pathlib import Path
+
+import torch
+
+MAX_SPANS = 10_000  # records kept; the oldest go first
+# the off check: torch's own "is a profiler recording on this thread"
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
 
 @contextlib.contextmanager
 def trace(log_dir: str = "profiles"):
     """Record CPU (and, where there is a card, CUDA) activity for the block
     and write it as `trace_<ns>.json` under log_dir. Yields the profiler."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     out = Path(log_dir)
@@ -39,17 +60,143 @@ def trace(log_dir: str = "profiles"):
     prof.export_chrome_trace(str(out / f"trace_{time.time_ns()}.json"))
 
 
-def annotate(name: str):
-    """A named region for the profiler's timelines."""
-    from torch.profiler import record_function
+class _NoSpan:
+    """annotate() while no profiler records: does nothing."""
+    __slots__ = ()
 
-    return record_function(name)
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def count(self, **counts):
+        pass
+
+
+NO_SPAN = _NoSpan()
+
+
+class _Recorder:
+    """The spans' bounded buffer, the per-thread stacks of open spans and,
+    per CUDA device, the event that device ms are counted from."""
+
+    def __init__(self, keep: int):
+        self.records: deque = deque(maxlen=keep)
+        self.ids = itertools.count()
+        self.local = threading.local()
+        self.bases: dict = {}  # device index -> first start event
+        self.lock = threading.Lock()
+
+    def stack(self) -> list:
+        stack = getattr(self.local, "stack", None)
+        if stack is None:
+            stack = self.local.stack = []
+        return stack
+
+
+_RECORDER = _Recorder(MAX_SPANS)
+
+
+class _Span:
+    """One recorded span (annotate() while a profiler records)."""
+    __slots__ = ("rec", "_fn", "_end", "_timed")
+
+    def __init__(self, name: str, timed: bool, counts: dict):
+        self.rec = {"name": name, "counts": counts}
+        self._timed = timed
+
+    def __enter__(self):
+        rec = self.rec
+        stack = _RECORDER.stack()
+        self._fn = torch.autograd.profiler.record_function(rec["name"])
+        self._fn.__enter__()
+        rec.update(id=next(_RECORDER.ids),
+                   parent=stack[-1] if stack else None, end_ns=None,
+                   device=None, events=None)
+        self._end = None
+        if self._timed and torch.cuda.is_initialized():
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self._end = torch.cuda.Event(enable_timing=True)
+            rec.update(device=torch.cuda.current_device(),
+                       events=(start, self._end))
+        rec["start_ns"] = time.perf_counter_ns()
+        stack.append(rec["id"])
+        _RECORDER.records.append(rec)
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        rec["end_ns"] = time.perf_counter_ns()
+        if self._end is not None:
+            self._end.record()
+        _RECORDER.stack().pop()
+        self._fn.__exit__(*exc)
+        return False
+
+    def count(self, **counts):
+        """Add counts known only inside the span."""
+        self.rec["counts"].update(counts)
+
+
+def annotate(name: str, device_ms: bool = False, **counts):
+    """The program's span around a block, with `counts` (numbers of the
+    work it covers) as its arguments: a no-op while no torch profiler
+    records on this thread, else a `record_function(name)` region and a
+    record for spans(). `device_ms` spans also record a CUDA event at
+    entry and at exit (for readers of device time; events cost host time,
+    so spans read on the host's clock take none). `with annotate(...) as
+    span: span.count(k=v)` adds counts known only inside the block."""
+    if not _profiler_enabled():
+        return NO_SPAN
+    return _Span(name, device_ms, counts)
+
+
+def spans() -> list:
+    """The recorded spans, oldest first (at most MAX_SPANS), as dicts:
+    `name`, `id`, `parent` (the id of the span it ran in on its thread, or
+    None), `start_ns` / `end_ns` (perf_counter_ns; `end_ns` None
+    while open), `host_ms`, `counts`, and `device_start_ms` /
+    `device_end_ms` (on its device's clock, counted from the first timed
+    span's entry event there) and `device_ms` (between its own entry and
+    exit events), each None without CUDA or for a span opened without
+    `device_ms`. Resolving the events waits once for
+    each device that has unresolved spans."""
+    with _RECORDER.lock:
+        recs = list(_RECORDER.records)
+        done = [r for r in recs
+                if r["events"] is not None and r["end_ns"] is not None]
+        for dev in {r["device"] for r in done}:
+            torch.cuda.synchronize(dev)
+        for r in done:
+            start, end = r["events"]
+            base = _RECORDER.bases.setdefault(r["device"], start)
+            r.update(device_start_ms=base.elapsed_time(start),
+                     device_end_ms=base.elapsed_time(end),
+                     device_ms=start.elapsed_time(end), events=None)
+        out = []
+        for r in recs:
+            s = {"device_start_ms": None, "device_end_ms": None,
+                 "device_ms": None}
+            s.update((k, v) for k, v in r.items()
+                     if k not in ("events", "device"))
+            s["counts"] = dict(r["counts"])
+            s["host_ms"] = (None if r["end_ns"] is None
+                            else (r["end_ns"] - r["start_ns"]) / 1e6)
+            out.append(s)
+        return out
+
+
+def clear_spans():
+    """Empty the span buffer."""
+    with _RECORDER.lock:
+        _RECORDER.records.clear()
+        _RECORDER.bases.clear()
 
 
 def sync(x):
     """Wait for the device that holds tensor x; return x."""
-    import torch
-
     if x.device.type == "cuda":
         torch.cuda.synchronize(x.device)
     return x
@@ -185,33 +332,3 @@ def trace_top_ops(logdir: str, n: int = 20) -> list:
     _, totals, counts = max(per_device, key=lambda p: p[0])
     ranked = sorted(totals.items(), key=lambda kv: -kv[1])[:n]
     return [(name, ms, counts[name]) for name, ms in ranked]
-
-
-class StepTimer:
-    """Rolling step-time statistics (window of `keep` steps)."""
-
-    def __init__(self, keep: int = 100):
-        self.times = deque(maxlen=keep)
-        self._start = None
-
-    def __enter__(self):
-        self._start = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.times.append(time.perf_counter() - self._start)
-        return False
-
-    @property
-    def mean(self) -> float:
-        return sum(self.times) / max(len(self.times), 1)
-
-    @property
-    def last(self) -> float:
-        return self.times[-1] if self.times else 0.0
-
-    def summary(self) -> dict:
-        if not self.times:
-            return {"mean_s": 0.0, "min_s": 0.0, "max_s": 0.0, "steps": 0}
-        return {"mean_s": self.mean, "min_s": min(self.times),
-                "max_s": max(self.times), "steps": len(self.times)}

@@ -1,7 +1,7 @@
 """utils/profiling.py: the chrome-trace readers on synthetic traces (two
 devices, busiest against sum, copies that overlap kernels, annotated
 spans, missing files), the kernel-name buckets, and trace / annotate /
-sync / StepTimer on the CPU."""
+sync on the CPU (the spans themselves: test_torch_tracing.py)."""
 import json
 import time
 
@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from ml_audio_restoration_torch.utils import (
-    StepTimer, annotate, sync, trace, trace_device_times, trace_top_ops)
+    annotate, sync, trace, trace_device_times, trace_top_ops)
 from ml_audio_restoration_torch.utils.profiling import bucket
 
 K1 = "void (anonymous namespace)::lstm_recurrence_kernel<float, 64>(...)"
@@ -144,15 +144,3 @@ def test_trace_annotate_sync_on_the_cpu(tmp_path):
     assert torch.equal(y, x * 2)
     with pytest.raises(RuntimeError, match="no GPU events"):
         trace_device_times(tmp_path / "p")
-
-
-def test_step_timer():
-    t = StepTimer(keep=2)
-    assert t.summary() == {"mean_s": 0.0, "min_s": 0.0, "max_s": 0.0,
-                           "steps": 0}
-    for _ in range(3):
-        with t:
-            pass
-    s = t.summary()
-    assert s["steps"] == 2 and s["min_s"] <= s["mean_s"] <= s["max_s"]
-    assert t.last == t.times[-1]

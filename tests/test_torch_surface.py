@@ -27,6 +27,9 @@ NON_PORTS = {
     "compat.convert_stereo_separator", "compat.EXPORTERS",
     "compat.export_denoiser", "compat.export_super_resolution",
     "compat.export_stereo_separator",
+    # utils/profiling.py's StepTimer: rolling host-clock step times, which
+    # nothing read; the program's spans (annotate, spans) replace it
+    "utils.StepTimer",
 }
 # Names whose counterpart has another name: the JAX package's mesh
 # shardings are NamedSharding objects XLA's partitioner reads; the port's
@@ -90,6 +93,9 @@ SIGNATURE_DIFFERENCES = {
     # reduced across ranks
     "ops.upsample_linear": ((), ("offset", "total")),
     "losses.stereo_metrics": ((), ("moments",)),
+    # the port's spans carry the counts of the work they cover, and time
+    # the device where a reader takes device ms
+    "utils.annotate": ((), ("device_ms", "counts")),
 }
 
 
