@@ -140,7 +140,8 @@ class PipelineConfig:
     stereo_mid_exact: bool = False
     # the stereo stage on the pre-SR signal; only its side is upsampled
     stereo_source_rate: bool = False
-    # longer recordings run in slabs of this many chunks, then crossfade
+    # longer recordings run in slabs of at most this many chunks (balanced:
+    # pipeline/restore.py::slab_plan), then crossfade
     max_chunks_per_program: int = 64
     # int8 serving (opt-in): the conv stacks in int8 on the packed layout;
     # packed_convs=False disables it, int8_scope is "packed" or "full"

@@ -4,7 +4,9 @@ Counterpart of ml_audio_restoration_tpu/pipeline/restore.py: the recording
 is framed into a batch of overlapping chunks, the three eval models run over
 the batch, and the chunks are crossfaded back together. The chunk count is
 bucketed up to a multiple of 4, bucket padding gets zero crossfade weight,
-and recordings longer than `max_chunks_per_program` chunks run in slabs
+and recordings longer than `max_chunks_per_program` chunks run in the fewest
+slabs that cap allows, all of one bucketed size (`slab_plan`: the real
+chunks spread evenly over them, so the padding is under a bucket a slab),
 whose outputs are crossfaded exactly like chunks. `whole_file=True` runs one
 chunk spanning the recording.
 
@@ -127,6 +129,16 @@ def _sr_packable(sr) -> bool:
 def _bucket(n: int, granularity: int = 4) -> int:
     """Round the chunk count up to a multiple of `granularity`."""
     return max(granularity, ((n + granularity - 1) // granularity) * granularity)
+
+
+def slab_plan(n_real: int, cap: int, granularity: int = 4):
+    """(slabs, rows a slab) for `n_real` chunks at most `cap` rows a slab:
+    the fewest slabs, ceil(n_real / cap), each of one size, the bucket of
+    their even share of the chunks (at most `cap`). Every slab holds a real
+    chunk, and the padding, all in the last slab, is under `granularity`
+    rows a slab."""
+    num_slabs = -(-n_real // cap)
+    return num_slabs, min(cap, _bucket(-(-n_real // num_slabs), granularity))
 
 
 def stereo_sub_cfg(cfg: PipelineConfig, stage_len: int, f: int,
@@ -662,12 +674,12 @@ class RestorationPipeline:
                                 n_real)
             return out[:, :t * f], sample_rate * f
 
-        # Long recording: slabs of s chunks. Adjacent slabs share exactly
-        # `overlap` input samples, so the slab crossfade reproduces the
-        # single-shot chunk overlap-add; every slab holds a real chunk, and
-        # `valid` masks the bucket padding of the last one.
-        s = max_n
-        num_slabs = -(-n_real // s)
+        # Long recording: balanced slabs of s chunks each (slab_plan).
+        # Adjacent slabs share exactly `overlap` input samples, so the slab
+        # crossfade reproduces the single-shot chunk overlap-add; every slab
+        # holds a real chunk, and `valid` masks the bucket padding, all of
+        # it in the last slab.
+        num_slabs, s = slab_plan(n_real, max_n, self._granularity())
         span.count(rows_real=n_real, rows_run=num_slabs * s)
         slab_len = (s - 1) * hop + chunk_size
         needed = (num_slabs - 1) * s * hop + slab_len
@@ -979,9 +991,9 @@ class RestorationPipeline:
         algorithms for each batch shape and the caching allocator grows to
         the largest, so a first request pays none of it, on every device of
         the mesh. The buckets run in steps of the granularity (4, or
-        lcm(4, data) under a mesh) up to `max_chunks_per_program` (the top
-        one is also the slab shape); with `coalesce` > 1 the coalesced
-        stack runs at each too.
+        lcm(4, data) under a mesh) up to `max_chunks_per_program`, and
+        every slab size is one of the buckets (slab_plan); with `coalesce`
+        > 1 the coalesced stack runs at each too.
 
         `whole_file` mode has one shape per recording length: a no-op with
         a warning. So is `quantize_int8` with no scales loaded (the first

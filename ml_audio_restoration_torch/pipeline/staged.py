@@ -31,7 +31,7 @@ from ..config import PipelineConfig, check_pipeline_config
 from ..models import cast_model
 from ..ops import frame_structured, num_chunks, overlap_add
 from ..parallel.mesh import canonical, cuda_devices, replica
-from .restore import (_bucket, apply_stereo, no_tf32, resolve_device,
+from .restore import (apply_stereo, no_tf32, resolve_device, slab_plan,
                       stereo_sub_cfg)
 
 
@@ -139,11 +139,9 @@ class StagedRestorationPipeline:
         ov = int(round(cfg.overlap_seconds * sample_rate))
         hop = chunk - ov
         n_real = num_chunks(t, chunk, hop)
-        # one bucketed slab size for nearby clip lengths, as the plain
-        # pipeline's shapes (the JAX package's compiled programs)
-        s = min(max(cfg.max_chunks_per_program, 4),
-                _bucket(max(n_real, 4), 4))
-        num_slabs = -(-n_real // s)
+        # the plain pipeline's slabs: one bucketed size for nearby clip
+        # lengths, balanced over the fewest slabs the cap allows
+        num_slabs, s = slab_plan(n_real, max(cfg.max_chunks_per_program, 4))
         slab_len = (s - 1) * hop + chunk
         needed = (num_slabs - 1) * s * hop + slab_len
         padded = F.pad(audio, (0, needed - t))

@@ -173,9 +173,10 @@ def test_sharded_restore_matches_jax_and_unsharded(stages,  # noqa: F811
 
 
 def test_uneven_slabs_over_three_devices(stages, shard_rows):  # noqa: F811
-    """A recording longer than max_chunks_per_program runs in slabs of
-    exactly that many chunks, which need not divide over the mesh: 4-chunk
-    slabs over 3 devices split 2/1/1 (the chip's 64 over 3: 22/21/21)."""
+    """A recording longer than max_chunks_per_program runs in slabs of at
+    most that many chunks; a cap off the granularity (lcm(4, 3) = 12) is
+    the slab size, and need not divide over the mesh: 4-chunk slabs over 3
+    devices split 2/1/1 (a 64-chunk slab over 3: 22/21/21)."""
     cfg = dict(CHUNKED, max_chunks_per_program=4)
     audio = _audio(5000, seed=2)
     got, _ = _port(stages, _cpu_mesh(3), **cfg).restore(audio, RATE)

@@ -20,6 +20,7 @@ from ml_audio_restoration_torch.config import PipelineConfig
 from ml_audio_restoration_torch.parallel import make_mesh
 from ml_audio_restoration_torch.pipeline import (
     RestorationPipeline, StreamingRestorer, restore_audio)
+from ml_audio_restoration_torch.pipeline.restore import slab_plan
 from test_torch_models import jax_model, port_model
 
 CHAIN_BAR = 1e-3
@@ -52,7 +53,9 @@ def _pipes(stages, device="cpu", **cfg):
     (CHUNKED, 5000),                                   # 6 chunks -> bucket 8
     (dict(CHUNKED, max_chunks_per_program=4), 5000),   # two slabs
     ({"whole_file": True}, 3001),
-    (dict(CHUNKED, enable_super_resolution=False), 4321)])
+    (dict(CHUNKED, enable_super_resolution=False), 4321),
+    # 18 chunks at 16: two balanced slabs of 12 (24 rows; 32 at the cap)
+    (dict(CHUNKED, max_chunks_per_program=16), 16300)])
 def test_restore_matches_jax(stages, cfg, t):
     audio = (np.random.default_rng(t).normal(size=(1, t)) * 0.2).astype(
         np.float32)
@@ -63,6 +66,20 @@ def test_restore_matches_jax(stages, cfg, t):
     assert rate == want_rate == RATE * f
     assert tuple(got.shape) == (2, t * f) == np.asarray(want).shape
     assert float(np.max(np.abs(got.numpy() - np.asarray(want)))) < CHAIN_BAR
+
+
+@pytest.mark.parametrize("cap", [4, 8, 16, 64])
+@pytest.mark.parametrize("gran", [4, 8, 12])
+def test_slab_plan_balances_slabs(cap, gran):
+    """The fewest slabs the cap allows, all of one size at most the cap,
+    none empty, a multiple of the granularity where the cap is one, and
+    under a granularity of padding a slab."""
+    for n_real in range(1, 301):
+        num_slabs, s = slab_plan(n_real, cap, gran)
+        assert s <= cap and num_slabs == -(-n_real // cap)
+        assert (num_slabs - 1) * s < n_real <= num_slabs * s
+        assert cap % gran or s % gran == 0
+        assert num_slabs * s - n_real < num_slabs * gran
 
 
 def test_stereo_input_is_mixed_to_mono(stages):

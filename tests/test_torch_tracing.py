@@ -190,7 +190,10 @@ def test_events_only_on_device_spans(kind, timed, monkeypatch):
     (9000, {"max_chunks_per_program": 8},
      num_chunks(9000, CHUNK, HOP), 16, 2),                      # 2 slabs
     (4500, {"whole_file": True}, 1, 1, 1),
-], ids=["bucketed", "slabbed", "whole_file"])
+    # 13 chunks at 12: two balanced slabs of 8 (24 rows at the cap)
+    (11800, {"max_chunks_per_program": 12},
+     num_chunks(11800, CHUNK, HOP), 16, 2),
+], ids=["bucketed", "slabbed", "whole_file", "balanced"])
 def test_restore_spans(t, cfg, rows_real, rows_run, programs):
     pipe = _pipe(**cfg)
     for _ in range(2):
