@@ -68,6 +68,10 @@ def _add_restore(sub):
     p.add_argument("--no-super-res", action="store_true")
     p.add_argument("--no-stereo", action="store_true")
     p.add_argument("--no-denoise", action="store_true")
+    p.add_argument("--enhancer", default=None,
+                   help="BS-RoFormer state dict (.pth / .ckpt, lucidrains's "
+                        "keys) with its widths in the YAML beside it: a "
+                        "fourth stage after the stereo stage")
     p.add_argument("--whole-file", action="store_true",
                    help="one unchunked forward over the whole recording")
     p.add_argument("--coalesce", type=int, default=4,
@@ -182,7 +186,7 @@ def _cmd_restore(args):
         denoiser_path=None if args.no_denoise else args.denoiser,
         super_res_path=None if args.no_super_res else args.super_res,
         stereo_path=None if args.no_stereo else args.stereo,
-        config=config, device=args.device)
+        config=config, device=args.device, enhancer_path=args.enhancer)
     pipe.mesh = mesh
     if args.int8_scales and os.path.exists(args.int8_scales):
         pipe.load_int8_scales(args.int8_scales)

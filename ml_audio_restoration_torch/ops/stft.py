@@ -52,10 +52,22 @@ def istft(spec, n_fft: int, hop: int, *, window=None,
     normalization differ).
 
     spec: [B, frames, n_fft//2 + 1] complex -> [B, length] real (the
-    centre padding cropped). With the default window and hop dividing
-    n_fft, the overlap-add is n_fft/hop shifted adds of hop-sized segments
-    and the normalization is built in float64 numpy and cast once; a given
-    window or hop that does not divide n_fft takes the scatter form."""
+    centre padding cropped, then the first `length` samples kept). With
+    the default window and hop dividing n_fft, the overlap-add is n_fft/hop
+    shifted adds of hop-sized segments and the normalization is built in
+    float64 numpy and cast once; a given window or hop that does not divide
+    n_fft takes the scatter form."""
+    out = overlap_add_frames(spec, n_fft, hop, window=window)
+    pad = n_fft // 2
+    out = out[:, pad:out.shape[1] - pad]
+    if length is not None:
+        out = out[:, :length]
+    return out
+
+
+def overlap_add_frames(spec, n_fft: int, hop: int, *, window=None):
+    """`istft`'s overlap-add before the centre crop: [B, frames, n_fft//2 +
+    1] complex -> [B, n_fft + hop * (frames - 1)] real."""
     win_np = None
     if window is None:
         win_np = hann_window(n_fft).numpy()
@@ -89,8 +101,4 @@ def istft(spec, n_fft: int, hop: int, *, window=None,
         norm = norm.index_add(0, idx.reshape(-1),
                               (window ** 2).to(frames.dtype).repeat(nf))
         out = out / torch.clamp(norm, min=1e-8)
-    pad = n_fft // 2
-    out = out[:, pad:total - pad]
-    if length is not None:
-        out = out[:, :length]
     return out

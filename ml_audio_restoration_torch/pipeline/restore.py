@@ -88,7 +88,10 @@ def no_tf32():
 def load_stage(path, name: str, device="cpu") -> Optional[nn.Module]:
     """Load one stage from an upstream `.pth` or a JAX package `.msgpack`
     checkpoint (dispatch on the extension: anything but `.pth` is a
-    native checkpoint, as in the JAX package); None passes through."""
+    native checkpoint, as in the JAX package); None passes through. The
+    `enhancer` (BS-RoFormer) loads from a `.pth` / `.ckpt` state dict under
+    lucidrains's keys with its widths in the YAML beside it
+    (models.bs_roformer.load_enhancer)."""
     if path is None:
         return None
     p = str(path)
@@ -97,6 +100,10 @@ def load_stage(path, name: str, device="cpu") -> Optional[nn.Module]:
             f"{name} checkpoint not found: {p!r} - pass an upstream .pth or "
             f"a JAX .msgpack checkpoint, or disable the stage (--no-denoise/"
             f"--no-super-res/--no-stereo)")
+    if name == "enhancer":
+        from ..models.bs_roformer import load_enhancer
+
+        return load_enhancer(p, device)
     if p.endswith(".pth"):
         return model_from_state_dict(name, load_pth(p), device)
     from ..train.checkpoints import load_native
@@ -107,7 +114,7 @@ def load_stage(path, name: str, device="cpu") -> Optional[nn.Module]:
 
 # pipeline attribute -> the model name load_stage takes
 STAGE_MODELS = {"denoiser": "denoiser", "super_resolution": "super_resolution",
-                "stereo": "stereo_separator"}
+                "stereo": "stereo_separator", "enhancer": "enhancer"}
 
 
 class Int8LengthGateError(ValueError):
@@ -219,7 +226,8 @@ class _Stages(NamedTuple):
     """The stage stack of one device, in pieces: `front` (denoiser, SR),
     the stereo stage whole (`stereo`) or as encoder, LSTM and decoders
     (`encode`, `recur`, `decode`: the sequence-parallel path runs them on
-    different devices), and `combine` (mid-exact, source-rate). `stack`
+    different devices), `combine` (mid-exact, source-rate) and the
+    optional `enhance` (BS-RoFormer on the combined output). `stack`
     composes them over a chunk batch."""
     dn: Optional[nn.Module]
     sr: Optional[nn.Module]
@@ -233,6 +241,7 @@ class _Stages(NamedTuple):
     int8_stereo: bool
     q: dict  # stage -> its int8 context, or None
     mid_exact: bool
+    en: Optional[nn.Module] = None
 
     def _ncw(self, fn, model, q, **kw):
         """The NWC int8 forward of `model` on an NCW [N, 1, T] tensor."""
@@ -317,36 +326,51 @@ class _Stages(NamedTuple):
                 x = y
         return x.float()
 
+    def enhance(self, x):
+        """The enhancer on the combined output [N, C_out, T] f32 -> the
+        same shape, f32. Its span counts the tokens each of its
+        transformers attends over (rows x STFT frames x bands)."""
+        tokens = self.en.num_tokens(x.shape[0], x.shape[-1])
+        with annotate("restore.enhance", device_ms=True, tokens=tokens):
+            return self.en(x.to(self.dtype)).float()
+
     def stack(self, chunks):
         """The whole stack on a chunk batch [N, chunk, 1] -> [N, C_out,
         chunk*f] f32."""
         mid, st_in = self.front(chunks.permute(0, 2, 1).to(self.dtype))
-        return self.combine(mid, None if self.st is None
-                            else self.stereo(st_in))
+        out = self.combine(mid, None if self.st is None
+                           else self.stereo(st_in))
+        return out if self.en is None else self.enhance(out)
 
 
 class RestorationPipeline:
-    """Holds the three stage models (any may be None) on one device, and
-    serves on it or, under a mesh, on the mesh's devices."""
+    """Holds the three stage models (any may be None) and the optional
+    fourth, the enhancer, on one device, and serves on it or, under a
+    mesh, on the mesh's devices."""
 
     def __init__(self, denoiser: Optional[nn.Module] = None,
                  super_resolution: Optional[nn.Module] = None,
                  stereo: Optional[nn.Module] = None,
                  config: Optional[PipelineConfig] = None,
-                 device="cuda", mesh=None):
+                 device="cuda", mesh=None,
+                 enhancer: Optional[nn.Module] = None):
         """`mesh`: a parallel.mesh.Mesh; the chunk batch is sharded over
         its 'data' axis and each chunk's time over its 'model' axis. It
         may also be assigned to `pipe.mesh` later (the
         CLI does): every cache below is keyed by device, and the stage
-        stack is built for the mesh of each call."""
+        stack is built for the mesh of each call. `enhancer`: a
+        models.BSRoformer of one stem run on every chunk's output after
+        the stereo stage (`_Stages.enhance`); it takes as many channels as
+        the pipeline puts out, and no int8 or 'model' mesh axis."""
         self.config = config or PipelineConfig()
         check_pipeline_config(self.config)
         self.device = resolve_device(device)
         self.mesh = mesh
         no_tf32()
-        self.denoiser, self.super_resolution, self.stereo = (
+        self.denoiser, self.super_resolution, self.stereo, self.enhancer = (
             None if m is None else m.to(self.device).eval()
-            for m in (denoiser, super_resolution, stereo))
+            for m in (denoiser, super_resolution, stereo, enhancer))
+        self._check_enhancer(self.enhancer, self.stereo)
         # compute dtype -> {device: the stage models in it on that device}
         self._cast: dict = {}
         self._warmed: set = set()  # stack shapes warmup has run
@@ -360,21 +384,25 @@ class RestorationPipeline:
 
     @classmethod
     def from_checkpoints(cls, denoiser_path=None, super_res_path=None,
-                         stereo_path=None, config=None, device="cuda"):
+                         stereo_path=None, config=None, device="cuda",
+                         enhancer_path=None):
         """Load the stages from upstream `.pth` or JAX `.msgpack`
-        checkpoints (load_stage)."""
+        checkpoints, and the enhancer from its state dict and YAML
+        (load_stage)."""
         dev = resolve_device(device)
         return cls(denoiser=load_stage(denoiser_path, "denoiser", dev),
                    super_resolution=load_stage(super_res_path,
                                                "super_resolution", dev),
                    stereo=load_stage(stereo_path, "stereo_separator", dev),
-                   config=config, device=dev)
+                   config=config, device=dev,
+                   enhancer=load_stage(enhancer_path, "enhancer", dev))
 
     def reload_stages(self, paths: dict) -> list:
         """Hot swap of stage checkpoints: {attribute: path}, the attributes
-        being `denoiser`, `super_resolution` and `stereo`. Every stage is
-        loaded (load_stage) onto the pipeline's device in eval mode before
-        any is swapped, so a bad path leaves the pipeline as it was. The
+        being `denoiser`, `super_resolution`, `stereo` and `enhancer`. Every
+        stage is loaded (load_stage) onto the pipeline's device in eval mode
+        and the enhancer checked against the stages it joins before any is
+        swapped, so a bad path leaves the pipeline as it was. The
         compute-dtype models on every device (`_cast`: the f32 entry of the
         pipeline's device holds the old modules themselves, every other
         entry copies of them) and the int8 contexts of every device go
@@ -382,6 +410,9 @@ class RestorationPipeline:
         weights, starts over. Returns the swapped attributes, sorted."""
         loaded = {name: load_stage(path, STAGE_MODELS[name], self.device)
                   for name, path in paths.items()}
+        stages = {name: getattr(self, name) for name in STAGE_MODELS}
+        stages.update(loaded)
+        self._check_enhancer(stages["enhancer"], stages["stereo"])
         for name, model in loaded.items():
             setattr(self, name, model.eval())
         self._cast = {}
@@ -390,6 +421,28 @@ class RestorationPipeline:
         self._int8_version += 1
         self._int8_failed = False
         return sorted(loaded)
+
+    def _check_enhancer(self, enhancer, stereo):
+        """Raise ValueError where the enhancer cannot join the stack: more
+        than one stem, channels other than the stack puts out, int8
+        serving, or a mesh whose 'model' axis splits each chunk's time
+        (the transformers attend over the whole chunk)."""
+        if enhancer is None:
+            return
+        out_channels = 2 if stereo is not None else 1
+        problem = None
+        if enhancer.num_stems != 1:
+            problem = f"it has {enhancer.num_stems} stems, the stage one"
+        elif enhancer.audio_channels != out_channels:
+            problem = (f"it takes {enhancer.audio_channels} channel(s) and "
+                       f"the stages before it put out {out_channels}")
+        elif self.config.quantize_int8:
+            problem = "int8 serving (quantize_int8) does not cover it"
+        elif self.mesh is not None and self.mesh.shape["model"] > 1:
+            problem = ("a mesh 'model' axis above 1 splits each chunk's "
+                       "time, and it attends over the whole chunk")
+        if problem:
+            raise ValueError(f"the enhancer stage cannot run: {problem}")
 
     @property
     def _has_sr(self) -> bool:
@@ -408,6 +461,13 @@ class RestorationPipeline:
 
     def _models(self, device=None):
         """(denoiser, super-resolution or None, stereo) in the compute
+        dtype on `device` (default the pipeline's); `_stage_models` holds
+        them, with the enhancer."""
+        dn, sr, st, _ = self._stage_models(device)
+        return dn, (sr if self._has_sr else None), st
+
+    def _stage_models(self, device=None):
+        """(denoiser, super-resolution, stereo, enhancer) in the compute
         dtype on `device` (default the pipeline's), kept in
         `_cast[dtype][device]`. The f32 entry of the pipeline's device
         holds the stage modules themselves; another device's, copies of
@@ -420,9 +480,8 @@ class RestorationPipeline:
             per_device[dev] = tuple(cast_model(replica(m, dev), dtype)
                                     for m in (self.denoiser,
                                               self.super_resolution,
-                                              self.stereo))
-        dn, sr, st = per_device[dev]
-        return dn, (sr if self._has_sr else None), st
+                                              self.stereo, self.enhancer))
+        return per_device[dev]
 
     def _granularity(self) -> int:
         """The chunk-count bucket: a multiple of 4, and of the mesh's data
@@ -450,6 +509,7 @@ class RestorationPipeline:
         whose 'model' axis is above 1 also splits each chunk's time over
         its row (_sequence_stack)."""
         check_pipeline_config(self.config)
+        self._check_enhancer(self.enhancer, self.stereo)
         if self.mesh is None:
             return self._device_stages(self.device, chunk_size,
                                        sample_rate).stack
@@ -587,7 +647,7 @@ class RestorationPipeline:
                 q["stereo"] = self._int8_ctx("stereo", scope, device=device)
         return _Stages(dn, sr, st, getattr(torch, cfg.compute_dtype), f,
                        src_rate, st_f, sub_cfg, int8, int8_stereo, q,
-                       cfg.stereo_mid_exact)
+                       cfg.stereo_mid_exact, self._stage_models(device)[3])
 
     def _int8_ctx(self, stage: str, scope: str, skip=frozenset(),
                   device=None):
@@ -616,6 +676,22 @@ class RestorationPipeline:
         total = (n_chunks - 1) * hop + chunk_size
         return overlap_add(x, hop * f, total * f, overlap=overlap * f,
                            valid=valid)
+
+    def _pad_end(self, audio, n: int):
+        """[C, T] with n samples after its end, where the last chunk (and
+        any slab padding) runs past the recording: zeros; with an enhancer,
+        the recording reflected about its last sample (period 2(T-1)), as
+        upstream BS-RoFormer inference pads a short last part. Its per-band
+        RMSNorm scales a band to unit RMS whatever its energy, so the
+        rounding noise of a silent tail's bands would become unit-scale
+        features that attention spreads over the whole chunk."""
+        if self.enhancer is None or n <= 0:
+            return F.pad(audio, (0, n))
+        t = audio.shape[-1]
+        period = max(2 * (t - 1), 1)
+        m = torch.arange(t, t + n, device=audio.device) % period
+        return torch.cat([audio, audio[:, torch.where(m < t, m, period - m)]],
+                         dim=1)
 
     def _framing(self, sample_rate: int):
         """(chunk, hop, overlap) in samples at `sample_rate`."""
@@ -669,7 +745,7 @@ class RestorationPipeline:
         if cfg.whole_file or n <= max_n:
             span.count(rows_real=n_real, rows_run=n)
             total = (n - 1) * hop + chunk_size
-            padded = F.pad(audio, (0, total - t))
+            padded = self._pad_end(audio, total - t)
             out = self._process(stack, padded, n, chunk_size, hop, overlap,
                                 n_real)
             return out[:, :t * f], sample_rate * f
@@ -683,7 +759,7 @@ class RestorationPipeline:
         span.count(rows_real=n_real, rows_run=num_slabs * s)
         slab_len = (s - 1) * hop + chunk_size
         needed = (num_slabs - 1) * s * hop + slab_len
-        padded = F.pad(audio, (0, needed - t))
+        padded = self._pad_end(audio, needed - t)
         outs = []
         for i in range(num_slabs):
             start = i * s * hop
@@ -767,7 +843,7 @@ class RestorationPipeline:
                 n_real, x = metas[i][0], prepped[i]
                 total = (n_real - 1) * hop + chunk_size
                 frames.append(frame_structured(
-                    F.pad(x, (0, total - x.shape[1])), n_real, chunk_size,
+                    self._pad_end(x, total - x.shape[1]), n_real, chunk_size,
                     hop))
             frames.append(torch.zeros((n_total - rows, chunk_size, 1),
                                       device=self.device))

@@ -65,7 +65,8 @@ class StreamingRestorer:
                  source_rate: bool = False, quantize_int8: bool = False,
                  int8_scales=None, mesh=None,
                  lstm_impl: Optional[str] = None,
-                 compute_dtype: str = "float32", device="cuda"):
+                 compute_dtype: str = "float32", device="cuda",
+                 enhancer=None):
         """context/lookahead in input-rate samples; both must exceed the
         convolutions' receptive field (~400 samples for the default
         models). batch: the number of lockstep streams. mid_exact mirrors
@@ -80,7 +81,13 @@ class StreamingRestorer:
         int8 (a warning, then float) and is otherwise ignored, as is
         `lstm_impl` (None, "scan" or "pallas"). `mesh` shards the streams
         over its 'data' axis (each row's first device); `batch` must
-        divide evenly over it."""
+        divide evenly over it. `enhancer` (RestorationPipeline's fourth
+        stage) is refused: its transformers attend over a whole 8 s chunk,
+        which a block does not hold."""
+        if enhancer is not None:
+            raise ValueError("streaming does not serve the enhancer stage "
+                             "(BS-RoFormer attends over whole chunks); "
+                             "restore with RestorationPipeline")
         if mesh is not None and int(batch) % mesh.shape["data"]:
             raise ValueError(
                 f"batch {batch} must divide evenly over the 'data' mesh "

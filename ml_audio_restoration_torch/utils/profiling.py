@@ -21,9 +21,11 @@ readers become readers of the profiler's chrome trace:
 
 The program's spans (README, `utils.profiling`; those that time the
 device marked *): `restore` (rows_real, rows_run), `restore.denoise`*,
-`restore.super_resolution`*, `restore.stereo`*; `stream.feed`,
-`stream.buffer`, `stream.upload`*, `stream.download`*; `train.step`,
-`train.update`*, `loader.wait`.
+`restore.super_resolution`*, `restore.stereo`*, `restore.enhance`*
+(tokens) and inside it `enhance.spec`*, `enhance.bands`*,
+`enhance.time`*, `enhance.band`*; `stream.feed`, `stream.buffer`,
+`stream.upload`*, `stream.download`*; `train.step`, `train.update`*,
+`loader.wait`.
 """
 from __future__ import annotations
 

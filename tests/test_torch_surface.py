@@ -85,9 +85,11 @@ SIGNATURE_DIFFERENCES = {
     "ops.hann_window": ((), ("device",)),
     "ops.crossfade_window": ((), ("device",)),
     "parallel.initialize": ((), ("device",)),
-    "pipeline.RestorationPipeline": ((), ("device",)),
+    # ... and the port's restore path has a fourth stage, BS-RoFormer, that
+    # the JAX package lacks (streaming refuses it)
+    "pipeline.RestorationPipeline": ((), ("device", "enhancer")),
     "pipeline.restore_audio": ((), ("device",)),
-    "pipeline.StreamingRestorer": ((), ("device",)),
+    "pipeline.StreamingRestorer": ((), ("device", "enhancer")),
     # the time-sharded serving path upsamples a window of a recording
     # (parallel/seq.py); the trainer reads its metrics from moments
     # reduced across ranks
