@@ -27,7 +27,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
   4. main    - the offline restore chain at full published widths with
                seeded random weights: kernel vs plain recurrence on a 4 s
                clip, card vs CPU on the same clip, a 120 s clip (64 bucketed
-               chunks) with xRT, per-stage ms and K1 launch counts, and a
+               chunks) with xRT, per-stage ms, K1 launch counts and the
+               conv epilogue's (one a conv of each stage a program), and a
                WAV file round trip;
   5. grad    - gradients through the eval stereo forward on the card are
                non-zero and match the plain recurrence's;
@@ -217,7 +218,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
                launches; the IIR degradation timed beside the FIR path's
                on the same draws and traced (its top device ops and the
                host's gaps), and scipy's sosfiltfilt on the host CPU;
- 22. resume_jax - resuming a JAX training run at full width: the stereo
+ 22. epilogue - the eval convolutions' epilogue (csrc/conv_epilogue.cu
+               behind ops/conv.py) at the stereo model's layer shapes of a
+               44-row slab, [44, C, 88,200] for C = 32, 64, 128 and 1, f32
+               and bf16: bit for bit ATen's bias add + LeakyReLU, timed
+               beside its bytes bound, its plain version and ATen's ops;
+               the launches of one eval forward of each model against
+               models.epilogue_convs (17 for the stereo model);
+ 23. resume_jax - resuming a JAX training run at full width: the stereo
                separator (Adam without clipping, 7 + 2N optimizer leaves)
                and the denoiser (max_grad_norm 1, EMA 0.995; 3 + 2N): a
                trainer's 3 steps written as checkpoint_epoch_1.msgpack in
@@ -225,23 +233,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
                train_from_config in a fresh directory resumes it and runs
                the next 2 steps (K2/K3 counted), bit for bit the
                uninterrupted trainer's;
- 23. library - istft(stft(x)) of the 120 s clip (n_fft 2048, hop 512) and
+ 24. library - istft(stft(x)) of the 120 s clip (n_fft 2048, hop 512) and
                transient_spectral_loss with its gradient on 16 x 2 s at
                44.1 kHz, card against CPU;
- 24. profile - utils.profiling.trace around a warm default 120 s restore
+ 25. profile - utils.profiling.trace around a warm default 120 s restore
                and around one stereo train step at full width, each read
                with trace_device_times and trace_top_ops: the kernels'
                total within the wall time, K1 on top of the restore's
                recurrence bucket, and the bucket within 5% of K1's time
-               from phase kernels.
+               from phase kernels; the restore's elementwise kernels listed.
 Each phase's wall seconds follow it on a line {"phase_wall_s": ...}.
-Then one line {"kernels": [...]} (K1, K2, K3, the int8 conv and the IIR
+Then one line {"kernels": [...]} (K1, K2, K3, the int8 conv, the IIR
 scan, whose numbers are one crackle walk's with every walk in `shapes`,
-and `floor_ms` its latency floor; the int8 conv's numbers sum its layers
+and `floor_ms` its latency floor, and the conv epilogue, whose numbers
+sum one f32 stereo forward's convs at a 44-row slab, its `launches` the
+120 s restore program's and its `path_launches` each path's run; the int8
+conv's numbers sum its layers
 over one 64-chunk program, each layer with its path
 in `shapes`, and whose `launches_by_path` splits its launches on the main
 path among wgmma, stem and generic; K1's `path_launches` include the
-serve_mesh and serve_seq paths) and, last, the device line
+serve_mesh and serve_seq paths), a line {"phase": "epilogue_paths"}
+before it (each path's epilogue launches, the eval convs it routed to the
+kernel and to ATen's ops, and K1's walks: every routed conv takes the
+kernel, once, and where a program runs each stage once a walk the
+launches are the walks times the stages' convs; a path that misses fails
+the run after the kernels line) and, last, the device line
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Imports nothing of JAX.
 """
@@ -319,7 +335,7 @@ def phase_build():
     from ml_audio_restoration_torch.ops import _build, _latency
 
     sources = ("lstm_recurrence", "lstm_train", "int8_conv", "iir_scan",
-               _latency.PROBE, native.LIBRARY)
+               "conv_epilogue", _latency.PROBE, native.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
@@ -866,6 +882,10 @@ def _clip(seconds: float, rate: int, seed: int) -> np.ndarray:
 
 
 def phase_main(torch, kernel_row):
+    """4 s and 120 s restores on the card (against the plain recurrence
+    and the CPU; launches, stage ms) and a WAV round trip. Returns the
+    conv epilogue's launches in the 120 s restore's one program."""
+    from ml_audio_restoration_torch.models import epilogue_convs
     from ml_audio_restoration_torch.ops import lstm as L
     from ml_audio_restoration_torch.ops import frame_structured, overlap_add
     from ml_audio_restoration_torch.ops.chunking import num_chunks
@@ -910,14 +930,20 @@ def phase_main(torch, kernel_row):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     L.reset_launch_count()
+    _reset_epilogue()
     t0 = time.perf_counter()
     y, _ = pipe.restore(clip, rate)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = L.launch_count
+    epilogues = _note_epilogue("main_120s")["launches"]
     peak = torch.cuda.max_memory_allocated()
+    # one epilogue launch a conv of each stage a program, one K1 walk a
+    # program
     ok = (tuple(y.shape) == (2, clip.shape[1] * 2)
-          and bool(torch.isfinite(y).all()))
+          and bool(torch.isfinite(y).all())
+          and epilogues == launches * sum(
+              len(epilogue_convs(m)) for m in (dn, sr, st)))
 
     # per-stage device time on the same chunk batch
     chunk = int(round(pipe.config.chunk_seconds * rate))
@@ -943,7 +969,8 @@ def phase_main(torch, kernel_row):
     big = {"phase": "main_120s", "seconds": seconds, "chunks": n,
            "real_chunks": n_real, "wall_s": wall, "xrt": seconds / wall,
            "stage_ms": stage_ms, "peak_mem_bytes": peak,
-           "lstm_recurrence_launches": launches, "ok": ok}
+           "lstm_recurrence_launches": launches,
+           "conv_epilogue_launches": epilogues, "ok": ok}
     emit(big)
     if not ok or launches < 1:
         raise AssertionError(f"120 s restore failed: {big}")
@@ -963,6 +990,7 @@ def phase_main(torch, kernel_row):
     if not (info.channels == 2 and info.sample_rate == 2 * rate == out_rate
             and info.frames == 2 * clip.shape[1]):
         raise AssertionError(f"restore_file round trip failed: {io_row}")
+    return epilogues
 
 
 def _grad_devs(a, b):
@@ -2873,10 +2901,12 @@ def _files_flac(torch, L, tmp, pipe, rate, cpu_name):
         save_audio(src, short, rate)
         torch.cuda.synchronize()
         L.reset_launch_count()
+        _reset_epilogue()
         t0 = time.perf_counter()
         _, out_rate = pipe.restore_file(src, dst)
         wall[ext] = time.perf_counter() - t0
         launches[ext] = L.launch_count
+        _note_epilogue(f"files_{ext}_restore")
         outs[ext], got_rate = native.read(dst)
     row = {"phase": "files_flac", "seconds": 120.0, "host_cpu": cpu_name,
            "host_ms": ms, "flac_bytes": os.path.getsize(paths["a.flac"]),
@@ -2939,10 +2969,12 @@ def _files_msgpack(torch, L, files, rate):
         pipe.restore(clip, rate)  # warm-up: cuDNN picks its algorithms
         torch.cuda.synchronize()
         L.reset_launch_count()
+        _reset_epilogue()
         t0 = time.perf_counter()
         outs[kind], _ = pipe.restore(clip, rate)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        _note_epilogue(f"files_{kind}_restore")
         if kind == "msgpack":
             launches, msgpack_wall = L.launch_count, wall
     stream = StreamingRestorer.from_checkpoints(*files["msgpack"])
@@ -3053,11 +3085,13 @@ def _files_evaluate(torch, L, tmp, files):
         card.outputs.clear()
         torch.cuda.synchronize()
         L.reset_launch_count()
+        _reset_epilogue()
         t0 = time.perf_counter()
         got = rows_fn(card)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = L.launch_count
+        _note_epilogue(f"evaluate_{kind}")
         t0 = time.perf_counter()
         want = rows_fn(cpu)
         cpu_wall = time.perf_counter() - t0
@@ -3458,10 +3492,12 @@ def phase_k1_shapes(torch, evaluate_shape):
 
 def _timed_restore(torch, L, pipe, clip, rate):
     """(output, wall s, K1 launches, peak bytes) of one restore, the counts
-    set to 0 just before it and read just after."""
+    (the conv epilogue's too, for _note_epilogue) set to 0 just before it
+    and read just after."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     L.reset_launch_count()
+    _reset_epilogue()
     t0 = time.perf_counter()
     y, _ = pipe.restore(clip, rate)
     torch.cuda.synchronize()
@@ -3519,6 +3555,7 @@ def phase_serve_fast(torch, k1_rows):
     clip = _clip(seconds, rate, seed=3)
     warm = pipe.warmup()
     y, wall, launches, peak = _timed_restore(torch, L, pipe, clip, rate)
+    _note_epilogue("serve_fast")
     with L.plain_recurrence():
         y_p, _ = pipe.restore(clip, rate)
     f32 = RestorationPipeline(dn, sr, st, config=dataclasses.replace(
@@ -3584,6 +3621,7 @@ def phase_serve_options(torch):
                                    config=dataclasses.replace(base, **extra))
         pipe.restore(clip, rate)  # cuDNN picks its algorithms
         y, wall, launches, peak = _timed_restore(torch, L, pipe, clip, rate)
+        _note_epilogue(f"serve_{name}")
         with L.plain_recurrence():
             y_p, _ = pipe.restore(clip, rate)
         row = {"phase": "serve_options", "option": name, "seconds": seconds,
@@ -3630,10 +3668,13 @@ def phase_serve_many(torch):
                                          for c in clips])):
         torch.cuda.synchronize()
         L.reset_launch_count()
+        _reset_epilogue()
         t0 = time.perf_counter()
         outs[name] = fn()
         torch.cuda.synchronize()
         runs[name] = (None, time.perf_counter() - t0, L.launch_count)
+        _note_epilogue("serve_many" if name == "restore_many"
+                       else "serve_many_single")
     many, single = outs.pop("restore_many"), outs.pop("single")
     shapes_ok = all(a[0].shape == b[0].shape == (2, 2 * c.shape[1])
                     for a, b, c in zip(many, single, clips))
@@ -3648,12 +3689,14 @@ def phase_serve_many(torch):
             save_audio(os.path.join(root, "in", f"rec_{i}.wav"), c, rate)
         torch.cuda.synchronize()
         L.reset_launch_count()
+        _reset_epilogue()
         t0 = time.perf_counter()
         written = pipe.restore_directory(os.path.join(root, "in"),
                                          os.path.join(root, "out"),
                                          coalesce=4)
         dir_wall = time.perf_counter() - t0
         dir_launches = L.launch_count
+        _note_epilogue("serve_many_directory")
         same_bytes, file_dev = 0, 0.0
         for i in range(len(clips)):
             got = os.path.join(root, "out", f"rec_{i}_restored.wav")
@@ -3734,10 +3777,12 @@ def phase_stream(torch, k1_rows):
     warm = s.warmup(block)
     torch.cuda.synchronize()
     L.reset_launch_count()
+    _reset_epilogue()
     t0 = time.perf_counter()
     got, feed_ms, calls = _feed_all(s, blocks)
     wall = time.perf_counter() - t0
     launches = L.launch_count
+    _note_epilogue("stream")
 
     whole = RestorationPipeline(dn, sr, st,
                                 config=PipelineConfig(whole_file=True))
@@ -4080,10 +4125,12 @@ def _int8_stages(torch, pipe, clip, rate, capture: bool):
 
 def _timed_int8_restore(torch, L, ic, pipe, clip, rate):
     """(output, wall s, K1 launches, int8 conv launches) of one restore,
-    the counts set to 0 just before it and read just after."""
+    the counts (the conv epilogue's too, for _note_epilogue) set to 0 just
+    before it and read just after."""
     torch.cuda.synchronize()
     L.reset_launch_count()
     ic.reset_launch_count()
+    _reset_epilogue()
     t0 = time.perf_counter()
     y, _ = pipe.restore(clip, rate)
     torch.cuda.synchronize()
@@ -4172,6 +4219,7 @@ def phase_int8(torch):
     pipe.restore(clip, rate)  # the kernels built, cuDNN's algorithms picked
     y8, wall8, k1, launches = _timed_int8_restore(torch, L, ic, pipe, clip,
                                                   rate)
+    _note_epilogue("int8")
     by_path = dict(ic.launch_count_by_path)
     version = pipe._int8_version
     with ic.plain_int8_conv():
@@ -4307,6 +4355,7 @@ def phase_int8(torch):
     try:
         y_p, wall_preset, k1_preset, launches_preset = _timed_int8_restore(
             torch, L, ic, preset, clip, rate)
+        _note_epilogue("int8_preset")
     finally:
         L._lstm_recurrence_cuda = k1_run
     preset_by_path = dict(ic.launch_count_by_path)
@@ -4525,6 +4574,7 @@ def _serve_concurrent(torch, L, srv, pipe, rate):
     before = stats()
     torch.cuda.synchronize()
     L.reset_launch_count()
+    _reset_epilogue()
     t0 = time.perf_counter()
     threads = [threading.Thread(target=client)
                for _ in range(SERVE_CLIENTS)]
@@ -4534,6 +4584,7 @@ def _serve_concurrent(torch, L, srv, pipe, rate):
         th.join(timeout=600)
     wall = time.perf_counter() - t0
     launches = L.launch_count
+    _note_epilogue("serve_http_concurrent")
     after = stats()
     dev = max((float(np.abs(r[0] - _served_want(pipe, c, rate)).max())
                if r is not None and r[0].shape == (2, 2 * c.shape[1])
@@ -4661,6 +4712,7 @@ def _serve_streams(torch, L, models, http, rate):
 
         torch.cuda.synchronize()
         L.reset_launch_count()
+        _reset_epilogue()
         t0 = time.perf_counter()
         threads = [threading.Thread(target=client, args=(i,))
                    for i in range(b)]
@@ -4670,6 +4722,7 @@ def _serve_streams(torch, L, models, http, rate):
             th.join(timeout=600)
         wall = time.perf_counter() - t0
         launches = L.launch_count
+        _note_epilogue("serve_streams")
         ticks = srv.stats()["ticks"]
         restorer.feed = feed
         # one WebSocket stream through the HTTP daemon and its TCP twin
@@ -4729,8 +4782,10 @@ def _serve_int8(torch, L, models, root, rate):
         torch.cuda.synchronize()
         L.reset_launch_count()
         I8.reset_launch_count()
+        _reset_epilogue()
         got, _ = _serve_post(srv, body)
         launches = (I8.launch_count, L.launch_count)
+        _note_epilogue("serve_int8")
         by_path = dict(I8.launch_count_by_path)
         rtt = []
         for _ in range(5):
@@ -4873,8 +4928,10 @@ def phase_serve(torch):
             _serve_post(http, body)
             torch.cuda.synchronize()
             L.reset_launch_count()
+            _reset_epilogue()
             got, out_rate = _serve_post(http, body)
             solo_launches = L.launch_count
+            _note_epilogue("serve_http_solo")
             want = _served_want(pipe, clip, rate)
             rtt, inproc = [], []
             for _ in range(5):
@@ -5008,15 +5065,17 @@ def _k1_shapes_seen(L):
         L._lstm_recurrence_cuda = k1
 
 
-def _mesh_restore(torch, L, pipe, clip, rate, mesh, reps: int = 3):
+def _mesh_restore(torch, L, pipe, clip, rate, mesh, path, reps: int = 3):
     """`pipe` under `mesh` (None: unsharded) on `clip`: one warm-up restore
     (cuDNN picks its algorithms at the shards' shapes), one counted with
-    the K1 shapes of each shard, then `reps` timed. (output, median wall
-    s, K1 launches, K1 [T, B] per launch)."""
+    the K1 shapes of each shard (the conv epilogue's reading kept as
+    `path`'s), then `reps` timed. (output, median wall s, K1 launches, K1
+    [T, B] per launch)."""
     pipe.mesh = mesh
     pipe.restore(clip, rate)
     with _k1_shapes_seen(L) as shapes:
         y, _, launches, _ = _timed_restore(torch, L, pipe, clip, rate)
+    _note_epilogue(path)
     walls = [_timed_restore(torch, L, pipe, clip, rate)[1]
              for _ in range(reps)]
     return y, statistics.median(walls), launches, shapes
@@ -5127,14 +5186,14 @@ def phase_serve_mesh(torch):
     try:
         # 1. the 120 s clip unsharded and through 1-, 2- and 3-entry meshes
         y0, wall0, k1_0, shapes0 = _mesh_restore(torch, L, pipe, clip, rate,
-                                                 None)
+                                                 None, "serve_mesh_0")
         row["plain"] = {"xrt": seconds / wall0, "wall_s": wall0,
                         "k1_launches": k1_0, "k1_shapes": shapes0}
         emit({"phase": "serve_mesh_restore", "entries": 0, **row["plain"]})
         row["restores"] = {}
         for k, mesh in meshes.items():
             y, wall, k1, shapes = _mesh_restore(torch, L, pipe, clip, rate,
-                                                mesh)
+                                                mesh, f"serve_mesh_{k}")
             r = {"entries": k, "xrt": seconds / wall, "wall_s": wall,
                  "plain_xrt": seconds / wall0, "k1_launches": k1,
                  "k1_shapes": shapes, **_mesh_bar(torch, y, y0)}
@@ -5149,11 +5208,13 @@ def phase_serve_mesh(torch):
         torch.cuda.synchronize()
         with _k1_shapes_seen(L) as shapes:
             L.reset_launch_count()
+            _reset_epilogue()
             t0 = time.perf_counter()
             many = pipe.restore_many(mix, rate)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             k1_many = L.launch_count
+            _note_epilogue("serve_mesh_many")
         singles = [pipe.restore(a, rate)[0] for a in mix]
         row["many"] = {
             "recordings": len(mix), "seconds": sum(a.shape[1] for a in mix)
@@ -5178,6 +5239,7 @@ def phase_serve_mesh(torch):
         qm.restore(clip, rate)
         y8m, wall8m, k1_8m, int8_launches = _timed_int8_restore(
             torch, L, ic, qm, clip, rate)
+        _note_epilogue("serve_mesh_int8")
         by_path = dict(ic.launch_count_by_path)
         with ic.plain_int8_conv():
             y8m_plain, _ = qm.restore(clip, rate)
@@ -5206,8 +5268,11 @@ def phase_serve_mesh(torch):
             r.warmup(block)
             torch.cuda.synchronize()
             L.reset_launch_count()
+            _reset_epilogue()
             out, emitted, _ = _feed_all(r, blocks)
             runs[name] = (out, statistics.median(emitted), L.launch_count)
+            _note_epilogue("serve_mesh_stream" if name == "mesh"
+                           else "serve_mesh_stream_plain")
         row["stream"] = {
             "streams": 16, "seconds": 10.0, "block_s": 0.5, "entries": 2,
             "feed_ms_median": runs["mesh"][1],
@@ -5229,11 +5294,14 @@ def phase_serve_mesh(torch):
             torch.cuda.synchronize()
             with _k1_shapes_seen(L) as shapes:
                 L.reset_launch_count()
+                _reset_epilogue()
                 t0 = time.perf_counter()
                 got, _ = staged.restore(c, rate)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 k1 = L.launch_count
+                _note_epilogue("serve_mesh_staged" if name == "120s"
+                               else "serve_mesh_staged_4s")
             row["staged"][name] = {
                 "seconds": c.shape[1] / rate, "wall_s": wall,
                 "xrt": c.shape[1] / rate / wall, "k1_launches": k1,
@@ -5357,14 +5425,16 @@ def _seq_stage_events(torch):
             setattr(R._Stages, name, fn)
 
 
-def _seq_restore(torch, L, pipe, clip, rate, mesh):
+def _seq_restore(torch, L, pipe, clip, rate, mesh, path):
     """`pipe` under `mesh` (None: unsharded) on `clip`: one warm-up
     restore, then one counted, with K1's [T, B] a launch, the peak memory
-    and the device ms of each stage piece. Returns (output, row)."""
+    and the device ms of each stage piece (the conv epilogue's reading kept
+    as `path`'s). Returns (output, row)."""
     pipe.mesh = mesh
     pipe.restore(clip, rate)
     with _k1_shapes_seen(L) as shapes, _seq_stage_events(torch) as read:
         y, wall, launches, peak = _timed_restore(torch, L, pipe, clip, rate)
+        _note_epilogue(path)
         stage_ms = read()
     seconds = clip.shape[1] / rate
     return y, {"mesh": None if mesh is None else [mesh.shape["data"],
@@ -5414,11 +5484,14 @@ def phase_serve_seq(torch):
                                          "rtol": 0.0})):
             pipe = RestorationPipeline(*models, config=PipelineConfig(
                 whole_file=True, compute_dtype=dtype))
-            y0, plain = _seq_restore(torch, L, pipe, clip, rate, None)
+            tag = "" if dtype == "float32" else "bf16_"
+            y0, plain = _seq_restore(torch, L, pipe, clip, rate, None,
+                                     f"serve_seq_{tag}whole_file")
             emit({"phase": "serve_seq_restore", "dtype": dtype, **plain})
             runs = {"plain": plain}
             for d, m in whole:
-                y, r = _seq_restore(torch, L, pipe, clip, rate, mesh(d, m))
+                y, r = _seq_restore(torch, L, pipe, clip, rate, mesh(d, m),
+                                    f"serve_seq_{tag}{d}x{m}")
                 r.update(max_abs=_max_dev(y, y0),
                          within_bar=bool(torch.allclose(y, y0, **tol)),
                          bit_for_bit=bool(torch.equal(y, y0)),
@@ -5446,6 +5519,7 @@ def phase_serve_seq(torch):
         with _k1_shapes_seen(L) as shapes:
             y8m, wall8, k1_8, int8_launches = _timed_int8_restore(
                 torch, L, ic, qm, clip, rate)
+            _note_epilogue("serve_seq_int8")
         by_path = dict(ic.launch_count_by_path)
         rms = lambda d: float(d.float().square().mean().sqrt())  # noqa: E731
         row["int8"] = {
@@ -5463,8 +5537,10 @@ def phase_serve_seq(torch):
         torch.cuda.empty_cache()
         # 4. a chunked 120 s restore on 2x2 (64 chunks: 32 a row)
         pipe = RestorationPipeline(*models)
-        y0, plain = _seq_restore(torch, L, pipe, clip, rate, None)
-        y, r = _seq_restore(torch, L, pipe, clip, rate, mesh(2, 2))
+        y0, plain = _seq_restore(torch, L, pipe, clip, rate, None,
+                                 "serve_seq_chunked")
+        y, r = _seq_restore(torch, L, pipe, clip, rate, mesh(2, 2),
+                            "serve_seq_chunked_2x2")
         r.update(plain_xrt=plain["xrt"], plain_stage_ms=plain["stage_ms"],
                  max_abs=_max_dev(y, y0),
                  within_bar=bool(torch.allclose(y, y0, **MESH_TOL)))
@@ -5483,8 +5559,11 @@ def phase_serve_seq(torch):
             r.warmup(block)
             torch.cuda.synchronize()
             L.reset_launch_count()
+            _reset_epilogue()
             out, emitted, _ = _feed_all(r, blocks)
             outs[name] = (out, statistics.median(emitted), L.launch_count)
+            _note_epilogue("serve_seq_stream" if name == "1x2"
+                           else "serve_seq_stream_plain")
         row["stream"] = {
             "streams": 16, "seconds": 10.0, "block_s": 0.5, "mesh": [1, 2],
             "feed_ms_median": outs["1x2"][1],
@@ -5762,6 +5841,198 @@ def _iir_profile(torch, run):
     return {"wall_ms_traced": wall, "device_times": times, "top_ops": top,
             "host_gap_ms": wall - times["total_device_ms"],
             "idle_share": 1.0 - times["total_device_ms"] / wall}
+
+
+EPILOGUE_ROWS = 44       # a balanced slab of the restore cell (40-64 rows)
+#: the eval convs the port ran on the card since the last _reset_epilogue,
+#: by the route each took: csrc/conv_epilogue.cu, or ATen's ops (a gradient
+#: wanted, or inside aten_epilogue())
+EPILOGUE_ROUTE = {"kernel": 0, "aten": 0}
+#: path -> the conv epilogue's reading over the run that gave the path's K1
+#: count (_note_epilogue)
+EPILOGUE_PATHS = {}
+#: paths whose every program runs each of these stages (0 denoiser, 1 SR,
+#: 2 stereo) once and walks K1 once (slabs, coalesced recordings, 0.25 s
+#: stereo windows in one batch): the epilogue launches the stages' convs a
+#: walk; the other paths window or shard the stages apart from the walks
+EPILOGUE_WALK_STAGES = {
+    **{p: (0, 1, 2) for p in (
+        "main_120s", "serve_fast", "serve_sub_0.25", "serve_mid_exact",
+        "serve_source_rate", "serve_many", "files_flac_restore",
+        "files_wav_restore", "files_msgpack_restore", "serve_http_solo",
+        "serve_mesh_0", "serve_mesh_1")},
+    "evaluate_stereo": (2,)}
+
+
+def _count_epilogue_route():
+    """Tally each eval conv on the card by the route it takes
+    (EPILOGUE_ROUTE): wraps ops/conv.py's route decision for the rest of
+    the run."""
+    from ml_audio_restoration_torch.ops import conv as C
+
+    takes = C._takes_epilogue
+
+    def counted(*tensors):
+        took = takes(*tensors)
+        if tensors[0].device.type == "cuda":
+            EPILOGUE_ROUTE["kernel" if took else "aten"] += 1
+        return took
+
+    C._takes_epilogue = counted
+
+
+def _reset_epilogue():
+    """The conv epilogue's launch count and EPILOGUE_ROUTE to 0, beside a
+    reset of K1's count."""
+    from ml_audio_restoration_torch.ops import conv as C
+
+    C.reset_epilogue_launch_count()
+    EPILOGUE_ROUTE.update(kernel=0, aten=0)
+
+
+def _note_epilogue(path) -> dict:
+    """Keep (and return) the reading since _reset_epilogue as `path`'s: the
+    kernel's launches, the route's tallies and K1's launches."""
+    from ml_audio_restoration_torch.ops import conv as C
+    from ml_audio_restoration_torch.ops import lstm as L
+
+    EPILOGUE_PATHS[path] = reading = {
+        "launches": C.epilogue_launch_count, **EPILOGUE_ROUTE,
+        "k1_launches": L.launch_count}
+    return reading
+
+
+def _epilogue_failures(paths) -> dict:
+    """The paths (every one the kernels line counts K1 on, and every
+    reading kept) where the conv epilogue misses: a run must send each
+    eval conv it routes to the kernel (none to ATen's ops: no gradient is
+    wanted on a serving path), one launch each, at least one; on
+    EPILOGUE_WALK_STAGES' paths the launches are K1's walks times the
+    stages' convs (models.epilogue_convs). path -> its reading and want."""
+    from ml_audio_restoration_torch.models import (
+        AudioDenoiser, AudioSuperResolution, StereoSeparator, epilogue_convs)
+
+    convs = [len(epilogue_convs(m())) for m in (
+        AudioDenoiser, AudioSuperResolution, StereoSeparator)]
+    failures = {}
+    for path in sorted(set(paths) | set(EPILOGUE_PATHS)):
+        r = EPILOGUE_PATHS.get(path)
+        if r is None:
+            failures[path] = "no reading"
+            continue
+        want = r["kernel"]
+        if path in EPILOGUE_WALK_STAGES:
+            want = r["k1_launches"] * sum(
+                convs[i] for i in EPILOGUE_WALK_STAGES[path])
+        if r["aten"] or not 1 <= r["launches"] == r["kernel"] == want:
+            failures[path] = {**r, "want": want}
+    return failures
+
+
+def _epilogue_stereo_layers():
+    """(channels, convs a forward, LeakyReLU) of the stereo model's eval
+    convs, from models.epilogue_convs: the shapes the epilogue is timed
+    at."""
+    from collections import Counter
+
+    from ml_audio_restoration_torch.models import (
+        StereoSeparator, epilogue_convs)
+
+    return [(c, n, lrelu) for (c, lrelu), n in sorted(
+        Counter(epilogue_convs(StereoSeparator())).items())]
+
+
+def phase_epilogue(torch):
+    """The eval convolutions' epilogue (csrc/conv_epilogue.cu behind
+    ops/conv.py::conv_epilogue) at the stereo model's layer shapes, a
+    44-row slab of 2 s chunks ([44, C, 88,200]): bit for bit ATen's ops
+    (the bias add in place, F.leaky_relu), then timed beside its bytes
+    bound (one read and one write of the output), its plain version and
+    ATen's bias add + LeakyReLU as the conv_bn path ran them (library);
+    the sum over one stereo forward's convs; and the launches of one eval
+    forward of each model against models.epilogue_convs."""
+    import torch.nn.functional as F
+
+    from ml_audio_restoration_torch.models import epilogue_convs
+    from ml_audio_restoration_torch.ops import conv as C
+
+    dev = torch.device("cuda")
+    t = 88200
+    shapes = []
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for c, count, lrelu in _epilogue_stereo_layers():
+            g = torch.Generator(device=dev).manual_seed(c)
+            y = torch.randn((EPILOGUE_ROWS, c, t), device=dev,
+                            generator=g).to(dtype)
+            b = torch.randn(c, device=dev, generator=g).to(dtype)
+
+            def library(out):
+                out = out.add_(b.view(1, -1, 1))
+                return F.leaky_relu(out, 0.2) if lrelu else out
+
+            want = library(y.clone())
+            got = C.conv_epilogue(y.clone(), b, lrelu=lrelu)
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(got, want))
+            worst = max(worst, _max_dev(got, want))
+            del got, want
+            ms = _cuda_ms(torch, lambda: C.conv_epilogue(y, b, lrelu=lrelu),
+                          10)
+            plain_ms = _cuda_ms(torch, lambda: C.conv_epilogue_plain(
+                y, b, lrelu=lrelu), 10)
+            library_ms = _cuda_ms(torch, lambda: library(y), 10)
+            n_bytes = 2 * y.numel() * y.element_size() + b.numel() * 4
+            bound_ms = n_bytes / H100_BYTES_PER_S * 1e3
+            shapes.append({"shape": [EPILOGUE_ROWS, c, t],
+                           "dtype": str(dtype).split(".")[-1],
+                           "lrelu": lrelu, "count": count, "equal": equal,
+                           "ms": ms, "plain_ms": plain_ms,
+                           "library_ms": library_ms, "bound_ms": bound_ms,
+                           "bandwidth_share": bound_ms / ms,
+                           "bytes": n_bytes})
+            del y
+            torch.cuda.empty_cache()
+    f32 = [r for r in shapes if r["dtype"] == "float32"]
+
+    def forward(key):
+        return sum(r["count"] * r[key] for r in f32)
+
+    from ml_audio_restoration_torch.models import (
+        AudioDenoiser, AudioSuperResolution, StereoSeparator, init_params)
+
+    gen = torch.Generator().manual_seed(0)
+    launches = {}
+    x = torch.randn((2, 1, 8000), device=dev)
+    for model in (AudioDenoiser(), AudioSuperResolution(), StereoSeparator()):
+        model = init_params(model, gen).to(dev).eval()
+        C.reset_epilogue_launch_count()
+        with torch.inference_mode():
+            model(x)
+        launches[type(model).__name__] = (C.epilogue_launch_count,
+                                          len(epilogue_convs(model)))
+    row = {"phase": "epilogue", "shapes": shapes,
+           "stereo_forward": {"ms": forward("ms"),
+                              "bound_ms": forward("bound_ms"),
+                              "plain_ms": forward("plain_ms"),
+                              "library_ms": forward("library_ms")},
+           "launches_per_forward": launches, "max_abs_err": worst}
+    emit(row)
+    if not (all(r["equal"] for r in shapes)
+            and all(n == want for n, want in launches.values())):
+        raise AssertionError(f"conv epilogue failed: {row}")
+    # `launches` (a restore program's) and `path_launches` come from the
+    # paths' runs (main)
+    return {"name": "conv_epilogue", "route": "cuda",
+            "source": "ml_audio_restoration_torch/csrc/conv_epilogue.cu",
+            "replaces": "none: ATen's bias add and F.leaky_relu after cuDNN",
+            "max_abs_err": worst,
+            "ms": row["stereo_forward"]["ms"],
+            "plain_ms": row["stereo_forward"]["plain_ms"],
+            "bound_ms": row["stereo_forward"]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": row["stereo_forward"]["library_ms"],
+            "shapes": shapes}
 
 
 def phase_iir(torch):
@@ -6106,6 +6377,11 @@ def phase_profile(torch, k1_ms: float):
                          "top_recurrence": next(
                              (op for op in top
                               if P.bucket(op[0]) == "recurrence"), None)}
+            if name == "restore":
+                # every kernel of the restore's elementwise bucket
+                out[name]["elementwise_ops"] = [
+                    op for op in P.trace_top_ops(logdir, 10 ** 4)
+                    if P.bucket(op[0]) == "fusion(elementwise)"]
     row = {"phase": "profile", **out, "k1_kernel_time_ms": k1_ms}
     emit(row)
     rs = out["restore"]
@@ -6198,11 +6474,12 @@ def main() -> int:
         return 1
     import ml_audio_restoration_torch  # noqa: F401  (fail before any output)
 
+    _count_epilogue_route()
     phase_device(torch)
     _timed_phase(phase_build)
     rows = ([_timed_phase(phase_kernels, torch)]
             + _timed_phase(phase_train_kernels, torch))
-    _timed_phase(phase_main, torch, rows[0])
+    main_epilogues = _timed_phase(phase_main, torch, rows[0])
     _timed_phase(phase_grad, torch)
     _timed_phase(phase_train_small, torch)
     launches = _timed_phase(phase_train_full, torch)
@@ -6242,6 +6519,7 @@ def main() -> int:
     seq_int8 = seq.pop("int8_conv")
     paths.update(seq)
     iir = _timed_phase(phase_iir, torch)
+    epilogue = _timed_phase(phase_epilogue, torch)
     resume = _timed_phase(phase_resume_jax, torch)
     for row in rows[1:]:
         row["path_launches"]["resume_jax"] = resume[row["name"]]
@@ -6302,8 +6580,19 @@ def main() -> int:
                           "serve_mesh_int8": mesh_int8,
                           "serve_seq_int8": seq_int8}})
     rows.append(iir)
+    # the conv epilogue: a 120 s restore program's launches, and each
+    # path's, held to the route (EPILOGUE_ROUTE) and the walks
+    epilogue["launches"] = main_epilogues
+    epilogue["path_launches"] = {p: r["launches"]
+                                 for p, r in sorted(EPILOGUE_PATHS.items())}
+    rows.append(epilogue)
+    failures = _epilogue_failures(paths)
+    emit({"phase": "epilogue_paths", "readings": EPILOGUE_PATHS,
+          "walk_stages": EPILOGUE_WALK_STAGES, "failures": failures})
     emit({"kernels": [{key: row[key] for key in keys + tuple(
         k for k in extra if k in row)} for row in rows]})
+    if failures:
+        raise AssertionError(f"conv epilogue off its route: {failures}")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -16,7 +16,7 @@ import math
 import torch
 from torch import nn
 
-from ..ops import batch_norm_train, conv1d, leaky_relu
+from ..ops import batch_norm_train, conv1d, conv1d_epilogue, leaky_relu
 
 LRELU_SLOPE = 0.2
 
@@ -67,31 +67,55 @@ def cast_params(model: nn.Module, dtype: torch.dtype, params=None) -> dict:
 
 
 def conv_bn(conv: nn.Conv1d, bn: nn.BatchNorm1d, x, *, lrelu: bool = True,
-            train: bool = False, update_stats: bool = True):
-    """conv -> BN -> optional LeakyReLU(0.2).
+            train: bool = False, update_stats: bool = True, residual=None):
+    """conv -> BN (-> + residual) -> optional LeakyReLU(0.2).
 
-    Eval (train=False): BN folded into the conv. Train: BN by the batch
+    Eval (train=False): BN folded into the conv, whose bias, residual and
+    activation are ops.conv1d_epilogue's. Train: BN by the batch
     statistics (ops.batch_norm_train), and `bn`'s running buffers are
     updated IN PLACE (num_batches_tracked too, as nn.BatchNorm1d does),
     where the JAX package returns them as a new state; update_stats=False
     leaves them as they are (the JAX caller discarding the new state)."""
     if not train:
         w, b = fold_conv_bn(conv, bn)
-        y = conv1d(x, w, b, padding=conv.padding[0],
-                   dilation=conv.dilation[0])
-        return leaky_relu(y) if lrelu else y
+        return conv1d_epilogue(x, w, b, residual=residual, lrelu=lrelu,
+                               padding=conv.padding[0],
+                               dilation=conv.dilation[0])
     y = conv1d(x, conv.weight, conv.bias, padding=conv.padding[0],
                dilation=conv.dilation[0])
     y, mean, var = batch_norm_train(y, bn.weight, bn.bias, bn.running_mean,
                                     bn.running_var, eps=bn.eps,
                                     momentum=bn.momentum)
-    if not update_stats:
-        return leaky_relu(y) if lrelu else y
-    with torch.no_grad():
-        bn.running_mean.copy_(mean)
-        bn.running_var.copy_(var)
-        bn.num_batches_tracked += 1
+    if update_stats:
+        with torch.no_grad():
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_(var)
+            bn.num_batches_tracked += 1
+    if residual is not None:
+        y = y + residual
     return leaky_relu(y) if lrelu else y
+
+
+def epilogue_convs(model: nn.Module) -> list:
+    """(output channels, LeakyReLU) of each conv whose eval forward ends in
+    ops.conv_epilogue, in module order, read off the module tree: the layer
+    after a conv in its parent, past an optional BatchNorm, says whether
+    the epilogue applies the LeakyReLU; a conv followed by a Sigmoid (the
+    denoiser's transient head) keeps ATen's ops. On the card an eval
+    forward launches the kernel once for each entry."""
+    out = []
+    for parent in model.modules():
+        layers = list(parent.children())
+        for i, m in enumerate(layers):
+            if not isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
+                continue
+            after = [n for n in layers[i + 1:i + 3]
+                     if not isinstance(n, nn.BatchNorm1d)][:1]
+            if after and isinstance(after[0], nn.Sigmoid):
+                continue
+            out.append((m.out_channels,
+                        bool(after) and isinstance(after[0], nn.LeakyReLU)))
+    return out
 
 
 def conv_bn_lrelu_layers(in_ch: int, out_ch: int, k: int, *, padding: int,

@@ -21,8 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import conv1d, conv_transpose1d, max_pool1d, moving_average
-from ..ops import leaky_relu
+from ..ops import (conv1d, conv1d_epilogue, conv_transpose1d_epilogue,
+                   max_pool1d, moving_average)
 from .common import (LRELU_SLOPE, double_conv_block, double_conv_block_apply,
                      fold_conv_bn)
 
@@ -90,7 +90,8 @@ class AudioDenoiser(nn.Module):
 
         for i in range(len(self.features)):
             up, block = self.decoder[2 * i], self.decoder[2 * i + 1]
-            h = conv_transpose1d(h, up.weight, up.bias, stride=2, padding=0)
+            h = conv_transpose1d_epilogue(h, up.weight, up.bias, stride=2,
+                                          padding=0)
             skip = skips[-(i + 1)]
             if h.shape[-1] != skip.shape[-1]:
                 # odd-length level: right-pad to the skip length
@@ -99,13 +100,16 @@ class AudioDenoiser(nn.Module):
                                         train)
 
         td = h
-        convs = [self.transient_detector[j] for j in (0, 2, 4)]
-        for j, conv in enumerate(convs):
-            td = conv1d(td, conv.weight, conv.bias, padding=1)
-            td = torch.sigmoid(td) if j == 2 else leaky_relu(td)
+        for j in (0, 2):
+            conv = self.transient_detector[j]
+            td = conv1d_epilogue(td, conv.weight, conv.bias, lrelu=True,
+                                 padding=1)
+        head = self.transient_detector[4]
+        td = torch.sigmoid(conv1d(td, head.weight, head.bias, padding=1))
 
         mask = torch.maximum(td, detect_impulses(x))
-        denoised = conv1d(h, self.final_conv.weight, self.final_conv.bias)
+        denoised = conv1d_epilogue(h, self.final_conv.weight,
+                                   self.final_conv.bias)
         return denoised * (1.0 - mask * 0.9)
 
 
@@ -222,7 +226,8 @@ def apply_packed(model: AudioDenoiser, x, q=None):
         skip2 = double_conv_block_apply(enc[2], h)
         h = max_pool1d(skip2)
         h = double_conv_block_apply(model.bottleneck, h)
-        h = conv_transpose1d(h, up0.weight, up0.bias, stride=2, padding=0)
+        h = conv_transpose1d_epilogue(h, up0.weight, up0.bias, stride=2,
+                                      padding=0)
         if h.shape[-1] != skip2.shape[-1]:
             h = F.pad(h, (0, skip2.shape[-1] - h.shape[-1]))
         h = double_conv_block_apply(dec[1], torch.cat([skip2, h], dim=1))

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops import conv1d
+from ..ops import conv1d_epilogue
 from ..ops.lstm import stacked_lstm
 from .common import conv_bn, conv_bn_lrelu_layers
 
@@ -76,7 +76,7 @@ def _decoder(hidden: int, c: int) -> nn.Sequential:
 def _decoder_apply(dec: nn.Sequential, h, train: bool):
     for i in (0, 3, 6):
         h = conv_bn(dec[i], dec[i + 1], h, train=train)
-    return conv1d(h, dec[9].weight, dec[9].bias, padding=3)
+    return conv1d_epilogue(h, dec[9].weight, dec[9].bias, padding=3)
 
 
 class StereoSeparator(nn.Module):

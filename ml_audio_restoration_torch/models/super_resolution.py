@@ -17,7 +17,7 @@ import math
 
 from torch import nn
 
-from ..ops import conv1d, conv_transpose1d, leaky_relu, upsample_linear
+from ..ops import conv1d_epilogue, conv_transpose1d_epilogue, upsample_linear
 from .common import LRELU_SLOPE, conv_bn
 
 
@@ -26,13 +26,14 @@ class ResidualBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv1d(c, c, 3, padding=1)
         self.bn1 = nn.BatchNorm1d(c)
+        self.act = nn.LeakyReLU(LRELU_SLOPE)  # conv_bn's, after bn1
         self.conv2 = nn.Conv1d(c, c, 3, padding=1)
         self.bn2 = nn.BatchNorm1d(c)
 
     def forward(self, x):
         h = conv_bn(self.conv1, self.bn1, x, train=self.training)
         return conv_bn(self.conv2, self.bn2, h, lrelu=False,
-                       train=self.training) + x
+                       train=self.training, residual=x)
 
 
 class AudioSuperResolution(nn.Module):
@@ -61,21 +62,23 @@ class AudioSuperResolution(nn.Module):
         recording's `total` length, so the interpolated residual counts
         from the recording's start (ops/interp.py::upsample_linear)."""
         stem = self.initial[0]
-        h0 = leaky_relu(conv1d(x, stem.weight, stem.bias, padding=3))
+        h0 = conv1d_epilogue(x, stem.weight, stem.bias, lrelu=True,
+                             padding=3)
         h = h0
         for block in self.residual_blocks:
             h = block(h)
-        h = h0 + conv_bn(self.middle[0], self.middle[1], h, lrelu=False,
-                         train=self.training)
+        h = conv_bn(self.middle[0], self.middle[1], h, lrelu=False,
+                    train=self.training, residual=h0)
         for up in self.upsample_blocks:
-            h = leaky_relu(conv_transpose1d(h, up[0].weight, up[0].bias,
-                                            stride=2, padding=1))
+            h = conv_transpose1d_epilogue(h, up[0].weight, up[0].bias,
+                                          lrelu=True, stride=2, padding=1)
         hf = self.hf_emphasis[0]
-        h = leaky_relu(conv1d(h, hf.weight, hf.bias, padding=2))
-        out = conv1d(h, self.reconstruction.weight, self.reconstruction.bias,
-                     padding=3)
-        return out + upsample_linear(x, 2 ** len(self.upsample_blocks),
-                                     offset=offset, total=total)
+        h = conv1d_epilogue(h, hf.weight, hf.bias, lrelu=True, padding=2)
+        rc = self.reconstruction
+        return conv1d_epilogue(
+            h, rc.weight, rc.bias, padding=3,
+            residual=upsample_linear(x, 2 ** len(self.upsample_blocks),
+                                     offset=offset, total=total))
 
 
 # ------------------------------------------------------- int8 serving path

@@ -7,7 +7,9 @@ from .conv import (
     batch_norm,
     batch_norm_train,
     conv1d,
+    conv1d_epilogue,
     conv_transpose1d,
+    conv_transpose1d_epilogue,
     leaky_relu,
     max_pool1d,
     moving_average,
@@ -26,7 +28,8 @@ from .stft import frame, hann_window, istft, stft, stft_magnitude
 __all__ = [
     "LSTMRecurrenceTrain", "bank_select", "batch_norm", "batch_norm_train",
     "butter_bank", "butter_coeffs", "butter_filtfilt", "butter_sos",
-    "chunk_signal", "conv1d", "conv_transpose1d", "crossfade_window",
+    "chunk_signal", "conv1d", "conv1d_epilogue", "conv_transpose1d",
+    "conv_transpose1d_epilogue", "crossfade_window",
     "filtfilt", "frame", "frame_structured", "hann_window", "interp_linear",
     "istft", "leaky_relu", "lfilter", "lstm_init", "lstm_recurrence",
     "lstm_recurrence_bwd_plain", "lstm_recurrence_plain",

@@ -28,10 +28,11 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 GXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-pthread", "-shared"]
-#: nvcc flags of one library beyond NVCC_FLAGS: the int8 conv's epilogue
-#: and the IIR scans' steps must round each operation on their own, as
-#: their plain versions do
-EXTRA_NVCC_FLAGS = {"int8_conv": ["-fmad=false"], "iir_scan": ["-fmad=false"]}
+#: nvcc flags of one library beyond NVCC_FLAGS: the int8 conv's epilogue,
+#: the IIR scans' steps and the conv epilogue must round each operation on
+#: their own, as their plain versions do
+EXTRA_NVCC_FLAGS = {"int8_conv": ["-fmad=false"], "iir_scan": ["-fmad=false"],
+                    "conv_epilogue": ["-fmad=false"]}
 #: libraries built with g++ for the host: name -> translation units in csrc/
 HOST_LIBRARIES = {"wavio": ("wavio.cpp", "flacio.cpp")}
 

@@ -1096,6 +1096,7 @@ class RestorationPipeline:
             from ..ops import _build
 
             _build.load("lstm_recurrence")
+            _build.load("conv_epilogue")
             if cfg.quantize_int8 and self._int8_scales is not None:
                 _build.load("int8_conv")
         sample_rate = sample_rate or cfg.sample_rate
