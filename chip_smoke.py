@@ -3511,10 +3511,10 @@ def _serve_stage_ms(torch, pipe, clip, rate):
     from ml_audio_restoration_torch.ops import (
         frame_structured, num_chunks, overlap_add)
     from ml_audio_restoration_torch.pipeline.restore import (
-        _bucket, apply_stereo, stereo_sub_cfg)
+        _bucket, _framing, apply_stereo, stereo_sub_cfg)
 
     cfg = pipe.config
-    chunk, hop, overlap = pipe._framing(rate)
+    chunk, hop, overlap = _framing(cfg, rate)
     n_real = num_chunks(clip.shape[1], chunk, hop)
     n = _bucket(n_real)
     total = (n - 1) * hop + chunk
@@ -4074,11 +4074,11 @@ def _int8_stage_fns(torch, pipe, chunk, rate):
 
     cfg = pipe.config
     dn, sr, st = pipe._models()
-    scope = cfg.int8_scope
-    q_dn = pipe._int8_ctx("denoiser", scope, dmod.INT8_FLOAT_LAYERS)
-    q_sr = pipe._int8_ctx("super_resolution", scope)
+    ctx = lambda stage: pipe._int8.ctx(  # noqa: E731
+        stage, cfg.int8_scope, cfg.compute_dtype, pipe.device)
+    q_dn, q_sr = ctx("denoiser"), ctx("super_resolution")
     sub = stereo_sub_cfg(cfg, chunk * 2, 2, sample_rate=rate)
-    q_st = pipe._int8_ctx("stereo", scope) if sub is None else None
+    q_st = ctx("stereo") if sub is None else None
 
     def stereo(v):
         v = v.float() if q_st is not None else v
@@ -4096,9 +4096,9 @@ def _int8_stages(torch, pipe, clip, rate, capture: bool):
     call of the program."""
     from ml_audio_restoration_torch.ops import frame_structured, num_chunks
     from ml_audio_restoration_torch.ops import int8_conv as ic
-    from ml_audio_restoration_torch.pipeline.restore import _bucket
+    from ml_audio_restoration_torch.pipeline.restore import _bucket, _framing
 
-    chunk, hop, _ = pipe._framing(rate)
+    chunk, hop, _ = _framing(pipe.config, rate)
     n = _bucket(num_chunks(clip.shape[1], chunk, hop))
     total = (n - 1) * hop + chunk
     audio = torch.nn.functional.pad(torch.from_numpy(clip).to(pipe.device),
@@ -4158,7 +4158,7 @@ def _int8_streams(torch, dn, sr, st, rate):
     calib = StreamingRestorer(dn, sr, st, quantize_int8=True)
     calib.feed(blocks[0][0])
     calib.feed(blocks[1][0])
-    scales = calib._int8_scales
+    scales = calib._int8.scales
     runs = {}
     for name, kw in (("int8", {"quantize_int8": True,
                                "int8_scales": scales}), ("float", {})):
@@ -4221,7 +4221,7 @@ def phase_int8(torch):
                                                   rate)
     _note_epilogue("int8")
     by_path = dict(ic.launch_count_by_path)
-    version = pipe._int8_version
+    version = pipe._int8.version
     with ic.plain_int8_conv():
         t0 = time.perf_counter()
         y_plain, _ = pipe.restore(clip, rate)
@@ -4243,8 +4243,8 @@ def phase_int8(torch):
                                                    capture=True)
     stage_ms32 = {}
     from ml_audio_restoration_torch.ops import frame_structured, num_chunks
-    from ml_audio_restoration_torch.pipeline.restore import _bucket
-    chunk, hop, _ = pipe._framing(rate)
+    from ml_audio_restoration_torch.pipeline.restore import _bucket, _framing
+    chunk, hop, _ = _framing(pipe.config, rate)
     n = _bucket(num_chunks(clip.shape[1], chunk, hop))
     audio = torch.nn.functional.pad(torch.from_numpy(clip).to(dev), (
         0, (n - 1) * hop + chunk - clip.shape[1]))
@@ -4274,8 +4274,7 @@ def phase_int8(torch):
     # full scope on the same scales: its new layers checked, one restore
     full = RestorationPipeline(dn, sr, st, config=PipelineConfig(
         quantize_int8=True, int8_scope="full"))
-    full._int8_scales = pipe._int8_scales
-    full._int8_version += 1
+    full._int8.set(pipe._int8.scales)
     small = _clip(4.0, rate, seed=2)
     full_calls = []
     with _int8_capture(full_calls):
@@ -4296,8 +4295,7 @@ def phase_int8(torch):
     cpu = RestorationPipeline(*(m.to("cpu") for m in _models(torch, dev)),
                               config=PipelineConfig(quantize_int8=True),
                               device="cpu")
-    cpu._int8_scales = pipe._int8_scales
-    cpu._int8_version += 1
+    cpu._int8.set(pipe._int8.scales)
     y_card, _ = pipe.restore(small, rate)
     y_card32, _ = f32.restore(small, rate)
     y_cpu, _ = cpu.restore(small, rate)
@@ -4313,9 +4311,8 @@ def phase_int8(torch):
             m.to("cpu") for m in _models(torch, dev)[:2]))):
         m_pipe = RestorationPipeline(*models, config=PipelineConfig(
             quantize_int8=True), device=next(models[0].parameters()).device)
-        m_pipe._int8_scales = {k: v for k, v in pipe._int8_scales.items()
-                               if k != "stereo"}
-        m_pipe._int8_version += 1
+        m_pipe._int8.set({k: v for k, v in pipe._int8.scales.items()
+                          if k != "stereo"})
         mono[where] = m_pipe.restore(small, rate)[0]
     mono_f32, _ = RestorationPipeline(dn, sr).restore(small, rate)
     mono_ratio = (_max_dev(mono["card"].cpu(), mono["cpu"])
@@ -4330,10 +4327,10 @@ def phase_int8(torch):
         fresh = RestorationPipeline(dn, sr, st, config=PipelineConfig(
             quantize_int8=True))
         fresh.load_int8_scales(path)
-        v_fresh = fresh._int8_version
+        v_fresh = fresh._int8.version
         y_fresh, _ = fresh.restore(clip, rate)
         file_equal = bool(torch.equal(y_fresh, y8))
-        recalibrated = fresh._int8_version != v_fresh
+        recalibrated = fresh._int8.version != v_fresh
     finally:
         if os.path.exists(path):
             os.remove(path)
@@ -4394,7 +4391,7 @@ def phase_int8(torch):
            "vs_f32_rel_mean": rel_mean, "rel_mean_tol": INT8_REL,
            "plain_conv_restore_equal": plain_equal,
            "plain_conv_restore_wall_s": plain_wall,
-           "no_recalibration": pipe._int8_version == version,
+           "no_recalibration": pipe._int8.version == version,
            "layers_checked": len(checked), "layers_equal": equal,
            "full_scope_layers_checked": len(full_checked),
            "full_scope_layers_equal": full_equal,
@@ -4778,7 +4775,7 @@ def _serve_int8(torch, L, models, root, rate):
         quantize_int8=True))
     with RestorationServer(first, request_timeout=300) as srv:
         _serve_post(srv, body)  # calibrates on this recording
-        calibrated = first._int8_scales is not None
+        calibrated = first._int8.scales is not None
         torch.cuda.synchronize()
         L.reset_launch_count()
         I8.reset_launch_count()
@@ -4796,11 +4793,11 @@ def _serve_int8(torch, L, models, root, rate):
     second = RestorationPipeline(*models, config=PipelineConfig(
         quantize_int8=True))
     second.load_int8_scales(path)
-    version = second._int8_version
+    version = second._int8.version
     with RestorationServer(second, request_timeout=300) as srv:
         again, _ = _serve_post(srv, body)
     return {"calibrated": calibrated, "scales_written": os.path.exists(path),
-            "recalibrated": second._int8_version != version,
+            "recalibrated": second._int8.version != version,
             "equal_to_first": bool(np.array_equal(got, again)),
             "int8_conv_launches": launches[0],
             "int8_conv_launches_by_path": by_path,
@@ -5092,7 +5089,8 @@ def _mesh_reload(torch, models, paths, mesh, clip, rate, dtype):
     """A pipeline over `models` on `mesh` restores `clip`, reloads `paths`
     and restores again: equal to a fresh pipeline on the files under the
     same mesh, different from before, and every device's stage models
-    (`_cast`) hold the files' weights."""
+    (`_copies`, pipeline/restore.py::StageCopies) hold the files'
+    weights."""
     from ml_audio_restoration_torch.config import PipelineConfig
     from ml_audio_restoration_torch.pipeline import RestorationPipeline
 
@@ -5107,15 +5105,16 @@ def _mesh_reload(torch, models, paths, mesh, clip, rate, dtype):
         stereo_path=paths["stereo"], config=cfg)
     fresh.mesh = mesh
     want, _ = fresh.restore(clip, rate)
-    new = [m.state_dict() for m in (fresh.denoiser, fresh.super_resolution,
-                                    fresh.stereo)]
-    served = [(dev, ms) for dev, ms in pipe._cast[dtype].items()]
+    new = {name: getattr(fresh, name).state_dict()
+           for name in ("denoiser", "super_resolution", "stereo")}
+    served = [(dev, m, new[name]) for (name, kind, dev), m
+              in pipe._copies.copies.items()
+              if kind == getattr(torch, dtype) and name in new]
     weights_new = all(
-        torch.equal(v.to(t.dtype), t) for _, ms in served
-        for m, sd in zip(ms, new) for k, t in m.state_dict().items()
-        for v in (sd[k],))
+        torch.equal(sd[k].to(t.dtype), t) for _, m, sd in served
+        for k, t in m.state_dict().items())
     return {"dtype": dtype, "reloaded": reloaded,
-            "devices": [str(d) for d, _ in served],
+            "devices": list(dict.fromkeys(str(d) for d, _, _ in served)),
             "equal_to_fresh": bool(torch.equal(after, want)),
             "differs_from_old": not torch.equal(before, after),
             "every_device_new_weights": bool(weights_new)}
@@ -5235,7 +5234,7 @@ def phase_serve_mesh(torch):
         qm = RestorationPipeline(*models, config=PipelineConfig(
             quantize_int8=True), mesh=meshes[2])
         qm.load_int8_scales(scales)
-        loaded = qm._int8_scales
+        loaded = qm._int8.scales
         qm.restore(clip, rate)
         y8m, wall8m, k1_8m, int8_launches = _timed_int8_restore(
             torch, L, ic, qm, clip, rate)
@@ -5249,7 +5248,7 @@ def phase_serve_mesh(torch):
             "int8_conv_launches": int8_launches,
             "int8_conv_launches_by_path": by_path,
             "kernel_equal_to_plain": bool(torch.equal(y8m, y8m_plain)),
-            "not_recalibrated": qm._int8_scales is loaded,
+            "not_recalibrated": qm._int8.scales is loaded,
             "vs_unsharded_rms": rms(y8m - y8),
             "int8_vs_f32_rms": rms(y8 - y0)}
         row["int8"]["rms_tol"] = 0.25 * row["int8"]["int8_vs_f32_rms"]
@@ -5527,7 +5526,7 @@ def phase_serve_seq(torch):
             "k1_launches": k1_8, "k1_shapes": shapes,
             "int8_conv_launches": int8_launches,
             "int8_conv_launches_by_path": by_path,
-            "not_recalibrated": qm._int8_scales is loaded,
+            "not_recalibrated": qm._int8.scales is loaded,
             "vs_unsharded_rms": rms(y8m - y8),
             "vs_unsharded_max_abs": _max_dev(y8m, y8),
             "int8_vs_f32_rms": rms(y8 - y32)}

@@ -194,7 +194,7 @@ def compare_synthetic_vs_real(real_audio_path, clean_audio,
     import torch
 
     from ..data.artifacts import simulate_vinyl_artifacts
-    from ..pipeline.restore import resolve_device
+    from ..utils.device import resolve_device
 
     real = analyze_78rpm_recording(real_audio_path, sample_rate, plot=False)
     clean = torch.as_tensor(np.asarray(clean_audio, np.float32)).to(

@@ -141,14 +141,14 @@ def _persist_int8_scales(path, restorer):
 
     from .ops.quant import load_scales_file
 
-    if not path or restorer._int8_scales is None:
+    if not path or restorer._int8.scales is None:
         return
     if os.path.exists(path):
         try:
             have = set(load_scales_file(path))
         except (OSError, ValueError):
             have = set()
-        if set(restorer._int8_scales) <= have:
+        if set(restorer._int8.scales) <= have:
             return
     restorer.save_int8_scales(path)
 

@@ -27,6 +27,12 @@ shares the JAX package's gates, which warn and serve float:
 packing grid (whole_file), and, for the stereo stage only, sub-chunked
 stereo windows.
 
+The stage layer below RestorationPipeline, StreamingRestorer and
+StagedRestorationPipeline is written once, here: the stage models in a
+compute dtype on a device (`StageCopies`), the int8 state (`Int8State`),
+the mid/side combine (`combine_stereo`), and the mixdown, framing and slab
+loop (`_mono`, `_framing`, `run_slabs`).
+
 Multi-device serving (`mesh=`, parallel/mesh.py; the 'data' axis of the
 JAX package's mesh): the chunk count is bucketed to a multiple of
 lcm(4, data), the chunk batch is split over the mesh's devices (an uneven
@@ -47,6 +53,7 @@ import math
 import os
 import time
 import warnings
+from functools import partial
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -63,26 +70,8 @@ from ..models import stereo_separator as stereo_mod
 from ..models import super_resolution as sr_mod
 from ..ops import frame_structured, num_chunks, overlap_add, upsample_linear
 from ..parallel.mesh import canonical, replica, shard_batch
+from ..utils.device import no_tf32, resolve_device
 from ..utils.profiling import annotate
-
-
-def resolve_device(device) -> torch.device:
-    """The entry points run on the card unless the caller asks for the CPU:
-    a CUDA device without a usable card raises rather than falling back."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run on the CPU")
-    return dev
-
-
-def no_tf32():
-    """The reference is full f32. cuDNN convolutions default to TF32 on
-    Ampere and later cards (about three decimal digits), which would break
-    the 1e-3 chain bar, so every serving entry point turns both TF32
-    switches off when it is built."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def load_stage(path, name: str, device="cpu") -> Optional[nn.Module]:
@@ -118,9 +107,9 @@ STAGE_MODELS = {"denoiser": "denoiser", "super_resolution": "super_resolution",
 
 
 class Int8LengthGateError(ValueError):
-    """The one per-recording int8 gate: a whole_file length off the packing
-    grid. A later recording may align, so restore() retries after it (its
-    don't-retry flag keys on this type)."""
+    """The one per-recording int8 gate: a length off the packing grid
+    (Int8State.check). Under whole_file a later recording may align, so
+    restore() retries after it (its don't-retry flag keys on this type)."""
 
 
 def _denoiser_packable(dn) -> bool:
@@ -131,6 +120,11 @@ def _denoiser_packable(dn) -> bool:
 def _sr_packable(sr) -> bool:
     return (len(sr.upsample_blocks) >= 1 and sr.initial[0].in_channels == 1
             and sr.reconstruction.out_channels == 1)
+
+
+def _upscale(sr) -> int:
+    """The rate factor of an SR stage (1 without one): 2 an upsample block."""
+    return 1 if sr is None else 2 ** len(sr.upsample_blocks)
 
 
 def _bucket(n: int, granularity: int = 4) -> int:
@@ -179,9 +173,7 @@ def apply_stereo(st: nn.Module, x, sub_cfg, q=None, spread=None):
     the window is a multiple of 4."""
     stage_len = sub_cfg[0] if sub_cfg is not None else x.shape[-1]
     if q is not None and stage_len % 4 == 0:
-        def st(v, model=st):
-            return stereo_mod.apply_packed(model, v.permute(0, 2, 1),
-                                           q=q).permute(0, 2, 1)
+        st = partial(_ncw, stereo_mod.apply_packed, st, q=q)
     if sub_cfg is None:
         return st(x)
     sub, sub_hop, sub_ov = sub_cfg
@@ -222,6 +214,228 @@ def _to_host(outs, into=None):
     return host, event
 
 
+def _ncw(fn, model, x, q, **kw):
+    """The NWC int8 forward `fn` of `model` under the int8 context `q`, on
+    an NCW [N, C, T] tensor."""
+    return fn(model, x.permute(0, 2, 1), q=q, **kw).permute(0, 2, 1)
+
+
+def combine_stereo(mid, y, f: int = 1, source_rate: bool = False,
+                   mid_exact: bool = False, emit=slice(None)):
+    """The one mid/side combine: a stage stack's output, f32, over the time
+    slice `emit`, from the mid (the denoised and super-resolved [N, 1, T*f])
+    and the stereo stage's output y ([N, 2, T*f], [N, 2, T] under
+    source-rate; None without stereo): y itself, or under mid-exact the mid
+    +/- the predicted side (the mid is the stage's input exactly), or under
+    source-rate the same with the side upsampled by f over the whole of y,
+    then sliced (the interpolation's clamped edges outside `emit`)."""
+    mid = mid[..., emit]
+    if y is None:
+        return mid.float()
+    if not source_rate:
+        y = y[..., emit]
+        if not mid_exact:
+            return y.float()
+    side = (y[:, 0:1] - y[:, 1:2]) * 0.5
+    if source_rate:
+        if f > 1:
+            side = upsample_linear(side, f)
+        side = side[..., emit].to(mid.dtype)
+    return torch.cat([mid + side, mid - side], dim=1).float()
+
+
+def _mono(audio, device):
+    """[C, T] or [T], numpy or tensor -> [1, T] f32 on `device`, mixed
+    down: the one mixdown of every restore entry. A pinned f32 host tensor
+    uploads without holding the host (a pageable one waits for the
+    device's queued work); the caller leaves it unchanged until the
+    restore's output is ready."""
+    if not torch.is_tensor(audio):
+        audio = torch.from_numpy(np.asarray(audio, np.float32))
+    audio = audio.to(device, torch.float32, non_blocking=audio.is_pinned())
+    if audio.ndim == 1:
+        audio = audio[None]
+    if audio.shape[0] > 1:
+        audio = audio.mean(dim=0, keepdim=True)
+    return audio
+
+
+def _framing(cfg: PipelineConfig, sample_rate: int):
+    """(chunk, hop, overlap) in samples at `sample_rate`."""
+    chunk_size = int(round(cfg.chunk_seconds * sample_rate))
+    overlap = int(round(cfg.overlap_seconds * sample_rate))
+    return chunk_size, chunk_size - overlap, overlap
+
+
+def _crossfade(x, framing, f: int, valid):
+    """One program's stack outputs [N, C_out, chunk*f] overlap-added."""
+    chunk_size, hop, overlap = framing
+    return overlap_add(x, hop * f, ((len(x) - 1) * hop + chunk_size) * f,
+                       overlap=overlap * f, valid=valid)
+
+
+def run_slabs(stack, audio, framing, f: int, cap: int, pad_end,
+              granularity: int = 4, span=None):
+    """The one slab loop: a recording [1, T] through `stack` (chunks
+    [N, chunk, 1] -> [N, C_out, chunk*f] f32) -> [C_out, T*f]. The chunk
+    count is bucketed to a multiple of `granularity`; a bucket past `cap`
+    runs as balanced slabs (slab_plan), which share exactly `overlap` input
+    samples, so their crossfade reproduces the single-shot one. `valid`
+    masks the bucket padding, all of it in the last slab. `pad_end(audio,
+    n)` extends the recording by n samples; `span` counts the real chunks
+    (`rows_real`) and the chunk rows computed (`rows_run`)."""
+    chunk_size, hop, overlap = framing
+    t = audio.shape[1]
+    n_real = num_chunks(t, chunk_size, hop)
+    n = _bucket(n_real, granularity)
+    num_slabs, s = (1, n) if n <= cap else slab_plan(n_real, cap,
+                                                       granularity)
+    if span is not None:
+        span.count(rows_real=n_real, rows_run=num_slabs * s)
+    slab_len = (s - 1) * hop + chunk_size
+    needed = (num_slabs - 1) * s * hop + slab_len
+    padded = pad_end(audio, needed - t)
+    outs = [_crossfade(stack(frame_structured(
+        padded[:, i * s * hop:i * s * hop + slab_len], s, chunk_size, hop)),
+        framing, f, min(max(n_real - i * s, 0), s)) for i in range(num_slabs)]
+    if n > cap:
+        outs = [overlap_add(torch.stack(outs), s * hop * f, needed * f,
+                            overlap=overlap * f)]
+    return outs[0][:, :t * f]
+
+
+class StageCopies:
+    """The one owner of "stage S in compute dtype d on device v": the module
+    itself in f32 on the device it lies on, else a copy (parallel.mesh.
+    replica, then models.cast_model), made on first use and kept until
+    `reset` (a hot reload). `source` maps a stage name to its module."""
+
+    def __init__(self, source):
+        self.source = source
+        self.copies: dict = {}  # (stage, dtype, device) -> module
+
+    def get(self, stage: str, dtype: torch.dtype, device):
+        key = (stage, dtype, canonical(device))
+        if key not in self.copies:
+            self.copies[key] = cast_model(
+                replica(self.source(stage), key[2]), dtype)
+        return self.copies[key]
+
+    def reset(self):
+        self.copies = {}
+
+
+class Int8State:
+    """The int8 serving state that RestorationPipeline and
+    StreamingRestorer hold: per-stage {point: scales} (one scales file
+    format for both), a version, the int8 contexts keyed by it, the gates
+    int8 must pass and the calibration pass that collects the scales."""
+
+    def __init__(self):
+        self.scales = None
+        self.version = 0
+        self.contexts: dict = {}
+
+    def set(self, scales):
+        """New scales (None: none) under a new version, with no contexts."""
+        self.scales = scales
+        self.version += 1
+        self.contexts = {}
+        return scales
+
+    def save(self, path, missing: str):
+        """Write the scales (ops/quant.py::save_scales_file, the JAX
+        package's format), or assert `missing` without them."""
+        from ..ops.quant import save_scales_file
+
+        assert self.scales is not None, missing
+        return save_scales_file(path, self.scales)
+
+    def load(self, path):
+        from ..ops.quant import load_scales_file
+
+        return self.set(load_scales_file(path))
+
+    def discard_uncovered(self, enabled: dict, when: str):
+        """Discard scales that lack a stage enabled in `enabled` ({stage:
+        bool}; they would raise KeyError inside the forward), with a
+        warning; the entry then recalibrates on its `when`."""
+        missing = [k for k, on in enabled.items() if on
+                   and self.scales is not None and k not in self.scales]
+        if missing:
+            warnings.warn(
+                f"int8 scales lack stage(s) {missing} — calibrated with "
+                f"those stages disabled? Recalibrating on the {when}")
+            self.set(None)
+
+    @staticmethod
+    def check(packed_off, dn, sr, length: int, entry: str = "serving",
+              unit: str = "chunk", hint: str = ""):
+        """Raise ValueError on what int8 cannot run: packed convs off
+        (`packed_off` says how), an unpackable denoiser or SR checkpoint,
+        or a `unit` length off the packing grid (Int8LengthGateError)."""
+        if packed_off:
+            raise ValueError(f"int8 {entry} rides the packed conv paths: "
+                             f"{packed_off}")
+        if dn is not None and not _denoiser_packable(dn):
+            raise ValueError("denoiser checkpoint is not packable "
+                             "(non-default layout); int8 unavailable")
+        if sr is not None and not _sr_packable(sr):
+            raise ValueError("super-resolution checkpoint is not packable "
+                             "(non-default layout); int8 unavailable")
+        if length % 4 != 0:
+            raise Int8LengthGateError(
+                f"int8 {entry} rides the packed path: {unit} length "
+                f"{length} must be a multiple of 4{hint}")
+
+    def calibrate(self, x, dn, sr, st=None, sub_cfg=None,
+                  source_rate: bool = False):
+        """Store and return the scales from one f32 pass of the packed
+        forwards over x [N, T, 1]: the denoiser's, SR's and the stereo
+        stage's amax (apply_stereo on `sub_cfg`), the stereo stage's on the
+        denoised signal under source-rate stereo, else the super-resolved."""
+        from ..ops.quant import QuantCtx, amax_to_host, scales_from_amax
+
+        amax = {}
+
+        def forward(stage, mod, model, v):
+            q = QuantCtx()
+            v = mod.apply_packed(model, v, q=q)
+            amax[stage] = q.amax
+            return v
+
+        def stereo(v):
+            q = QuantCtx()
+            apply_stereo(st, v.permute(0, 2, 1), sub_cfg, q=q)
+            amax["stereo"] = q.amax
+
+        with torch.inference_mode():
+            if dn is not None:
+                x = forward("denoiser", denoiser_mod, dn, x)
+            if st is not None and source_rate:
+                stereo(x)
+            if sr is not None:
+                x = forward("super_resolution", sr_mod, sr, x)
+            if st is not None and not source_rate:
+                stereo(x)
+        return self.set({stage: scales_from_amax(amax_to_host(d))
+                         for stage, d in amax.items()})
+
+    def ctx(self, stage: str, scope: str, dtype, device):
+        """The int8 context of one stage on `device` (the denoiser's float
+        layers skipped), built once per scales version, scope, compute dtype
+        and device, so its folded, packed and quantized kernels are too.
+        Every device takes the same scales."""
+        from ..ops.quant import QuantCtx
+
+        key = (stage, scope, dtype, self.version, canonical(device))
+        if key not in self.contexts:
+            self.contexts[key] = QuantCtx(
+                self.scales[stage], scope, skip=denoiser_mod.INT8_FLOAT_LAYERS
+                if stage == "denoiser" else frozenset())
+        return self.contexts[key]
+
+
 class _Stages(NamedTuple):
     """The stage stack of one device, in pieces: `front` (denoiser, SR),
     the stereo stage whole (`stereo`) or as encoder, LSTM and decoders
@@ -243,11 +457,6 @@ class _Stages(NamedTuple):
     mid_exact: bool
     en: Optional[nn.Module] = None
 
-    def _ncw(self, fn, model, q, **kw):
-        """The NWC int8 forward of `model` on an NCW [N, 1, T] tensor."""
-        return lambda v: fn(model, v.permute(0, 2, 1), q=q, **kw).permute(
-            0, 2, 1)
-
     def front(self, x, offset: int = 0, total: Optional[int] = None):
         """x NCW [N, 1, t] in the compute dtype, samples [offset, offset +
         t) of a chunk of `total` (default t) -> (mid: the denoised and
@@ -256,15 +465,15 @@ class _Stages(NamedTuple):
         if self.dn is not None:
             q = self.q["denoiser"]
             with annotate("restore.denoise", device_ms=True):
-                x = (self.dn(x) if q is None else self._ncw(
-                    denoiser_mod.apply_packed, self.dn, q)(x))
+                x = (self.dn(x) if q is None
+                     else _ncw(denoiser_mod.apply_packed, self.dn, x, q))
         st_in = x
         if self.sr is not None:
             q = self.q["super_resolution"]
             window = dict(offset=offset, total=total)
             with annotate("restore.super_resolution", device_ms=True):
-                x = (self.sr(x, **window) if q is None else self._ncw(
-                    sr_mod.apply_packed, self.sr, q, **window)(x))
+                x = (self.sr(x, **window) if q is None else _ncw(
+                    sr_mod.apply_packed, self.sr, x, q, **window))
         return x, (st_in if self.src_rate else x)
 
     def _stereo_input(self, v):
@@ -288,8 +497,8 @@ class _Stages(NamedTuple):
         """The stereo encoder on (a window of) its input -> [N, 4C, T2]."""
         v = self._stereo_input(v)
         if self._packed_stereo(v):
-            return self._ncw(stereo_mod.encode_packed, self.st,
-                             self.q["stereo"])(v)
+            return _ncw(stereo_mod.encode_packed, self.st, v,
+                        self.q["stereo"])
         return self.st.encode(v)
 
     def recur(self, h):
@@ -303,28 +512,14 @@ class _Stages(NamedTuple):
         """The stereo decoders on (a window of) the LSTM output ->
         [N, 2, T2]."""
         if self._packed_stereo(h):
-            return self._ncw(stereo_mod.decode_packed, self.st,
-                             self.q["stereo"])(h)
+            return _ncw(stereo_mod.decode_packed, self.st, h,
+                        self.q["stereo"])
         return self.st.decode(h)
 
     def combine(self, mid, y):
         """The stack's output from the mid and the stereo stage's output
-        (None without stereo): [N, C_out, T*f] f32."""
-        x = mid
-        if self.st is not None:
-            if self.src_rate:
-                side = (y[:, 0:1] - y[:, 1:2]) * 0.5
-                if self.f > 1:
-                    side = upsample_linear(side, self.f)
-                x = x + torch.cat([side, -side], dim=1).to(x.dtype)
-            else:
-                if self.mid_exact:
-                    # out = mid +/- the predicted side: the mid is the
-                    # stage's input exactly
-                    side = (y[:, 0:1] - y[:, 1:2]) * 0.5
-                    y = torch.cat([x + side, x - side], dim=1)
-                x = y
-        return x.float()
+        (None without stereo): [N, C_out, T*f] f32 (combine_stereo)."""
+        return combine_stereo(mid, y, self.f, self.src_rate, self.mid_exact)
 
     def enhance(self, x):
         """The enhancer on the combined output [N, C_out, T] f32 -> the
@@ -371,16 +566,12 @@ class RestorationPipeline:
             None if m is None else m.to(self.device).eval()
             for m in (denoiser, super_resolution, stereo, enhancer))
         self._check_enhancer(self.enhancer, self.stereo)
-        # compute dtype -> {device: the stage models in it on that device}
-        self._cast: dict = {}
+        self._copies = StageCopies(partial(getattr, self))
         self._warmed: set = set()  # stack shapes warmup has run
-        # int8 serving: per-stage {point: scales}, a version that keys the
-        # int8 contexts (and so their cached kernels), and the don't-retry
-        # flag of a gate that can never pass
-        self._int8_scales = None
-        self._int8_version = 0
+        # int8 serving: its scales and contexts, and the don't-retry flag
+        # of a gate that can never pass
+        self._int8 = Int8State()
         self._int8_failed = False
-        self._qctx: dict = {}
 
     @classmethod
     def from_checkpoints(cls, denoiser_path=None, super_res_path=None,
@@ -403,11 +594,11 @@ class RestorationPipeline:
         stage is loaded (load_stage) onto the pipeline's device in eval mode
         and the enhancer checked against the stages it joins before any is
         swapped, so a bad path leaves the pipeline as it was. The
-        compute-dtype models on every device (`_cast`: the f32 entry of the
-        pipeline's device holds the old modules themselves, every other
-        entry copies of them) and the int8 contexts of every device go
-        with the old weights, and int8 calibration, which depends on the
-        weights, starts over. Returns the swapped attributes, sorted."""
+        compute-dtype models on every device (StageCopies: in f32 on the
+        pipeline's device the old modules themselves, elsewhere copies of
+        them) and the int8 contexts of every device go with the old
+        weights, and int8 calibration, which depends on the weights,
+        starts over. Returns the swapped attributes, sorted."""
         loaded = {name: load_stage(path, STAGE_MODELS[name], self.device)
                   for name, path in paths.items()}
         stages = {name: getattr(self, name) for name in STAGE_MODELS}
@@ -415,10 +606,8 @@ class RestorationPipeline:
         self._check_enhancer(stages["enhancer"], stages["stereo"])
         for name, model in loaded.items():
             setattr(self, name, model.eval())
-        self._cast = {}
-        self._qctx = {}
-        self._int8_scales = None
-        self._int8_version += 1
+        self._copies.reset()
+        self._int8.set(None)
         self._int8_failed = False
         return sorted(loaded)
 
@@ -451,37 +640,33 @@ class RestorationPipeline:
 
     @property
     def upscale_factor(self) -> int:
-        if not self._has_sr:
-            return 1
-        return 2 ** len(self.super_resolution.upsample_blocks)
+        return _upscale(self.super_resolution if self._has_sr else None)
 
     @property
     def out_channels(self) -> int:
         return 2 if self.stereo is not None else 1
 
-    def _models(self, device=None):
-        """(denoiser, super-resolution or None, stereo) in the compute
-        dtype on `device` (default the pipeline's); `_stage_models` holds
-        them, with the enhancer."""
-        dn, sr, st, _ = self._stage_models(device)
-        return dn, (sr if self._has_sr else None), st
+    def _models(self, device=None, names=("denoiser", "super_resolution",
+                                           "stereo")):
+        """The stages `names` in the compute dtype on `device` (default the
+        pipeline's), from StageCopies; super-resolution is None where it
+        is switched off."""
+        return tuple(None if name == "super_resolution" and not self._has_sr
+                     else self._copies.get(
+                         name, getattr(torch, self.config.compute_dtype),
+                         self.device if device is None else device)
+                     for name in names)
 
-    def _stage_models(self, device=None):
-        """(denoiser, super-resolution, stereo, enhancer) in the compute
-        dtype on `device` (default the pipeline's), kept in
-        `_cast[dtype][device]`. The f32 entry of the pipeline's device
-        holds the stage modules themselves; another device's, copies of
-        them (parallel.mesh.replica)."""
-        name = self.config.compute_dtype
-        dev = canonical(self.device if device is None else device)
-        per_device = self._cast.setdefault(name, {})
-        if dev not in per_device:
-            dtype = getattr(torch, name)
-            per_device[dev] = tuple(cast_model(replica(m, dev), dtype)
-                                    for m in (self.denoiser,
-                                              self.super_resolution,
-                                              self.stereo, self.enhancer))
-        return per_device[dev]
+    def _stereo_layout(self, chunk_size: int, sample_rate: Optional[int]):
+        """(source-rate, stage-rate samples an input sample, sub-windows) of
+        the stereo stage at `chunk_size`: source-rate stereo takes the pre-SR
+        signal, and only its side is upsampled around the SR output."""
+        if self.stereo is None:
+            return False, self.upscale_factor, None
+        src_rate = self.config.stereo_source_rate
+        st_f = 1 if src_rate else self.upscale_factor
+        return src_rate, st_f, stereo_sub_cfg(
+            self.config, chunk_size * st_f, st_f, sample_rate=sample_rate)
 
     def _granularity(self) -> int:
         """The chunk-count bucket: a multiple of 4, and of the mesh's data
@@ -618,64 +803,27 @@ class RestorationPipeline:
         """The stage stack's pieces on one device: its models and int8
         contexts, tensors on that device (_Stages)."""
         cfg = self.config
-        dn, sr, st = self._models(device)
-        f = self.upscale_factor
-        # source-rate stereo: the stage takes the pre-SR signal (chunk_size
-        # samples) and only its side is upsampled around the SR output
-        src_rate = cfg.stereo_source_rate and st is not None
-        st_len, st_f = (chunk_size, 1) if src_rate else (chunk_size * f, f)
-        sub_cfg = (stereo_sub_cfg(cfg, st_len, st_f, sample_rate=sample_rate)
-                   if st is not None else None)
+        dn, sr, st, en = self._models(device, (
+            "denoiser", "super_resolution", "stereo", "enhancer"))
+        src_rate, st_f, sub_cfg = self._stereo_layout(chunk_size,
+                                                      sample_rate)
         # int8 rides the packed forwards, so it takes their gate, and needs
         # scales (restore() calibrates first); the stereo stage runs int8 on
         # whole windows only, as in the JAX package
         packed = (cfg.packed_convs and chunk_size % 4 == 0
                   and (dn is None or _denoiser_packable(dn))
                   and (sr is None or _sr_packable(sr)))
-        int8 = cfg.quantize_int8 and packed and self._int8_scales is not None
+        int8 = cfg.quantize_int8 and packed and self._int8.scales is not None
         int8_stereo = int8 and sub_cfg is None
-        q = {"denoiser": None, "super_resolution": None, "stereo": None}
-        if int8:
-            scope = cfg.int8_scope
-            if dn is not None:
-                q["denoiser"] = self._int8_ctx(
-                    "denoiser", scope, denoiser_mod.INT8_FLOAT_LAYERS, device)
-            if sr is not None:
-                q["super_resolution"] = self._int8_ctx(
-                    "super_resolution", scope, device=device)
-            if st is not None and int8_stereo:
-                q["stereo"] = self._int8_ctx("stereo", scope, device=device)
-        return _Stages(dn, sr, st, getattr(torch, cfg.compute_dtype), f,
-                       src_rate, st_f, sub_cfg, int8, int8_stereo, q,
-                       cfg.stereo_mid_exact, self._stage_models(device)[3])
-
-    def _int8_ctx(self, stage: str, scope: str, skip=frozenset(),
-                  device=None):
-        """The int8 context of one stage on `device` (default the
-        pipeline's) for the current scales: built once per scales version,
-        compute dtype, scope and device, so its folded, packed and
-        quantized kernels are too, on that device. Every device quantizes
-        with the same scales."""
-        from ..ops.quant import QuantCtx
-
-        key = (stage, scope, self.config.compute_dtype, self._int8_version,
-               canonical(self.device if device is None else device))
-        if key not in self._qctx:
-            self._qctx = {k: v for k, v in self._qctx.items()
-                          if k[3] == self._int8_version}
-            self._qctx[key] = QuantCtx(self._int8_scales[stage], scope,
-                                       skip=skip)
-        return self._qctx[key]
-
-    def _process(self, stack, audio_padded, n_chunks: int, chunk_size: int,
-                 hop: int, overlap: int, valid: int):
-        """frame -> stages -> overlap-add for one program's chunk batch."""
-        f = self.upscale_factor
-        chunks = frame_structured(audio_padded, n_chunks, chunk_size, hop)
-        x = stack(chunks)
-        total = (n_chunks - 1) * hop + chunk_size
-        return overlap_add(x, hop * f, total * f, overlap=overlap * f,
-                           valid=valid)
+        q = dict.fromkeys(("denoiser", "super_resolution", "stereo"))
+        for name, model in (("denoiser", dn), ("super_resolution", sr),
+                            ("stereo", st if int8_stereo else None)):
+            if int8 and model is not None:
+                q[name] = self._int8.ctx(name, cfg.int8_scope,
+                                         cfg.compute_dtype, device)
+        return _Stages(dn, sr, st, getattr(torch, cfg.compute_dtype),
+                       self.upscale_factor, src_rate, st_f, sub_cfg, int8,
+                       int8_stereo, q, cfg.stereo_mid_exact, en)
 
     def _pad_end(self, audio, n: int):
         """[C, T] with n samples after its end, where the last chunk (and
@@ -693,29 +841,6 @@ class RestorationPipeline:
         return torch.cat([audio, audio[:, torch.where(m < t, m, period - m)]],
                          dim=1)
 
-    def _framing(self, sample_rate: int):
-        """(chunk, hop, overlap) in samples at `sample_rate`."""
-        cfg = self.config
-        chunk_size = int(round(cfg.chunk_seconds * sample_rate))
-        overlap = int(round(cfg.overlap_seconds * sample_rate))
-        return chunk_size, chunk_size - overlap, overlap
-
-    def _mono(self, audio):
-        """[C, T] or [T], numpy or tensor -> [1, T] f32 on the pipeline's
-        device, mixed down: the one mixdown of `restore` and
-        `restore_many`. A pinned f32 host tensor uploads without holding
-        the host (a pageable one waits for the device's queued work); the
-        caller leaves it unchanged until the restore's output is ready."""
-        if not torch.is_tensor(audio):
-            audio = torch.from_numpy(np.asarray(audio, np.float32))
-        audio = audio.to(self.device, torch.float32,
-                         non_blocking=audio.is_pinned())
-        if audio.ndim == 1:
-            audio = audio[None]
-        if audio.shape[0] > 1:
-            audio = audio.mean(dim=0, keepdim=True)
-        return audio
-
     @torch.inference_mode()
     def restore(self, audio, sample_rate: Optional[int] = None):
         """audio [C, T] (mixed to mono if C > 1), numpy or tensor ->
@@ -728,47 +853,15 @@ class RestorationPipeline:
     def _restore(self, audio, sample_rate, span):
         cfg = self.config
         sample_rate = sample_rate or cfg.sample_rate
-        audio = self._mono(audio)
+        audio = _mono(audio, self.device)
         self._ensure_int8(audio, sample_rate)
         t = audio.shape[1]
-        f = self.upscale_factor
-        if cfg.whole_file:
-            chunk_size, hop, overlap = t, t, 0
-            n = n_real = 1
-        else:
-            chunk_size, hop, overlap = self._framing(sample_rate)
-            n_real = num_chunks(t, chunk_size, hop)
-            n = _bucket(n_real, self._granularity())
-        stack = self._stage_stack(chunk_size, sample_rate)
-
-        max_n = max(cfg.max_chunks_per_program, 4)
-        if cfg.whole_file or n <= max_n:
-            span.count(rows_real=n_real, rows_run=n)
-            total = (n - 1) * hop + chunk_size
-            padded = self._pad_end(audio, total - t)
-            out = self._process(stack, padded, n, chunk_size, hop, overlap,
-                                n_real)
-            return out[:, :t * f], sample_rate * f
-
-        # Long recording: balanced slabs of s chunks each (slab_plan).
-        # Adjacent slabs share exactly `overlap` input samples, so the slab
-        # crossfade reproduces the single-shot chunk overlap-add; every slab
-        # holds a real chunk, and `valid` masks the bucket padding, all of
-        # it in the last slab.
-        num_slabs, s = slab_plan(n_real, max_n, self._granularity())
-        span.count(rows_real=n_real, rows_run=num_slabs * s)
-        slab_len = (s - 1) * hop + chunk_size
-        needed = (num_slabs - 1) * s * hop + slab_len
-        padded = self._pad_end(audio, needed - t)
-        outs = []
-        for i in range(num_slabs):
-            start = i * s * hop
-            valid = min(max(n_real - i * s, 0), s)
-            outs.append(self._process(stack, padded[:, start:start + slab_len],
-                                      s, chunk_size, hop, overlap, valid))
-        out = overlap_add(torch.stack(outs), s * hop * f, needed * f,
-                          overlap=overlap * f)
-        return out[:, :t * f], sample_rate * f
+        framing = (t, t, 0) if cfg.whole_file else _framing(cfg, sample_rate)
+        stack = self._stage_stack(framing[0], sample_rate)
+        out = run_slabs(stack, audio, framing, self.upscale_factor,
+                        max(cfg.max_chunks_per_program, 4), self._pad_end,
+                        1 if cfg.whole_file else self._granularity(), span)
+        return out, sample_rate * self.upscale_factor
 
     @torch.inference_mode()
     def restore_many(self, audios, sample_rate: Optional[int] = None):
@@ -794,8 +887,9 @@ class RestorationPipeline:
             return [self.restore(a, sample_rate) for a in audios]
 
         f = self.upscale_factor
-        chunk_size, hop, overlap = self._framing(sample_rate)
-        prepped = [self._mono(a) for a in audios]
+        framing = _framing(cfg, sample_rate)
+        chunk_size, hop, _ = framing
+        prepped = [_mono(a, self.device) for a in audios]
         self._ensure_int8(prepped[0], sample_rate)
         max_n = max(cfg.max_chunks_per_program, 4)
         gran = self._granularity()
@@ -850,9 +944,7 @@ class RestorationPipeline:
             big = stack(torch.cat(frames))
             for o, i in zip(offs, grp):
                 n_real, nb = metas[i]
-                total = (nb - 1) * hop + chunk_size
-                out = overlap_add(big[o:o + nb], hop * f, total * f,
-                                  overlap=overlap * f, valid=n_real)
+                out = _crossfade(big[o:o + nb], framing, f, n_real)
                 t = prepped[i].shape[1]
                 results[i] = (out[:, :t * f], sample_rate * f)
         return results
@@ -946,119 +1038,59 @@ class RestorationPipeline:
         pre-SR signal). Stores and returns {stage: {point: scales}}. Raises
         ValueError on a gate int8 cannot pass (Int8LengthGateError for a
         whole_file length off the packing grid)."""
-        from ..ops.quant import QuantCtx, amax_to_host, scales_from_amax
-
         cfg = self.config
         sample_rate = sample_rate or cfg.sample_rate
-        if not cfg.packed_convs:
-            raise ValueError("int8 serving rides the packed conv paths: "
-                             "config.packed_convs is off")
-        has_dn, has_sr = self.denoiser is not None, self._has_sr
-        has_st = self.stereo is not None
-        if has_dn and not _denoiser_packable(self.denoiser):
-            raise ValueError("denoiser checkpoint is not packable "
-                             "(non-default layout); int8 unavailable")
-        if has_sr and not _sr_packable(self.super_resolution):
-            raise ValueError("super-resolution checkpoint is not packable "
-                             "(non-default layout); int8 unavailable")
-        audio = self._mono(audio)
+        sr = self.super_resolution if self._has_sr else None
+        audio = _mono(audio, self.device)
         t = audio.shape[1]
-        chunk_size, hop, _ = self._framing(sample_rate)
+        chunk_size, hop, _ = _framing(cfg, sample_rate)
         if cfg.whole_file:
             chunk_size = t
             hop = t - int(round(cfg.overlap_seconds * sample_rate))
-        if chunk_size % 4 != 0:
-            raise Int8LengthGateError(
-                f"int8 serving rides the packed path: chunk length "
-                f"{chunk_size} must be a multiple of 4")
+        self._int8.check(None if cfg.packed_convs
+                         else "config.packed_convs is off",
+                         self.denoiser, sr, chunk_size)
         n = min(max(num_chunks(t, chunk_size, hop), 1), max_chunks)
         total = (n - 1) * hop + chunk_size
         audio = F.pad(audio, (0, max(total - t, 0)))[:, :total]
-        f = self.upscale_factor
-        src_rate = cfg.stereo_source_rate and has_st
-        st_len, st_f = (chunk_size, 1) if src_rate else (chunk_size * f, f)
-        sub_cfg = (stereo_sub_cfg(cfg, st_len, st_f, sample_rate=sample_rate)
-                   if has_st else None)
-
-        def stereo_amax(v):
-            ctx = QuantCtx()
-            apply_stereo(self.stereo, v.permute(0, 2, 1), sub_cfg, q=ctx)
-            return ctx.amax
-
-        amax = {}
-        with torch.inference_mode():
-            x = frame_structured(audio, n, chunk_size, hop)  # [n, chunk, 1]
-            if has_dn:
-                ctx = QuantCtx()
-                x = denoiser_mod.apply_packed(self.denoiser, x, q=ctx)
-                amax["denoiser"] = ctx.amax
-            if has_st and src_rate:
-                amax["stereo"] = stereo_amax(x)
-            if has_sr:
-                ctx = QuantCtx()
-                x = sr_mod.apply_packed(self.super_resolution, x, q=ctx)
-                amax["super_resolution"] = ctx.amax
-            if has_st and not src_rate:
-                amax["stereo"] = stereo_amax(x)
-        self._int8_scales = {stage: scales_from_amax(amax_to_host(d))
-                             for stage, d in amax.items()}
-        self._int8_version += 1
-        return self._int8_scales
+        src_rate, _, sub_cfg = self._stereo_layout(chunk_size, sample_rate)
+        return self._int8.calibrate(
+            frame_structured(audio, n, chunk_size, hop), self.denoiser, sr,
+            self.stereo, sub_cfg, src_rate)
 
     def save_int8_scales(self, path):
-        """Write the scales (ops/quant.py::save_scales_file, the JAX
-        package's format) so later processes skip the calibration pass."""
-        from ..ops.quant import save_scales_file
-
-        assert self._int8_scales is not None, "calibrate_int8 first"
-        return save_scales_file(path, self._int8_scales)
+        """Write the scales (Int8State.save) for later processes."""
+        return self._int8.save(path, "calibrate_int8 first")
 
     def load_int8_scales(self, path):
-        from ..ops.quant import load_scales_file
-
-        self._int8_scales = load_scales_file(path)
-        self._int8_version += 1
+        scales = self._int8.load(path)
         self._int8_failed = False  # new scales: give int8 another try
-        return self._int8_scales
+        return scales
 
-    def _int8_discard_uncovered(self) -> bool:
-        """Discard loaded scales that lack an enabled stage (they would
-        raise KeyError inside the forward), with a warning; restore()
-        then recalibrates. An SR checkpoint under enable_super_resolution
-        =False is not enabled. Returns True when the scales went."""
-        if self._int8_scales is None:
+    def _int8_uncalibrated(self) -> bool:
+        """Under quantize_int8: discard loaded scales that lack an enabled
+        stage (an SR checkpoint under enable_super_resolution=False is not
+        enabled), then whether calibration is due: no scales, and no gate
+        has failed for good."""
+        if not self.config.quantize_int8:
             return False
-        need = [name for name, on in (
-            ("denoiser", self.denoiser is not None),
-            ("super_resolution", self._has_sr),
-            ("stereo", self.stereo is not None)) if on]
-        missing = [k for k in need if k not in self._int8_scales]
-        if not missing:
-            return False
-        warnings.warn(
-            f"int8 scales lack stage(s) {missing} — calibrated "
-            f"with those stages disabled? Recalibrating on the next "
-            f"recording")
-        self._int8_scales = None
-        self._int8_version += 1
-        return True
+        enabled = {"denoiser": self.denoiser is not None,
+                   "super_resolution": self._has_sr,
+                   "stereo": self.stereo is not None}
+        self._int8.discard_uncovered(enabled, "next recording")
+        return self._int8.scales is None and not self._int8_failed
 
     def _ensure_int8(self, audio, sample_rate):
-        """Before a restore: discard scales lacking an enabled stage, then
-        calibrate on this recording if there are none. A gate failure
-        warns and serves float; only whole_file's length gate is retried
-        on the next recording."""
-        cfg = self.config
-        if not cfg.quantize_int8:
-            return
-        self._int8_discard_uncovered()
-        if self._int8_scales is None and not self._int8_failed:
+        """Before a restore: calibrate on this recording where it is due.
+        A gate failure warns and serves float; only whole_file's length
+        gate is retried on the next recording."""
+        if self._int8_uncalibrated():
             try:
                 self.calibrate_int8(audio, sample_rate)
             except ValueError as e:
                 warnings.warn(f"int8 serving disabled: {e}")
-                self._int8_failed = not (
-                    cfg.whole_file and isinstance(e, Int8LengthGateError))
+                self._int8_failed = not (self.config.whole_file and isinstance(
+                    e, Int8LengthGateError))
 
     def warmup(self, coalesce: int = 1,
                sample_rate: Optional[int] = None) -> dict:
@@ -1082,37 +1114,37 @@ class RestorationPipeline:
             warnings.warn("warmup is a no-op in whole_file mode: programs "
                           "are compiled per recording length")
             return {"programs": 0, "seconds": 0.0, "buckets": []}
-        if cfg.quantize_int8:
-            self._int8_discard_uncovered()
-            if self._int8_scales is None and not self._int8_failed:
-                warnings.warn(
-                    "warmup skipped: quantize_int8 is set but no scales "
-                    "are loaded — the first recording calibrates. "
-                    "load_int8_scales() or calibrate_int8() on a "
-                    "representative recording first")
-                return {"programs": 0, "seconds": 0.0, "buckets": []}
+        if self._int8_uncalibrated():
+            warnings.warn(
+                "warmup skipped: quantize_int8 is set but no scales are "
+                "loaded — the first recording calibrates. "
+                "load_int8_scales() or calibrate_int8() on a representative "
+                "recording first")
+            return {"programs": 0, "seconds": 0.0, "buckets": []}
         t0 = time.monotonic()
         if self.device.type == "cuda":
             from ..ops import _build
 
             _build.load("lstm_recurrence")
             _build.load("conv_epilogue")
-            if cfg.quantize_int8 and self._int8_scales is not None:
+            if cfg.quantize_int8 and self._int8.scales is not None:
                 _build.load("int8_conv")
         sample_rate = sample_rate or cfg.sample_rate
-        chunk_size, hop, overlap = self._framing(sample_rate)
+        framing = _framing(cfg, sample_rate)
+        chunk_size, hop, _ = framing
         max_n = max(cfg.max_chunks_per_program, 4)
         gran = self._granularity()
         buckets = sorted({*range(gran, max_n + 1, gran), max_n})
         before = len(self._warmed)
         stack = self._stage_stack(chunk_size, sample_rate)
         grid = ((self.device,),) if self.mesh is None else self.mesh.devices
-        key = (cfg.compute_dtype, self._int8_version, grid)
+        key = (cfg.compute_dtype, self._int8.version, grid)
         with torch.inference_mode():
             for n in buckets:
                 total = (n - 1) * hop + chunk_size
                 zeros = torch.zeros((1, total), device=self.device)
-                self._process(stack, zeros, n, chunk_size, hop, overlap, n)
+                _crossfade(stack(frame_structured(zeros, n, chunk_size, hop)),
+                           framing, self.upscale_factor, n)
                 self._warmed.add(("rec", n, chunk_size, hop, sample_rate)
                                  + key)
                 if coalesce > 1:

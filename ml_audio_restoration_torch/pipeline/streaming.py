@@ -39,21 +39,21 @@ from __future__ import annotations
 
 import time
 import warnings
+from functools import partial
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..config import COMPUTE_DTYPES, SERVING_LSTM_IMPLS
-from ..models import cast_model
 from ..models import denoiser as denoiser_mod
 from ..models import super_resolution as sr_mod
-from ..ops import upsample_linear
 from ..ops.lstm import stacked_lstm
-from ..parallel.mesh import canonical, replica
+from ..parallel.mesh import canonical
+from ..utils.device import no_tf32, resolve_device
 from ..utils.profiling import annotate
-from .restore import (_denoiser_packable, _sr_packable, load_stage, no_tf32,
-                      resolve_device)
+from .restore import (Int8State, StageCopies, _ncw, _upscale,
+                      combine_stereo, load_stage)
 
 
 class StreamingRestorer:
@@ -104,9 +104,7 @@ class StreamingRestorer:
         self.denoiser, self.super_resolution, self.stereo = (
             None if m is None else m.to(self.device).eval()
             for m in (denoiser, super_resolution, stereo))
-        self._dn, self._sr, self._st = (
-            cast_model(m, self.compute_dtype)
-            for m in (self.denoiser, self.super_resolution, self.stereo))
+        self._copies = StageCopies(partial(getattr, self))
         self.batch = int(batch)
         # the shards: (device, first stream, end stream), one a data device
         # of the mesh, each with its device's copies of the models
@@ -115,29 +113,23 @@ class StreamingRestorer:
         per = self.batch // len(devices)
         self._shards = [(dev, k * per, (k + 1) * per)
                         for k, dev in enumerate(devices)]
-        self._replicas = {dev: tuple(replica(m, dev) for m in (
-            self._dn, self._sr, self._st)) for dev in dict.fromkeys(devices)}
         self.mid_exact = bool(mid_exact)
         self.source_rate = bool(source_rate)
         self.packed = bool(packed)
         self.quantize_int8 = bool(quantize_int8)
-        self._int8_scales = None
-        self._int8_version = 0
+        self._int8 = Int8State()
         self._int8_ready = False  # gates not yet run on a drained window
-        self._qctx: dict = {}  # (scales version, device) -> (dn, SR) ctxs
-        if int8_scales is not None:
-            if isinstance(int8_scales, dict):
-                self._int8_scales = int8_scales
-            else:
-                self.load_int8_scales(int8_scales)
+        if isinstance(int8_scales, dict):
+            self._int8.set(int8_scales)
+        elif int8_scales is not None:
+            self.load_int8_scales(int8_scales)
         # the U-Net pools by 8, so window starts stay on the pooling grid
         # (the model is shift-variant modulo 8): context and emission
         # lengths are kept multiples of the alignment
         self._align = 8 if denoiser is not None else 1
         self.context = -(-context // self._align) * self._align
         self.lookahead = lookahead
-        self.f = (2 ** len(self.super_resolution.upsample_blocks)
-                  if self.super_resolution is not None else 1)
+        self.f = _upscale(self.super_resolution)
         # rate factor at the stereo stage: 1 on the pre-SR signal
         self._g = 1 if self.source_rate else self.f
         # window lengths the step ran: the convolutions' shapes, for which
@@ -158,7 +150,7 @@ class StreamingRestorer:
             for k, (dev, lo, hi) in enumerate(self._shards):
                 zeros = [torch.zeros((hi - lo, layer["w_hh"].shape[0]),
                                      dtype=self.compute_dtype, device=dev)
-                         for layer in self._replicas[dev][2].lstm.layers()]
+                         for layer in self.stereo.lstm.layers()]
                 self._lstm_carry[k] = [(z, z) for z in zeros]
 
     def reset_stream(self, i: int):
@@ -214,19 +206,25 @@ class StreamingRestorer:
         """_step on shard k: window [b, L] f32 on its device."""
         f, g = self.f, self._g
         dev = self._shards[k][0]
-        dn, sr, st = self._replicas[dev]
+        dn, sr, st = (self._copies.get(name, self.compute_dtype, dev)
+                      for name in ("denoiser", "super_resolution", "stereo"))
         x = window[:, None, :].to(self.compute_dtype)  # NCW
-        q_dn, q_sr = self._int8_ctxs(window.shape[1], dev)
+        q_dn = q_sr = None  # int8 (scope "packed") where its gates pass
+        if (self.quantize_int8 and self._int8.scales is not None
+                and window.shape[1] % 4 == 0):
+            q_dn, q_sr = (None if m is None else self._int8.ctx(
+                name, "packed", self.compute_dtype, dev)
+                for name, m in (("denoiser", dn), ("super_resolution", sr)))
         if dn is not None:
-            x = (dn(x) if q_dn is None else denoiser_mod.apply_packed(
-                dn, x.permute(0, 2, 1), q=q_dn).permute(0, 2, 1))
+            x = (dn(x) if q_dn is None
+                 else _ncw(denoiser_mod.apply_packed, dn, x, q_dn))
         x_src = x  # the pre-SR signal (source-rate stereo input)
         if sr is not None:
-            x = (sr(x) if q_sr is None else sr_mod.apply_packed(
-                sr, x.permute(0, 2, 1), q=q_sr).permute(0, 2, 1))
+            x = sr(x) if q_sr is None else _ncw(sr_mod.apply_packed, sr, x,
+                                                q_sr)
         emit = slice(ctx * f, (ctx + n) * f)
         if st is None:
-            return x[:, :, emit].float()
+            return combine_stereo(x, None, emit=emit)
         feats = st.encode(x_src if self.source_rate else x).transpose(1, 2)
         layers = st.lstm.layers()
         # the LSTM consumes each new frame once; the carry holds the past
@@ -242,132 +240,41 @@ class StreamingRestorer:
         dec_hist = self._dec_hist(k)
         stereo = st.decode(torch.cat([dec_hist, lstm_out, lstm_future],
                                      dim=1).transpose(1, 2))  # [B, 2, L*g]
-        if self.source_rate:
-            # the side over the whole window, upsampled, then sliced: the
-            # half-pixel interpolation of a window that starts at absolute
-            # frame (warm - ctx) reproduces the single-shot interpolation at
-            # every emitted sample, and ctx/lookahead keep the clamped
-            # edges out of the emitted region
-            side = (stereo[:, 0:1] - stereo[:, 1:2]) * 0.5
-            if f > 1:
-                side = upsample_linear(side, f)
-            mid = x[:, :, emit].to(side.dtype)
-            side = side[:, :, emit]
-            out = torch.cat([mid + side, mid - side], dim=1)
-        else:
-            out = stereo[:, :, emit]
-            if self.mid_exact:
-                mid = x[:, :, emit].to(out.dtype)
-                side = (out[:, 0:1] - out[:, 1:2]) * 0.5
-                out = torch.cat([mid + side, mid - side], dim=1)
         self._lstm_carry[k] = carries
         self._dec_hist_buf[k] = torch.cat([dec_hist, lstm_out],
                                           dim=1)[:, -ctx * g:]
-        return out.float()
+        # source-rate: the half-pixel interpolation of a window that starts
+        # at absolute frame (warm - ctx) reproduces the single-shot one at
+        # every emitted sample; ctx/lookahead keep its clamped edges out
+        return combine_stereo(x, stereo, f, self.source_rate,
+                              self.mid_exact, emit)
 
     # ------------------------------------------------------- int8 serving
-    def _int8_ctxs(self, window_len: int, device):
-        """(denoiser, SR) int8 contexts of a step on `device` over a window
-        of `window_len` samples, or None for a stage that runs float. Scope
-        "packed"; built once per scales version and device."""
-        if not (self.quantize_int8 and self._int8_scales is not None
-                and window_len % 4 == 0):
-            return None, None
-        from ..ops.quant import QuantCtx
-
-        key = (self._int8_version, device)
-        if key not in self._qctx:
-            self._qctx = {k: v for k, v in self._qctx.items()
-                          if k[0] == self._int8_version}
-            sc = self._int8_scales
-            dn, sr, _ = self._replicas[device]
-            self._qctx[key] = (
-                None if dn is None else QuantCtx(
-                    sc["denoiser"], "packed",
-                    skip=denoiser_mod.INT8_FLOAT_LAYERS),
-                None if sr is None else QuantCtx(
-                    sc["super_resolution"], "packed"))
-        return self._qctx[key]
-
-    def _int8_gates(self, window_len: int):
-        """Raise ValueError on what int8 cannot run, for preloaded scales as
-        for calibration, so _drain can warn and serve float."""
-        dn, sr = self.denoiser, self.super_resolution
-        if not self.packed:
-            raise ValueError("int8 streaming rides the packed conv paths: "
-                             "packed=False")
-        if dn is not None and not _denoiser_packable(dn):
-            raise ValueError("denoiser checkpoint is not packable "
-                             "(non-default layout); int8 unavailable")
-        if sr is not None and not _sr_packable(sr):
-            raise ValueError("super-resolution checkpoint is not packable "
-                             "(non-default layout); int8 unavailable")
-        if window_len % 4 != 0:
-            raise ValueError(
-                f"int8 streaming rides the packed path: window length "
-                f"{window_len} must be a multiple of 4 (choose "
-                f"context/lookahead/block sizes accordingly)")
-
-    def _calibrate_int8(self, window: np.ndarray):
-        """Denoiser and SR scales from one f32 pass of the f32 models over
-        the first drained window (as RestorationPipeline.calibrate_int8)."""
-        from ..ops.quant import QuantCtx, amax_to_host, scales_from_amax
-
-        self._int8_gates(window.shape[1])
-        amax = {}
-        with torch.inference_mode():
-            x = torch.from_numpy(window).to(self.device)[:, :, None]
-            if self.denoiser is not None:
-                q = QuantCtx()
-                x = denoiser_mod.apply_packed(self.denoiser, x, q=q)
-                amax["denoiser"] = q.amax
-            if self.super_resolution is not None:
-                q = QuantCtx()
-                x = sr_mod.apply_packed(self.super_resolution, x, q=q)
-                amax["super_resolution"] = q.amax
-        self._int8_scales = {stage: scales_from_amax(amax_to_host(d))
-                             for stage, d in amax.items()}
-        self._int8_version += 1
-        return self._int8_scales
-
     def save_int8_scales(self, path):
-        """Write the scales (ops/quant.py::save_scales_file, the file
-        RestorationPipeline writes too)."""
-        from ..ops.quant import save_scales_file
-
-        assert self._int8_scales is not None, "no scales calibrated yet"
-        return save_scales_file(path, self._int8_scales)
+        """Write the scales (the file RestorationPipeline writes too)."""
+        return self._int8.save(path, "no scales calibrated yet")
 
     def load_int8_scales(self, path):
-        from ..ops.quant import load_scales_file
-
-        self._int8_scales = load_scales_file(path)
-        self._int8_version += 1
         self._int8_ready = False  # the gates run again on the next drain
-        return self._int8_scales
+        return self._int8.load(path)
 
     def _ensure_int8(self, window: np.ndarray):
         """On the first drained window: discard scales lacking an enabled
-        stage, then calibrate (or gate preloaded scales); a failure warns
-        and serves float."""
-        if self._int8_scales is not None:
-            need = [k for k, m in (("denoiser", self.denoiser),
-                                   ("super_resolution",
-                                    self.super_resolution))
-                    if m is not None]
-            missing = [k for k in need if k not in self._int8_scales]
-            if missing:
-                warnings.warn(
-                    f"int8 scales lack stage(s) {missing} — calibrated "
-                    f"with those stages disabled? Recalibrating on the "
-                    f"first window")
-                self._int8_scales = None
-                self._int8_version += 1
+        stage, run the gates, and calibrate the denoiser and SR on the
+        window where no scales are loaded; a failure warns, serves float."""
+        dn, sr = self.denoiser, self.super_resolution
+        self._int8.discard_uncovered({"denoiser": dn is not None,
+                                      "super_resolution": sr is not None},
+                                     "first window")
         try:
-            if self._int8_scales is None:
-                self._calibrate_int8(window)
-            else:
-                self._int8_gates(window.shape[1])
+            self._int8.check(
+                None if self.packed else "packed=False", dn, sr,
+                window.shape[1], "streaming", "window",
+                " (choose context/lookahead/block sizes accordingly)")
+            if self._int8.scales is None:
+                self._int8.calibrate(
+                    torch.from_numpy(window).to(self.device)[:, :, None],
+                    dn, sr)
             self._int8_ready = True
         except ValueError as e:
             warnings.warn(f"int8 streaming unavailable — serving float "
@@ -381,7 +288,7 @@ class StreamingRestorer:
             dev, lo, hi = self._shards[k]
             self._dec_hist_buf[k] = torch.zeros(
                 (hi - lo, self.context * self._g,
-                 self._st.lstm.hidden_size),
+                 self.stereo.lstm.hidden_size),
                 dtype=self.compute_dtype, device=dev)
         return self._dec_hist_buf[k]
 
@@ -398,7 +305,7 @@ class StreamingRestorer:
         no scales it is skipped with a warning: the first window would
         calibrate on the warmup's silence. Returns {"programs": windows run
         for the first time, "seconds": wall}."""
-        if self.quantize_int8 and self._int8_scales is None:
+        if self.quantize_int8 and self._int8.scales is None:
             warnings.warn(
                 "streaming warmup skipped: quantize_int8 is set but no "
                 "scales are loaded — the first drained window would "

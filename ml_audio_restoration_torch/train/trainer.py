@@ -78,7 +78,7 @@ from ..models import (
     count_params, init_params)
 from ..ops import interp_linear
 from ..parallel import distributed as dist
-from ..pipeline.restore import resolve_device
+from ..utils.device import no_tf32, resolve_device
 from ..utils.profiling import annotate
 from . import checkpoints as ckpt
 from .metrics import MetricsLogger
@@ -151,8 +151,7 @@ class Trainer:
         self.device = resolve_device(device)
         # full f32 as in the JAX package: cuDNN's TF32 default would keep
         # about three decimal digits in every convolution
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        no_tf32()
         # cuDNN's default weight-gradient algorithms sum in an order that
         # changes from run to run, and the reference loss's spectral terms
         # amplify that over a few steps; its deterministic ones make two

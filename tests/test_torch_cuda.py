@@ -587,7 +587,7 @@ def test_int8_restore_on_the_card(card):
     f32, _ = RestorationPipeline(*models(), config=PipelineConfig(
         chunk_seconds=cfg.chunk_seconds), device=card).restore(audio)
     cpu = RestorationPipeline(*models(), config=cfg, device="cpu")
-    cpu._int8_scales = pipe._int8_scales
+    cpu._int8.set(pipe._int8.scales)
     cpu_out, _ = cpu.restore(audio)
     dev = float((out - f32).abs().max())
     assert dev > 0

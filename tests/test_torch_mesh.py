@@ -242,16 +242,17 @@ def test_restore_many_and_warmup_buckets_at_lcm(stages,  # noqa: F811
 
 def test_replica_and_int8_keys_carry_the_device(packable):
     """Every per-device cache is keyed by the device: the stage models in
-    each compute dtype (`_cast[dtype][device]`), the int8 contexts and the
-    quantized weights inside a context. The CPU mesh repeats one device, so
-    one key; a card mesh gets one a card."""
+    each compute dtype (StageCopies, keyed (stage, dtype, device)), the
+    int8 contexts and the quantized weights inside a context. The CPU mesh
+    repeats one device, so one key; a card mesh gets one a card."""
     pipe = _int8_pipe(packable, _cpu_mesh(2), **CHUNKED)
     pipe.restore(_audio(3000, seed=6), RATE)
-    assert list(pipe._cast) == ["float32"]
-    assert list(pipe._cast["float32"]) == [CPU]
-    assert pipe._cast["float32"][CPU][0] is pipe.denoiser  # f32: itself
-    assert [k[-1] for k in pipe._qctx] == [CPU]
-    ctx = next(iter(pipe._qctx.values()))
+    assert {k[1] for k in pipe._copies.copies} == {torch.float32}
+    assert {k[2] for k in pipe._copies.copies} == {CPU}
+    assert pipe._copies.get("denoiser", torch.float32,
+                            CPU) is pipe.denoiser  # f32: itself
+    assert [k[-1] for k in pipe._int8.contexts] == [CPU]
+    ctx = next(iter(pipe._int8.contexts.values()))
     assert ctx._weights and all(k[0] == CPU for k in ctx._weights)
     assert ctx._folded and all(k[0] == CPU for k in ctx._folded)
 
@@ -267,7 +268,7 @@ def test_int8_sharded_restore_shares_the_scales(packable, tmp_path):
     sharded = _int8_pipe(packable, _cpu_mesh(2), **CHUNKED)
     scales = sharded.load_int8_scales(tmp_path / "scales.json")
     got, _ = sharded.restore(audio, RATE)
-    assert sharded._int8_scales is scales
+    assert sharded._int8.scales is scales
     np.testing.assert_allclose(got.numpy(), want.numpy(), **SHARD_TOL)
 
 
@@ -287,7 +288,7 @@ def test_reload_on_a_mesh_drops_every_replica(stages, tmp_path):  # noqa: F811
     path = tmp_path / "dn.pth"
     torch.save({"model_state_dict": EXPORTERS["denoiser"](*new)}, path)
     assert pipe.reload_stages({"denoiser": str(path)}) == ["denoiser"]
-    assert pipe._cast == {}
+    assert pipe._copies.copies == {}
     after, _ = pipe.restore(audio, RATE)
     fresh = RestorationPipeline.from_checkpoints(
         denoiser_path=path, config=PipelineConfig(**cfg), device="cpu")

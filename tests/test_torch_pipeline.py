@@ -157,7 +157,7 @@ def test_int8_options_build(make, int8, scales):
     obj = make()
     on = (obj.config.quantize_int8 if int8 == "config"
           else obj.quantize_int8)
-    assert on and (obj._int8_scales is not None) == scales
+    assert on and (obj._int8.scales is not None) == scales
 
 
 def test_cli_restore_on_cpu(stages, tmp_path):

@@ -435,7 +435,7 @@ def test_int8_chain_matches_jax(stages, clip, jax_chain, scope, bar,
     pipe = _port_pipe(stages, quantize_int8=True, int8_scope=scope, **CHUNK)
     got, rate = pipe.restore(clip)
     assert rate == 2 * RATE
-    assert set(pipe._int8_scales) == set(jax_chain[f"{scope}_scales"])
+    assert set(pipe._int8.scales) == set(jax_chain[f"{scope}_scales"])
     want = jax_chain[scope]
     jax_dev = np.abs(want - jax_chain["f32"]).max()
     assert jax_dev > 1e-4
@@ -466,10 +466,10 @@ def test_port_scales_file_loads_in_jax(stages, clip, tmp_path):
     pipe = _port_pipe(stages, quantize_int8=True, **CHUNK)
     pipe.restore(clip)
     path = pipe.save_int8_scales(tmp_path / "port.json")
-    assert jq.load_scales_file(path) == pipe._int8_scales
-    assert pq.load_scales_file(path) == pipe._int8_scales
+    assert jq.load_scales_file(path) == pipe._int8.scales
+    assert pq.load_scales_file(path) == pipe._int8.scales
     # the same layout as JAX's writer: indent 1, sorted keys
-    assert path.read_text() == json.dumps(pipe._int8_scales, indent=1,
+    assert path.read_text() == json.dumps(pipe._int8.scales, indent=1,
                                           sort_keys=True)
 
 
@@ -497,12 +497,12 @@ def test_pipeline_autocalibrates_then_reuses(small_stages):
     audio = _audio(1)
     out32, _ = base.restore(audio)
     outq, _ = pipe.restore(audio)
-    assert set(pipe._int8_scales) == {"denoiser", "super_resolution",
+    assert set(pipe._int8.scales) == {"denoiser", "super_resolution",
                                       "stereo"}
     assert outq.shape == out32.shape and _rel(out32, outq) < 0.05
-    version = pipe._int8_version
+    version = pipe._int8.version
     pipe.restore(_audio(2, 2500))
-    assert pipe._int8_version == version
+    assert pipe._int8.version == version
 
 
 def test_pipeline_subchunk_stereo_stays_float(small_stages, monkeypatch):
@@ -510,7 +510,7 @@ def test_pipeline_subchunk_stereo_stays_float(small_stages, monkeypatch):
     pipe = _port_pipe(small_stages, quantize_int8=True, **cfg)
     audio = _audio(3)
     pipe.calibrate_int8(audio)
-    assert "stereo" in pipe._int8_scales  # calibration still records it
+    assert "stereo" in pipe._int8.scales  # calibration still records it
     ran = []
     packed = pst.apply_packed
     monkeypatch.setattr(pst, "apply_packed",
@@ -526,7 +526,7 @@ def test_pipeline_int8_source_rate(small_stages):
     pipe = _port_pipe(small_stages, quantize_int8=True, **cfg)
     audio = _audio(4)
     outq, _ = pipe.restore(audio)
-    assert set(pipe._int8_scales) == {"denoiser", "super_resolution",
+    assert set(pipe._int8.scales) == {"denoiser", "super_resolution",
                                       "stereo"}
     out32, _ = _port_pipe(small_stages, **cfg).restore(audio)
     assert _rel(out32, outq) < 0.05
@@ -556,7 +556,7 @@ def test_without_packed_convs_falls_back(small_stages):
                       **BEHAVE)
     with pytest.warns(UserWarning, match="int8 serving disabled"):
         outq, _ = pipe.restore(audio)
-    assert pipe._int8_scales is None  # no calibration pass spent
+    assert pipe._int8.scales is None  # no calibration pass spent
     np.testing.assert_array_equal(plain.numpy(), outq.numpy())
 
 
@@ -575,11 +575,11 @@ def test_pipeline_missing_stage_scales_recalibrate(small_stages):
     ref = _port_pipe(small_stages, quantize_int8=True, **BEHAVE)
     out_ref, _ = ref.restore(audio)
     pipe = _port_pipe(small_stages, quantize_int8=True, **BEHAVE)
-    pipe._int8_scales = {k: v for k, v in ref._int8_scales.items()
-                         if k != "stereo"}
+    pipe._int8.set({k: v for k, v in ref._int8.scales.items()
+                    if k != "stereo"})
     with pytest.warns(UserWarning, match="lack stage"):
         outq, _ = pipe.restore(audio)
-    assert set(pipe._int8_scales) == {"denoiser", "super_resolution",
+    assert set(pipe._int8.scales) == {"denoiser", "super_resolution",
                                       "stereo"}
     np.testing.assert_array_equal(out_ref.numpy(), outq.numpy())
 
@@ -602,13 +602,13 @@ def test_streaming_missing_stage_scales_recalibrate(small_stages):
     x = _audio(9, 4096)[0]
     ref = _stream(small_stages, quantize_int8=True)
     out_ref = _run(ref, x)
-    assert set(ref._int8_scales) == {"denoiser", "super_resolution"}
+    assert set(ref._int8.scales) == {"denoiser", "super_resolution"}
     s = _stream(small_stages, quantize_int8=True,
-                int8_scales={"denoiser": ref._int8_scales["denoiser"]})
+                int8_scales={"denoiser": ref._int8.scales["denoiser"]})
     with pytest.warns(UserWarning, match="lack stage"):
         out = _run(s, x)
     assert s.quantize_int8  # recalibrated, not downgraded
-    assert set(s._int8_scales) == {"denoiser", "super_resolution"}
+    assert set(s._int8.scales) == {"denoiser", "super_resolution"}
     np.testing.assert_array_equal(out_ref, out)
     float_out = _run(_stream(small_stages), x)
     assert 0 < _rel(float_out, out) < 0.05
@@ -632,7 +632,7 @@ def test_streaming_preloaded_scales_respect_packed_gate(small_stages):
     _run(calib, x)
     want = _run(_stream(small_stages, packed=False), x)
     s = _stream(small_stages, packed=False, quantize_int8=True,
-                int8_scales=calib._int8_scales)
+                int8_scales=calib._int8.scales)
     with pytest.warns(UserWarning, match="int8 streaming unavailable"):
         out = _run(s, x)
     assert not s.quantize_int8
@@ -646,11 +646,11 @@ def test_warmup_with_uncovered_scales_skips(small_stages):
     ref.restore(audio)
     pipe = _port_pipe(small_stages, quantize_int8=True,
                       max_chunks_per_program=4, **BEHAVE)
-    pipe._int8_scales = {k: v for k, v in ref._int8_scales.items()
-                         if k != "stereo"}
+    pipe._int8.set({k: v for k, v in ref._int8.scales.items()
+                    if k != "stereo"})
     with pytest.warns(UserWarning, match="lack stage"):
         info = pipe.warmup()
-    assert info["programs"] == 0 and pipe._int8_scales is None
+    assert info["programs"] == 0 and pipe._int8.scales is None
     out, _ = pipe.restore(audio)
     assert np.isfinite(out.numpy()).all()
     s = _stream(small_stages, quantize_int8=True)
@@ -663,12 +663,12 @@ def test_disabled_sr_stage_does_not_recalibrate(small_stages):
                       enable_super_resolution=False, **BEHAVE)
     out, rate = pipe.restore(_audio(13))
     assert rate == RATE
-    assert set(pipe._int8_scales) == {"denoiser", "stereo"}
-    version = pipe._int8_version
+    assert set(pipe._int8.scales) == {"denoiser", "stereo"}
+    version = pipe._int8.version
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         pipe.restore(_audio(14))
-    assert pipe._int8_version == version
+    assert pipe._int8.version == version
 
 
 def test_scales_file_roundtrip_atomic(tmp_path):
@@ -688,9 +688,9 @@ def test_saved_scales_restore_equal(small_stages, tmp_path):
     path = first.save_int8_scales(tmp_path / "s.json")
     second = _port_pipe(small_stages, quantize_int8=True, **BEHAVE)
     second.load_int8_scales(path)
-    version = second._int8_version
+    version = second._int8.version
     out2, _ = second.restore(audio)
-    assert second._int8_version == version  # no recalibration
+    assert second._int8.version == version  # no recalibration
     np.testing.assert_array_equal(out1.numpy(), out2.numpy())
 
 

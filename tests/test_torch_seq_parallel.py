@@ -357,7 +357,7 @@ def test_int8_over_one_by_two_on_one_scales_file(packable, tmp_path, scope):
     seq = _port(packable, _cpu_mesh(1, 2), **cfg)
     scales = seq.load_int8_scales(tmp_path / "scales.json")
     got, _ = seq.restore(audio, RATE)
-    assert seq._int8_scales is scales
+    assert seq._int8.scales is scales
     assert float((want - f32).abs().max()) > 1e-4  # int8 really ran
     np.testing.assert_allclose(got.numpy(), want.numpy(), **SHARD_TOL)
 

@@ -291,8 +291,8 @@ def test_http_hot_reload_swaps_weights(dn_stage, sine, tmp_path):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_hot_reload_drops_the_cached_stage_models(dn_stage, sine, tmp_path,
                                                   dtype):
-    """After a restore the pipeline serves its stages from `_cast` (in f32
-    the old modules themselves, in bf16 copies of them), so a reload that
+    """After a restore the pipeline serves its stages from `_copies` (in
+    f32 the old modules themselves, in bf16 copies of them), so a reload that
     only set the attribute would keep serving the old weights: the
     response after /v1/reload must equal a fresh pipeline on the new
     checkpoint and differ from the old one, in both compute dtypes, and
@@ -303,7 +303,8 @@ def test_hot_reload_drops_the_cached_stage_models(dn_stage, sine, tmp_path,
     body = encode_wav(sine[:, None], SR, subtype="FLOAT")
     with _server(pipe) as srv:
         before, _ = _post(srv, body, subtype="FLOAT")
-        assert dtype in pipe._cast  # the stage models of this dtype
+        # the stage models of this dtype
+        assert getattr(torch, dtype) in {k[1] for k in pipe._copies.copies}
         assert _reload(srv, {"denoiser": str(ckpt)}) == {
             "reloaded": ["denoiser"]}
         after, _ = _post(srv, body, subtype="FLOAT")

@@ -394,7 +394,7 @@ def test_config_validation():
           for i, (n, c) in enumerate(packable.items())),
         config=cfg, device="cpu")
     out, rate = pipe.restore(_audio(4000))
-    assert set(pipe._int8_scales) == {"denoiser", "super_resolution",
+    assert set(pipe._int8.scales) == {"denoiser", "super_resolution",
                                       "stereo"}
     assert out.shape == (2, 8000) and rate == 2 * RATE
     assert bool(torch.isfinite(out).all())

@@ -22,7 +22,7 @@ from ml_audio_restoration_tpu.pipeline import (
 from ml_audio_restoration_torch.config import PipelineConfig
 from ml_audio_restoration_torch.pipeline import (RestorationPipeline,
                                                  StagedRestorationPipeline)
-from ml_audio_restoration_torch.pipeline import staged as staged_mod
+from ml_audio_restoration_torch.pipeline import restore as restore_mod
 from test_torch_models import port_model
 from test_torch_pipeline import CHAIN_BAR, CHUNKED, RATE, SMALL
 from test_torch_serving import stages  # noqa: F401
@@ -153,13 +153,14 @@ def test_staged_chunk_count_is_bucketed(stages, monkeypatch):  # noqa: F811
     plain pipeline's, so 9, 10 and 11 chunks share one shape (12), and the
     bucket padding is masked out."""
     frames = []
-    framing = staged_mod.frame_structured
+    framing = restore_mod.frame_structured
 
     def spy(audio, n, chunk, hop):
         frames.append(n)
         return framing(audio, n, chunk, hop)
 
-    monkeypatch.setattr(staged_mod, "frame_structured", spy)
+    # the slab loop both pipelines run (restore.py::run_slabs)
+    monkeypatch.setattr(restore_mod, "frame_structured", spy)
     cfg = dict(sample_rate=8000, chunk_seconds=0.25, overlap_seconds=0.05,
                max_chunks_per_program=16)
     plain, staged = _pair(stages, **cfg)
