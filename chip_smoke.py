@@ -225,7 +225,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                beside its bytes bound, its plain version and ATen's ops;
                the launches of one eval forward of each model against
                models.epilogue_convs (17 for the stereo model);
- 23. resume_jax - resuming a JAX training run at full width: the stereo
+ 23. gemm    - BS-RoFormer's linears on the TF32x3 GEMM
+               (csrc/tf32x3_gemm.cu behind ops/gemm.py) at the ep_317
+               widths' four (K, N) with M = 1,787,832 (a 36-row enhance
+               call): each launch's output on every row against float64
+               and against its plain version, within 8x ATen's float32
+               error (one-pass TF32 shown to fail that line), timed
+               beside its bound at 164.8 TFLOP/s, its plain version, ATen's
+               route and torch.matmul's FFMA (library); the launches of a
+               36-row enhance restore through the pipeline (96);
+ 24. resume_jax - resuming a JAX training run at full width: the stereo
                separator (Adam without clipping, 7 + 2N optimizer leaves)
                and the denoiser (max_grad_norm 1, EMA 0.995; 3 + 2N): a
                trainer's 3 steps written as checkpoint_epoch_1.msgpack in
@@ -233,10 +242,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                train_from_config in a fresh directory resumes it and runs
                the next 2 steps (K2/K3 counted), bit for bit the
                uninterrupted trainer's;
- 24. library - istft(stft(x)) of the 120 s clip (n_fft 2048, hop 512) and
+ 25. library - istft(stft(x)) of the 120 s clip (n_fft 2048, hop 512) and
                transient_spectral_loss with its gradient on 16 x 2 s at
                44.1 kHz, card against CPU;
- 25. profile - utils.profiling.trace around a warm default 120 s restore
+ 26. profile - utils.profiling.trace around a warm default 120 s restore
                and around one stereo train step at full width, each read
                with trace_device_times and trace_top_ops: the kernels'
                total within the wall time, K1 on top of the restore's
@@ -247,7 +256,9 @@ Then one line {"kernels": [...]} (K1, K2, K3, the int8 conv, the IIR
 scan, whose numbers are one crackle walk's with every walk in `shapes`,
 and `floor_ms` its latency floor, and the conv epilogue, whose numbers
 sum one f32 stereo forward's convs at a 44-row slab, its `launches` the
-120 s restore program's and its `path_launches` each path's run; the int8
+120 s restore program's and its `path_launches` each path's run; the
+TF32x3 GEMM, whose numbers sum one transformer's four linears at M =
+1,787,832 and whose `launches` are an ep_317 forward's; the int8
 conv's numbers sum its layers
 over one 64-chunk program, each layer with its path
 in `shapes`, and whose `launches_by_path` splits its launches on the main
@@ -335,7 +346,8 @@ def phase_build():
     from ml_audio_restoration_torch.ops import _build, _latency
 
     sources = ("lstm_recurrence", "lstm_train", "int8_conv", "iir_scan",
-               "conv_epilogue", _latency.PROBE, native.LIBRARY)
+               "conv_epilogue", "tf32x3_gemm", _latency.PROBE,
+               native.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
@@ -6034,6 +6046,225 @@ def phase_epilogue(torch):
             "shapes": shapes}
 
 
+GEMM_ROWS = 1_787_832     # tokens of a 36-row enhance call (36 x 49,662)
+F32X3_FLOPS = 494.5e12 / 3  # TF32 tensor-core peak over three products
+# (name, K, N, epilogue) of BS-RoFormer's linears at the ep_317 widths
+GEMM_SHAPES = (("qkv_gates", 512, 1544, "bias"), ("to_out", 512, 512,
+                                                  "residual"),
+               ("ff_in", 512, 2048, "bias_gelu"),
+               ("ff_out", 2048, 512, "bias_residual"))
+GEMM_PIECES = 8           # row pieces of the checks and the plain version
+GEMM_LINE = 8             # the kernel's bar: 8x ATen's float32 error
+GEMM_ENHANCE_ROWS = 36    # chunks of the enhance restore: one 36-row program
+GEMM_ENHANCE_LAUNCHES = 96  # 4 linears x 24 transformers a program
+
+
+def _gemm_operands(torch, k, n, epilogue, rows, seed):
+    """x (GELU's output where K = 2,048, as the second linear reads), w,
+    bias and residual as the enhance cell's seeded linears draw them."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((rows, k), device=dev, generator=g)
+    if k == 2048:
+        x = F.gelu(x)
+    bound = k ** -0.5
+    w = (torch.rand((n, k), device=dev, generator=g) * 2 - 1) * bound
+    bias = ((torch.rand(n, device=dev, generator=g) * 2 - 1) * bound
+            if "bias" in epilogue else None)
+    residual = (torch.randn((rows, n), device=dev, generator=g)
+                if "residual" in epilogue else None)
+    return x, w, bias, residual
+
+
+def _gemm_aten(torch, x, w, bias, residual, gelu):
+    """The ATen route the model ran before: F.linear, F.gelu, the add."""
+    import torch.nn.functional as F
+
+    y = F.linear(x, w, bias)
+    y = F.gelu(y) if gelu else y
+    return y if residual is None else y + residual
+
+
+def _gemm_errors(torch, G, got, x, w, w_hi, w_lo, bias, residual, gelu):
+    """The kernel's output `got` over all GEMM_ROWS rows held, a row piece
+    at a time, against a float64 product and against the plain version's
+    output on the same piece, beside ATen's float32 route's and one-pass
+    TF32's errors against float64 there: {key: [max abs, a piece]}, and
+    the kernel's error on the rows of its ragged last tile."""
+    w64 = w.double()
+    b64 = None if bias is None else bias.double()
+    res = ([None] * GEMM_PIECES if residual is None
+           else residual.chunk(GEMM_PIECES))
+    errs = {k: [] for k in ("kernel", "plain", "aten", "tf32",
+                            "kernel_plain")}
+    for a, r, y in zip(x.chunk(GEMM_PIECES), res, got.chunk(GEMM_PIECES)):
+        want = _gemm_aten(torch, a.double(), w64, b64,
+                          None if r is None else r.double(), gelu)
+        plain = G.gemm_plain(a, w_hi, w_lo, bias, r, gelu=gelu)
+        aten = _gemm_aten(torch, a, w, bias, r, gelu)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = _gemm_aten(torch, a, w, bias, r, gelu)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        for key, v in (("kernel", y), ("plain", plain), ("aten", aten),
+                       ("tf32", tf32)):
+            errs[key].append(float((v.double() - want).abs().max()))
+        errs["kernel_plain"].append(_max_dev(y, plain))
+        del plain, aten, tf32
+    tail = GEMM_ROWS % 128 or 128
+    last_tile = float((y[-tail:].double() - want[-tail:]).abs().max())
+    return errs, last_tile
+
+
+def _gemm_shape(torch, G, name, k, n, epilogue):
+    """One linear at the main path's shape, GEMM_ROWS rows. The output of
+    one launch over all rows is held, piece by piece (_gemm_errors),
+    against float64 and against the plain version; the launches then timed
+    must give it bit for bit. Timed: the kernel, its plain version (in
+    GEMM_PIECES row pieces, for its memory), ATen's route and
+    torch.matmul alone (library)."""
+    gelu = "gelu" in epilogue
+    x, w, bias, residual = _gemm_operands(torch, k, n, epilogue, GEMM_ROWS,
+                                          k + n)
+    w_hi, w_lo = G.tf32_split(w)
+
+    def kernel():
+        return G.gemm(x, w_hi, w_lo, bias, residual, gelu=gelu)
+
+    got = kernel()
+    errs, last_tile = _gemm_errors(torch, G, got, x, w, w_hi, w_lo, bias,
+                                   residual, gelu)
+    ms = _cuda_ms(torch, kernel, 5)
+    again = kernel()
+    same = bool(torch.equal(again, got))
+    del got, again
+    pieces = list(zip(x.chunk(GEMM_PIECES), [None] * GEMM_PIECES
+                      if residual is None else residual.chunk(GEMM_PIECES)))
+    plain_ms = _cuda_ms(torch, lambda: [G.gemm_plain(
+        a, w_hi, w_lo, bias, r, gelu=gelu) for a, r in pieces], 2)
+    aten_ms = _cuda_ms(torch, lambda: _gemm_aten(torch, x, w, bias, residual,
+                                                 gelu), 3)
+    library_ms = _cuda_ms(torch, lambda: torch.matmul(x, w.T), 3)
+    flops = 2.0 * GEMM_ROWS * n * k
+    n_bytes = 4.0 * (x.numel() + 2 * w.numel() + GEMM_ROWS * n
+                     * (2 if residual is not None else 1))
+    bound_ms = max(flops / F32X3_FLOPS, n_bytes / H100_BYTES_PER_S) * 1e3
+    del x, w, w_hi, w_lo, residual, pieces
+    torch.cuda.empty_cache()
+
+    def ratio(key):
+        return max(e / a for e, a in zip(errs[key], errs["aten"]))
+
+    return {"name": name, "shape": [GEMM_ROWS, k, n], "epilogue": epilogue,
+            "ms": ms, "tflops": flops / ms / 1e9, "bound_ms": bound_ms,
+            "bound_by": "operations", "share_of_bound": bound_ms / ms,
+            "plain_ms": plain_ms, "aten_route_ms": aten_ms,
+            "library_ms": library_ms, "err_f64_pieces": errs,
+            "err_ratio": ratio("kernel"), "plain_ratio": ratio("plain"),
+            "kernel_plain_ratio": ratio("kernel_plain"),
+            "tf32_ratio": min(t / a for t, a in zip(errs["tf32"],
+                                                     errs["aten"])),
+            "last_tile_ratio": last_tile / errs["aten"][-1],
+            "timed_equal_checked": same,
+            "max_abs_err": max(errs["kernel_plain"])}
+
+
+def _gemm_enhance_launches(torch, G):
+    """The kernel's launches in one enhance restore through
+    RestorationPipeline, built as the bs_roformer_f32 configuration
+    (benchmark/configs/bs_roformer_f32.json) states it, with seeded
+    weights, on a recording of GEMM_ENHANCE_ROWS chunks: one program of
+    that many rows (the configuration's cap is 44), the count reset just
+    before it."""
+    from ml_audio_restoration_torch.config import PipelineConfig
+    from ml_audio_restoration_torch.models import (
+        AudioDenoiser, AudioSuperResolution, BSRoformer, StereoSeparator,
+        init_params)
+    from ml_audio_restoration_torch.ops.chunking import num_chunks
+    from ml_audio_restoration_torch.pipeline.restore import (
+        RestorationPipeline, _framing)
+
+    with open(os.path.join(ROOT, "benchmark", "configs",
+                           "bs_roformer_f32.json")) as f:
+        config = json.load(f)
+    gen = torch.Generator().manual_seed(0)
+    dn = dict(config["denoiser"], features=tuple(
+        config["denoiser"]["features"]))
+    stages = [init_params(cls(**kw), gen) for cls, kw in (
+        (AudioDenoiser, dn),
+        (AudioSuperResolution, config["super_resolution"]),
+        (StereoSeparator, config["stereo_separator"]))]
+    kw = dict(config["bs_roformer"], freqs_per_bands=tuple(
+        config["bs_roformer"]["freqs_per_bands"]))
+    enhancer = BSRoformer(kw.pop("dim"), **kw)
+    cfg = PipelineConfig(**config["pipeline"])
+    pipe = RestorationPipeline(*stages, config=cfg, device="cuda",
+                               enhancer=enhancer)
+    chunk, hop, _ = _framing(cfg, cfg.sample_rate)
+    t = chunk + (GEMM_ENHANCE_ROWS - 1) * hop
+    audio = 0.1 * torch.randn((1, t), generator=gen)
+    G.reset_gemm_launch_count()
+    out, _ = pipe.restore(audio)
+    torch.cuda.synchronize()
+    launches = G.gemm_launch_count
+    reading = {"chunks": num_chunks(t, chunk, hop),
+               "cap": cfg.max_chunks_per_program, "launches": launches,
+               "out_shape": list(out.shape),
+               "finite": bool(torch.isfinite(out).all())}
+    del pipe, enhancer, stages, out
+    torch.cuda.empty_cache()
+    return reading
+
+
+def phase_gemm(torch):
+    """BS-RoFormer's linears on the TF32x3 GEMM (csrc/tf32x3_gemm.cu behind
+    ops/gemm.py): at the four (K, N) of the ep_317 widths with M =
+    1,787,832 (a 36-row enhance call), each launch's output over all rows
+    against float64 and against the plain version, each within
+    GEMM_LINE x ATen's float32 error against float64 on every row piece
+    (and on the ragged last tile), while one-pass TF32 fails that line;
+    timed beside its bound at 164.8 TFLOP/s, its plain version, ATen's
+    route (F.linear, F.gelu, the add) and torch.matmul alone (library,
+    FFMA: TF32 off); then the launches of one 36-row enhance restore
+    through the pipeline (96)."""
+    from ml_audio_restoration_torch.ops import gemm as G
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shapes = [_gemm_shape(torch, G, *spec) for spec in GEMM_SHAPES]
+    enhance = _gemm_enhance_launches(torch, G)
+
+    def total(key):
+        return sum(r[key] for r in shapes)
+
+    row = {"phase": "gemm", "shapes": shapes,
+           "transformer": {k: total(k) for k in (
+               "ms", "bound_ms", "plain_ms", "aten_route_ms", "library_ms")},
+           "enhance_restore": enhance}
+    emit(row)
+    held = all(r[key] <= GEMM_LINE for r in shapes for key in (
+        "err_ratio", "plain_ratio", "kernel_plain_ratio", "last_tile_ratio"))
+    if not (held and all(r["tf32_ratio"] > GEMM_LINE for r in shapes)
+            and all(r["timed_equal_checked"] for r in shapes)
+            and enhance["chunks"] == GEMM_ENHANCE_ROWS and enhance["finite"]
+            and enhance["launches"] == GEMM_ENHANCE_LAUNCHES):
+        raise AssertionError(f"TF32x3 GEMM failed: {row}")
+    return {"name": "tf32x3_gemm", "route": "cuda",
+            "source": "ml_audio_restoration_torch/csrc/tf32x3_gemm.cu",
+            "replaces": "none: cuBLAS's FFMA SGEMM and ATen's GELU and "
+                        "adds (the JAX package has no BS-RoFormer)",
+            "launches": enhance["launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "ms": row["transformer"]["ms"],
+            "plain_ms": row["transformer"]["plain_ms"],
+            "bound_ms": row["transformer"]["bound_ms"],
+            "bound_by": "operations",
+            "library_ms": row["transformer"]["library_ms"],
+            "shapes": shapes}
+
+
 def phase_iir(torch):
     """The simulator's IIR path (ops/filters.py over csrc/iir_scan.cu) at
     the denoiser's training shape, B=16, C=1, T=44,100 at 22.05 kHz (the
@@ -6519,6 +6750,7 @@ def main() -> int:
     paths.update(seq)
     iir = _timed_phase(phase_iir, torch)
     epilogue = _timed_phase(phase_epilogue, torch)
+    gemm = _timed_phase(phase_gemm, torch)
     resume = _timed_phase(phase_resume_jax, torch)
     for row in rows[1:]:
         row["path_launches"]["resume_jax"] = resume[row["name"]]
@@ -6585,6 +6817,7 @@ def main() -> int:
     epilogue["path_launches"] = {p: r["launches"]
                                  for p, r in sorted(EPILOGUE_PATHS.items())}
     rows.append(epilogue)
+    rows.append(gemm)
     failures = _epilogue_failures(paths)
     emit({"phase": "epilogue_paths", "readings": EPILOGUE_PATHS,
           "walk_stages": EPILOGUE_WALK_STAGES, "failures": failures})

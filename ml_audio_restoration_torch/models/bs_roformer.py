@@ -15,8 +15,9 @@ attention that shares them. The forward:
    and imaginary parts last;
 2. `BandSplit`: per band RMSNorm(dim_in) then Linear(dim_in, dim);
 3. `depth` x (a transformer along time, one along bands): pre-norm
-   attention and pre-norm feed-forward blocks with residuals and no
-   output norm; attention with RoPE on q and k along the attended axis,
+   attention and pre-norm feed-forward blocks with residuals (each
+   block's module returns its input plus its output) and no output
+   norm; attention with RoPE on q and k along the attended axis,
    softmax(q k^T / sqrt(d)) v, times sigmoid(to_gates(x)) per head,
    then to_out; feed-forward Linear, GELU, Linear;
 4. `final_norm`, then per stem a `MaskEstimator`: per band Linear(dim,
@@ -25,8 +26,14 @@ attention that shares them. The forward:
    (the product's DC and Nyquist bins taken real, as irfft defines it).
 
 RMSNorm is F.normalize(x, dim=-1) * sqrt(d) * gamma. The per-band layers
-run grouped (ops/bands.py), attention on ops/attention.py. Under a bf16
-cast the STFT, the mask product and the iSTFT stay in float32.
+run grouped (ops/bands.py), attention on ops/attention.py. The
+transformers' linears go through ops/gemm.py::linear: on a CUDA float32
+forward with no gradient wanted, one hand-written TF32x3 GEMM a layer
+(`to_qkv` with `to_gates` as one product, `to_out` with the attention
+block's residual, the feed-forward's first Linear with its GELU and its
+second with the block's residual), 4 launches a transformer; elsewhere
+ATen's ops, as the modules computed them. Under a bf16 cast the STFT, the
+mask product and the iSTFT stay in float32.
 
 Spans (utils.profiling.annotate, all timing the device): `enhance.spec`
 (STFT; mask product and iSTFT), `enhance.bands` (band split; final norm
@@ -41,6 +48,7 @@ from torch import nn
 
 from ..ops import bands as B
 from ..ops.attention import attention, rope, rope_table
+from ..ops.gemm import linear
 from ..ops.stft import hann_window, overlap_add_frames, stft
 from ..utils.profiling import annotate
 
@@ -87,18 +95,19 @@ class Attention(nn.Module):
             nn.Linear(heads * dim_head, dim, bias=False), nn.Dropout(0.0))
 
     def forward(self, x):
-        """x [B, n, dim], n along the attended axis -> [B, n, dim]."""
+        """The pre-norm attention block with its residual: x [B, n, dim],
+        n along the attended axis -> x + attention(x) [B, n, dim] (the add
+        in to_out's product)."""
         b, n, _ = x.shape
         h, d = self.heads, self.dim_head
-        x = self.norm(x)
-        qkv = self.to_qkv(x).view(b, n, 3, h, d)
+        qkv, gates = linear(self.norm(x), self.to_qkv, self.to_gates)
+        qkv = qkv.view(b, n, 3, h, d)
         table = self.rotary_embed.table(n)[:, None, None]  # [n, 1, 1, d/2]
         q, k = rope(qkv[:, :, :2], table).unbind(2)  # each [B, n, h, d]
         out = attention(q.transpose(1, 2), k.transpose(1, 2),
                         qkv[:, :, 2].transpose(1, 2))  # [B, h, n, d]
-        gates = torch.sigmoid(self.to_gates(x))  # [B, n, h]
-        out = out.transpose(1, 2) * gates[..., None]
-        return self.to_out(out.reshape(b, n, h * d))
+        out = out.transpose(1, 2) * torch.sigmoid(gates)[..., None]
+        return linear(out.reshape(b, n, h * d), self.to_out[0], residual=x)
 
 
 class FeedForward(nn.Module):
@@ -109,7 +118,11 @@ class FeedForward(nn.Module):
             nn.Dropout(0.0), nn.Linear(dim * mult, dim), nn.Dropout(0.0))
 
     def forward(self, x):
-        return self.net(x)
+        """The pre-norm feed-forward block with its residual: x + (RMSNorm,
+        Linear, GELU, Linear)(x), the add in the last product; the
+        dropouts are identities."""
+        hidden = linear(self.net[0](x), self.net[1], gelu=True)
+        return linear(hidden, self.net[4], residual=x)
 
 
 class Transformer(nn.Module):
@@ -123,8 +136,7 @@ class Transformer(nn.Module):
 
     def forward(self, x):
         for attn, ff in self.layers:
-            x = attn(x) + x
-            x = ff(x) + x
+            x = ff(attn(x))
         return x
 
 

@@ -68,7 +68,8 @@ from ..models import cast_model
 from ..models import denoiser as denoiser_mod
 from ..models import stereo_separator as stereo_mod
 from ..models import super_resolution as sr_mod
-from ..ops import frame_structured, num_chunks, overlap_add, upsample_linear
+from ..ops import (frame_structured, gemm, num_chunks, overlap_add,
+                   upsample_linear)
 from ..parallel.mesh import canonical, replica, shard_batch
 from ..utils.device import no_tf32, resolve_device
 from ..utils.profiling import annotate
@@ -524,10 +525,16 @@ class _Stages(NamedTuple):
     def enhance(self, x):
         """The enhancer on the combined output [N, C_out, T] f32 -> the
         same shape, f32. Its span counts the tokens each of its
-        transformers attends over (rows x STFT frames x bands)."""
+        transformers attends over (rows x STFT frames x bands) and the
+        TF32x3 GEMM's launches in the forward (`gemm_launches`: 4 a
+        transformer on a CUDA f32 forward, else 0)."""
         tokens = self.en.num_tokens(x.shape[0], x.shape[-1])
-        with annotate("restore.enhance", device_ms=True, tokens=tokens):
-            return self.en(x.to(self.dtype)).float()
+        with annotate("restore.enhance", device_ms=True,
+                      tokens=tokens) as span:
+            before = gemm.gemm_launch_count
+            out = self.en(x.to(self.dtype)).float()
+            span.count(gemm_launches=gemm.gemm_launch_count - before)
+            return out
 
     def stack(self, chunks):
         """The whole stack on a chunk batch [N, chunk, 1] -> [N, C_out,
